@@ -1,10 +1,13 @@
 """Sampling CLI: `python -m phoregen_tpu_torch.cli.sample --ckpt ... --phore ...`.
 
 Counterpart of `phoregen_tpu/cli/sample.py` for the PyTorch port: the same
-flags where the port supports them, flax msgpack release checkpoints read
-without flax, and the fused layer stack (`--fused_stack pallas`, the
-hand-written CUDA kernels) as the default. Runs on the card unless
-`--device cpu` is given.
+flags where the port supports them, and flax msgpack release checkpoints
+read without flax. The denoiser's path follows the checkpoint's own
+configuration (the release checkpoints: the per-layer module path,
+`fused_stack: none`) unless overridden: `--fused_stack pallas` selects the
+fused layer stack (four CUDA kernels per layer), `--triplet_knn 0` the
+exact all-k triplets, `--use_pallas_triplet 1` their CUDA kernel. Runs on
+the card unless `--device cpu` is given.
 """
 from __future__ import annotations
 
@@ -39,20 +42,42 @@ def parse_args(argv=None):
     p.add_argument("--sample_steps", type=int, default=0,
                    help="strided sampling: number of denoiser evaluations "
                         "(0 = all T steps)")
-    p.add_argument("--fused_stack", default="pallas",
-                   choices=["none", "xla", "xla2", "pallas", "pallas3",
+    p.add_argument("--save_traj", action="store_true")
+    p.add_argument("--save_traj_prob", type=float, default=0.0,
+                   help="save each accepted molecule's trajectory with this "
+                        "probability (implies trajectory capture when > 0)")
+    p.add_argument("--chunk_steps", type=int, default=0,
+                   help="split the reverse loop into several device calls "
+                        "(not ported: the port's loop is a Python loop of "
+                        "steps already; only 0 is accepted)")
+    p.add_argument("--fused_stack", default="",
+                   choices=["", "none", "xla", "xla2", "pallas", "pallas3",
                             "pallas2"],
-                   help="denoiser layer-stack path; the port runs 'pallas' "
-                        "(four CUDA kernels per layer), the others are later "
-                        "slices")
-    p.add_argument("--fused_block_dtype", default="float32",
-                   choices=["float32", "bfloat16"])
+                   help="override denoiser.fused_stack ('' = the "
+                        "checkpoint's own value): 'none' = per-layer "
+                        "modules, 'pallas' = the fused layer stack (four "
+                        "CUDA kernels per layer), 'xla'/'xla2' = the fused "
+                        "stack's plain PyTorch stages; 'pallas3'/'pallas2' "
+                        "are not ported yet")
+    p.add_argument("--fused_block_dtype", default="",
+                   choices=["", "float32", "bfloat16"])
+    p.add_argument("--edge_mlp_apply", default="",
+                   choices=["", "split", "concat"],
+                   help="override denoiser.edge_mlp_apply (same parameters, "
+                        "same algebra)")
+    p.add_argument("--use_pallas_triplet", type=int, default=-1,
+                   choices=[-1, 0, 1],
+                   help="override denoiser.use_pallas_triplet: 1 = the CUDA "
+                        "kernel for the all-k triplet pool, 0 = its plain "
+                        "PyTorch version, -1 = the checkpoint's own value")
     p.add_argument("--time_budget", type=float, default=0.0,
                    help="per-phore wall-time budget in seconds (0 = none)")
     p.add_argument("--max_batches", type=int, default=0,
                    help="per-phore cap on sampled batches (0 = none)")
     p.add_argument("--triplet_knn", type=int, default=-1,
-                   help="override denoiser.triplet_knn (-1 = checkpoint's)")
+                   help="override denoiser.triplet_knn (0 = exact all-k "
+                        "triplet attention, K > 0 = the K nearest "
+                        "neighbours; -1 = the checkpoint's own value)")
     p.add_argument("--force", action="store_true",
                    help="allow sampling triplet_knn narrower than trained")
     p.add_argument("--seed", type=int, default=2024)
@@ -89,16 +114,37 @@ def resolve_phore_paths(specs):
     return paths
 
 
+def _check_knn_narrowing(args, trained_knn: int, source: str):
+    """Sampling with fewer triplet sources than the model was trained with
+    collapses acceptance (the JAX package's knn-match finding); widening,
+    or exact 0, is safe."""
+    if args.triplet_knn == trained_knn:
+        return
+    narrowing = (args.triplet_knn != 0
+                 and (trained_knn == 0 or args.triplet_knn < trained_knn))
+    if narrowing and not args.force:
+        raise SystemExit(
+            f"[E] sampling triplet_knn={args.triplet_knn} narrows below "
+            f"the {source} triplet_knn={trained_knn}, which collapses "
+            f"acceptance. Use 0 (exact), K >= trained, or --force.")
+    print(f"[W] sampling triplet_knn={args.triplet_knn} != {source} "
+          f"triplet_knn={trained_knn}: 0 (exact) or K >= trained is safe")
+
+
 def main(argv=None):
     args = parse_args(argv)
     if args.ckpt.endswith(".pt"):
         raise SystemExit("[E] the PyTorch port reads flax msgpack release "
                          "checkpoints (<prefix>.msgpack + <prefix>.json); "
-                         "reference .pt checkpoints are not supported yet")
+                         "reference .pt checkpoints are not ported yet "
+                         "(ROADMAP.md, 'Still to port')")
     if args.sample_devices > 1:
         raise SystemExit("[E] --sample_devices > 1: multi-GPU sampling "
-                         "pools are not ported yet; the port samples on one "
-                         "device")
+                         "pools are not ported yet (ROADMAP.md, 'Still to "
+                         "port'); the port samples on one device")
+    if args.chunk_steps > 0:
+        raise SystemExit("[E] --chunk_steps > 0: sample_chunked is not "
+                         "ported yet (ROADMAP.md, 'Still to port')")
     if args.use_ema:
         raise SystemExit("[E] --use_ema: release checkpoints carry bare "
                          "model weights")
@@ -112,19 +158,24 @@ def main(argv=None):
         meta = json.load(f)
     cfg = load_config(args.config) if args.config \
         else config_from_dict(meta["config"])
+    dcfg = cfg.model.denoiser
     if args.triplet_knn >= 0:
-        trained = int(meta["config"]["model"]["denoiser"].get(
-            "triplet_knn", 0))
-        if args.triplet_knn != trained and not args.force and (
-                args.triplet_knn == 0 or args.triplet_knn < trained):
-            raise SystemExit(
-                f"[E] sampling triplet_knn={args.triplet_knn} differs from "
-                f"the trained {trained} in a way that collapses acceptance; "
-                f"use K >= trained or --force")
-        cfg.model.denoiser.triplet_knn = args.triplet_knn
-    cfg.model.denoiser.fused_block_dtype = args.fused_block_dtype
-    pg, meta = load_release_model(args.ckpt, device=args.device, config=cfg,
-                                  fused_stack=args.fused_stack)
+        _check_knn_narrowing(args, int(
+            meta["config"]["model"]["denoiser"].get("triplet_knn", 0)),
+            "trained")
+        dcfg.triplet_knn = args.triplet_knn
+    if args.fused_block_dtype:
+        dcfg.fused_block_dtype = args.fused_block_dtype
+    if args.edge_mlp_apply:
+        dcfg.edge_mlp_apply = args.edge_mlp_apply
+    try:
+        pg, meta = load_release_model(
+            args.ckpt, device=args.device, config=cfg,
+            fused_stack=args.fused_stack or None,
+            use_pallas_triplet=(None if args.use_pallas_triplet < 0
+                                else bool(args.use_pallas_triplet)))
+    except NotImplementedError as e:
+        raise SystemExit(f"[E] {e}")
     print(f"[I] Loaded checkpoint {args.ckpt} (step {meta.get('step')})")
     guidance = None
     if args.pos_guidance_opt:
@@ -133,13 +184,17 @@ def main(argv=None):
     pipeline = GenerationPipeline(
         pg, guidance=guidance, sample_nodes_mode=args.sample_nodes_mode,
         normal_scale=args.normal_scale, add_edge=args.add_edge,
-        batch_size=args.batch_size, seed=args.seed,
+        batch_size=args.batch_size,
+        keep_traj=args.save_traj or args.save_traj_prob > 0, seed=args.seed,
         sample_steps=args.sample_steps, device=args.device)
     os.makedirs(args.result_path, exist_ok=True)
     n_ok = n_fail = 0
     for path in resolve_phore_paths(args.phore):
         res = pipeline.generate(parse_phore_file(path), args.num_samples,
                                 out_dir=args.result_path,
+                                traj_prob=(args.save_traj_prob
+                                           if args.save_traj_prob > 0
+                                           else 1.0),
                                 time_budget=args.time_budget,
                                 max_batches=args.max_batches)
         n_ok += res["n_finished"]

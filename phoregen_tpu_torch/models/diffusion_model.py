@@ -3,8 +3,9 @@
 Counterpart of `phoregen_tpu/models/diffusion_model.py::PhoreDiffNet`:
 node/edge embeddings concatenated with the linear-grid time embedding, the
 phore self-encoder over the fully connected phore graph, the composed
-denoiser (fused layer stack), the 12-way node head, the bond head ('lin' or
-'pre_att') and the [lower, upper] atom-count interval.
+denoiser (per-layer modules or the fused layer stack), the 12-way node
+head, the bond head ('lin' or 'pre_att') and the [lower, upper] atom-count
+interval.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from ..ops.masked import masked_mean
 from ..ops.rbf import (gaussian_smearing, gaussian_smearing_offsets,
                        time_smearing, time_smearing_offsets)
 from .denoiser import UniDenoiser
-from .layers import Dense, NodeUpdateDense, shifted_softplus
+from .layers import Dense, NodeUpdateDense, ParamTree, shifted_softplus
 
 
 class PhoreDiffNet(nn.Module):
@@ -33,8 +34,17 @@ class PhoreDiffNet(nn.Module):
         self.node_embedder = Dense(cfg.num_atom_classes, H - td,
                                    use_bias=False)
         self.phore_embedding = Dense(cfg.phore_feat_dim, H)
+        if cfg.compute_dtype != "float32":
+            raise NotImplementedError(
+                "compute_dtype='bfloat16' is not ported yet (ROADMAP.md, "
+                "'Still to port': bf16)")
         if cfg.hp_emb_with_pos:
-            self.phore_encoder = NodeUpdateDense(1, H, d.n_heads, d.norm)
+            self.phore_encoder = ParamTree(NodeUpdateDense.shapes(
+                1, H, d.norm, d.x2h_out_fc))
+            self._phore_attention = NodeUpdateDense(
+                hidden_dim=H, n_heads=d.n_heads, norm=d.norm,
+                act_fn=d.act_fn, out_fc=d.x2h_out_fc,
+                apply_style=d.edge_mlp_apply)
         self.edge_embedder = Dense(cfg.num_bond_classes, H - td,
                                    use_bias=False)
         bond_in = H if cfg.bond_net_type == "lin" else d.num_r_gaussian + H
@@ -63,7 +73,8 @@ class PhoreDiffNet(nn.Module):
             d = phore_pos[:, :, None, :] - phore_pos[:, None, :, :]
             dist = torch.sqrt((d * d).sum(-1, keepdim=True) + 1e-12)
             pmask = phore_mask[:, :, None] & phore_mask[:, None, :]
-            h = self.phore_encoder(h, dist, pmask)
+            h = self._phore_attention(self.phore_encoder.tree(), h, dist,
+                                      pmask)
         return h
 
     def predict_atom_count(self, h_p, raw_phore_x, phore_mask):

@@ -45,11 +45,14 @@ class PhoreGen:
 
 
 def load_release_model(prefix: str, device="cuda", config=None,
-                       fused_stack: str = "pallas"):
+                       fused_stack=None, triplet_knn=None,
+                       use_pallas_triplet=None):
     """Build `PhoreGen` from `<prefix>.json` (or `config`) with the weights
-    of `<prefix>.msgpack`, on `device`. The release checkpoints were saved
-    with fused_stack 'none'; the fused stack takes the same parameters, and
-    `fused_stack` selects the path the port runs. Returns (pg, meta)."""
+    of `<prefix>.msgpack`, on `device`. `fused_stack`, `triplet_knn` and
+    `use_pallas_triplet` override the denoiser's configuration; None keeps
+    the checkpoint's own value (the release checkpoints say fused_stack
+    'none', the per-layer module path; the fused stack takes the same
+    parameters). Returns (pg, meta)."""
     import torch
 
     from ..config import config_from_dict
@@ -57,9 +60,14 @@ def load_release_model(prefix: str, device="cuda", config=None,
 
     tree, meta = load_release(prefix)
     cfg = config if config is not None else config_from_dict(meta["config"])
-    if fused_stack:
-        cfg.model.denoiser.fused_stack = fused_stack
+    dcfg = cfg.model.denoiser
+    if fused_stack is not None:
+        dcfg.fused_stack = fused_stack
+    if triplet_knn is not None:
+        dcfg.triplet_knn = triplet_knn
+    if use_pallas_triplet is not None:
+        dcfg.use_pallas_triplet = use_pallas_triplet
     pg = PhoreGen(cfg)
-    pg.net.load_state_dict(from_jax_params(tree, cfg), strict=True)
+    pg.net.load_state_dict(from_jax_params(tree), strict=True)
     pg.net.to(torch.device(device)).eval()
     return pg, meta

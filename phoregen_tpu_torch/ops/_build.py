@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels (ctypes route).
 
-`load()` compiles `phoregen_tpu_torch/csrc/layer_stack.cu` with nvcc for
-sm_90a into `phoregen_tpu_torch/_build/` (keyed by the source's hash, so an
-edited source rebuilds) at first use and returns the loaded library. The C
-entries take (pointer array, pointer count, dims array, stream) and return
-a cudaError_t code.
+Each source under `phoregen_tpu_torch/csrc/` becomes one shared library in
+`phoregen_tpu_torch/_build/`, compiled with nvcc for sm_90a at first use and
+keyed by the source's hash, so an edited source rebuilds. `build()` starts
+one nvcc per missing library, all together, and waits for them; `load(name)`
+returns the loaded library. Every C entry takes (pointer array, pointer
+count, dims array, stream) and returns a cudaError_t code.
 """
 from __future__ import annotations
 
@@ -16,15 +17,19 @@ import subprocess
 import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(_PKG, "csrc", "layer_stack.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-ENTRIES = ("ls_stage_node", "ls_stage_trip_pre", "ls_stage_trip_att",
-           "ls_stage_pos")
+# library name -> (source file under csrc/, C entries)
+LIBRARIES = {
+    "layer_stack": ("layer_stack.cu",
+                    ("ls_stage_node", "ls_stage_trip_pre",
+                     "ls_stage_trip_att", "ls_stage_pos")),
+    "triplet_pool": ("triplet_pool.cu", ("tp_triplet_pool",)),
+}
 
 _lock = threading.Lock()
-_lib = None
+_libs = {}
 
 
 def _nvcc() -> str:
@@ -38,40 +43,56 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def library_path() -> str:
-    with open(SRC, "rb") as f:
+def source_path(name: str) -> str:
+    return os.path.join(_PKG, "csrc", LIBRARIES[name][0])
+
+
+def library_path(name: str = "layer_stack") -> str:
+    with open(source_path(name), "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"liblayer_stack_{digest}.so")
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
 
 
-def build(verbose: bool = False) -> str:
-    """Compile the kernels if the current source has no library yet."""
-    out = library_path()
-    if os.path.exists(out):
-        return out
+def build(verbose: bool = False) -> dict:
+    """Compile every library whose current source has none yet, one nvcc
+    each, started together. Returns {name: library path}."""
+    paths = {name: library_path(name) for name in LIBRARIES}
+    missing = [n for n, p in paths.items() if not os.path.exists(p)]
+    if not missing:
+        return paths
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = out + f".tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS] + (["-Xptxas", "-v"] if verbose else []) \
-        + ["-o", tmp, SRC]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose:
-        print(res.stderr)
-    os.replace(tmp, out)
-    return out
+    nvcc = _nvcc()
+    procs = []
+    for name in missing:
+        tmp = paths[name] + f".tmp{os.getpid()}"
+        cmd = [nvcc, *NVCC_FLAGS] + (["-Xptxas", "-v"] if verbose else []) \
+            + ["-o", tmp, source_path(name)]
+        procs.append((name, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, tmp, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{err}")
+            continue
+        if verbose:
+            print(err)
+        os.replace(tmp, paths[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
 
 
-def load():
-    """The loaded kernel library (built on first call)."""
-    global _lib
+def load(name: str = "layer_stack"):
+    """The loaded kernel library `name` (all libraries are built on the
+    first call)."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            for name in ENTRIES:
-                fn = getattr(lib, name)
+        if name not in _libs:
+            lib = ctypes.CDLL(build()[name])
+            for entry in LIBRARIES[name][1]:
+                fn = getattr(lib, entry)
                 fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
                                ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
                 fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+            _libs[name] = lib
+    return _libs[name]

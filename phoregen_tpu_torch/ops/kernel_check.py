@@ -1,5 +1,5 @@
-"""Hold each layer-stack kernel against its plain version on the card, and
-time both, at the shapes the sampling path gives it.
+"""Hold each CUDA kernel against its plain version on the card, and time
+both, at the shapes the sampling paths give it.
 
 `flagship_case()` builds one layer's inputs at the flagship width (H=128,
 16 heads, Wt=32, kNN 32, K8 32) for a batch of B graphs with NP phore and
@@ -7,6 +7,8 @@ NL ligand slots, from a seed, on the given device. `check_kernels(case)`
 returns one row per kernel: max abs/rel error against the plain version on
 the same inputs, kernel and plain times (CUDA events), and the H100 bound
 from the bytes and float32 operations the function needs.
+`triplet_case()` and `check_triplet_pool()` do the same for the all-k
+triplet pool (`ops/pallas_triplet.py`) at B graphs of N ligand slots.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Dict, List
 import torch
 
 from . import layer_stack as ls
+from . import pallas_triplet as pt
 from .knn import knn_neighbors
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, float32 rate outside the
@@ -35,6 +38,9 @@ KERNELS = (
      "phoregen_tpu/ops/layer_stack.py:629 (_stage_pos via _stage_pallas:1114)"),
 )
 SOURCE = "phoregen_tpu_torch/csrc/layer_stack.cu"
+TRIPLET_REPLACES = ("phoregen_tpu/ops/pallas_triplet.py:214 "
+                    "(triplet_pool_pallas -> _kernel:144)")
+TRIPLET_SOURCE = "phoregen_tpu_torch/csrc/triplet_pool.cu"
 
 # atol = rtol per kernel against its plain version. pre_t gets 5e-4: at
 # nearly collinear triplets (sin^2 of the angle ~1e-6) the reference's
@@ -42,8 +48,11 @@ SOURCE = "phoregen_tpu_torch/csrc/layer_stack.cu"
 # flagship inputs both the kernel and the plain version sit up to ~1.7e-4
 # from a float64 evaluation there (H100, 700 W, measured by holding both
 # against the plain version run in float64).
+# triplet_pool gets the same 5e-4 for the same reason: its pre-features
+# carry that angle, and a softmax over k and a pool follow them.
 TOLERANCE = {"stage_node": 1e-4, "stage_triplet_pre": 5e-4,
-             "stage_triplet_att": 1e-4, "stage_pos": 1e-4}
+             "stage_triplet_att": 1e-4, "stage_pos": 1e-4,
+             "triplet_pool": 5e-4}
 
 
 def _random_tree(spec, g: torch.Generator, device):
@@ -141,6 +150,84 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _row(name, source, replaces, ok, got, ref, kern, plain, by, fl, reps):
+    """One result row: errors of `got` against `ref` (tuples of tensors),
+    both times, and the bound from `by` bytes and `fl` operations."""
+    tol = TOLERANCE[name]
+    abs_err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    rel_err = max(float(((a - b).abs() / (b.abs() + 1e-3)).max())
+                  for a, b in zip(got, ref))
+    ok = ok and all(bool(torch.isfinite(a).all()) for a in got) and all(
+        torch.allclose(a, b, atol=tol, rtol=tol) for a, b in zip(got, ref))
+    t_bytes = by / HBM_BYTES_PER_S * 1e3
+    t_ops = fl / FP32_FLOPS_PER_S * 1e3
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "ok": ok,
+        "max_abs_err": abs_err, "max_rel_err": rel_err, "tol": tol,
+        "ms": _time_ms(kern, reps), "plain_ms": _time_ms(plain,
+                                                         max(1, reps // 2)),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": by, "flops": fl, "library_ms": None,
+    }
+
+
+def triplet_case(B=16, N=48, heads=16, Wt=32, num_ang=3, seed=0,
+                 device="cuda") -> Dict:
+    """Inputs of one all-k triplet pool: B graphs of N ligand slots, each
+    with between N/2 and N valid atoms (the rest padding), from a seed."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *shape: torch.randn(*shape, generator=g)
+    n_lig = torch.randint(N // 2, N + 1, (B,), generator=g)
+    n_lig[0] = N
+    mask = torch.arange(N)[None] < n_lig[:, None]
+    c = dict(a_kj=r(B, N, N, Wt), a_ji=r(B, N, N, Wt),
+             q=r(B, N, N, heads, Wt), pos=2.0 * r(B, N, 3), mask=mask,
+             w_ang=0.3 * r(1 + 4 * num_ang, Wt), ln_scale=1.0 + 0.1 * r(Wt),
+             ln_bias=0.1 * r(Wt))
+    c = {k: v.to(device) for k, v in c.items()}
+    c.update(act="relu", norm=True, num_ang_funcs=num_ang)
+    return c
+
+
+def _triplet_work(c: Dict):
+    """(bytes, float32 operations) of one triplet pool on these inputs:
+    every input read once and the output written once; the operations of
+    the triplets that the mask leaves (angle encoding product, sum and
+    LayerNorm, and per head the score and the pool)."""
+    B, N, _, Wt = c["a_kj"].shape
+    heads = c["q"].shape[-2]
+    enc = c["w_ang"].shape[0]
+    by = 4 * (2 * B * N * N * Wt + 2 * B * N * N * heads * Wt + B * N * 4
+              + enc * Wt + 2 * Wt)
+    n = c["mask"].sum(-1).double()
+    triplets = float((n * (n - 1) * (n - 2)).clamp(min=0).sum())
+    fl = triplets * Wt * (2 * enc + 8 + 4 * heads)
+    return by, fl
+
+
+def check_triplet_pool(c: Dict, reps: int = 5) -> Dict:
+    """The triplet-pool kernel against its plain version on the same inputs
+    (compared on the (j, i) pairs the mask leaves; the others must be
+    exactly 0), then both timed."""
+    args = [c[k] for k in ("a_kj", "a_ji", "q", "pos", "mask", "w_ang",
+                           "ln_scale", "ln_bias", "act", "norm",
+                           "num_ang_funcs")]
+    kern = lambda: pt.triplet_pool_cuda(*args)
+    plain = lambda: pt.triplet_pool_plain(*args)
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    m = c["mask"]
+    N = m.shape[1]
+    pair = (m[:, :, None] & m[:, None, :]
+            & ~torch.eye(N, dtype=torch.bool, device=m.device))
+    zero_ok = bool((got[~pair] == 0).all())
+    by, fl = _triplet_work(c)
+    return _row("triplet_pool", TRIPLET_SOURCE, TRIPLET_REPLACES, zero_ok,
+                (got[pair],), (ref[pair],), kern, plain, by, fl, reps)
+
+
 def check_kernels(c: Dict, reps: int = 5) -> List[Dict]:
     """Run every kernel once against its plain version on the same inputs
     (row 'ok' says whether it agrees within TOLERANCE), then time both."""
@@ -163,7 +250,6 @@ def check_kernels(c: Dict, reps: int = 5) -> List[Dict]:
     rows = []
     for name, replaces in KERNELS:
         kern, plain = calls[name]
-        tol = TOLERANCE[name]
         got, ref = kern(), plain()
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
@@ -176,24 +262,7 @@ def check_kernels(c: Dict, reps: int = 5) -> List[Dict]:
             valid = ls.trip_valid(t)[..., None] > 0
             got = (got[0][valid.expand_as(got[0])], got[1])
             ref = (ref[0][valid.expand_as(ref[0])], ref[1])
-        abs_err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
-        rel_err = max(float(((a - b).abs() / (b.abs() + 1e-3)).max())
-                      for a, b in zip(got, ref))
-        finite = all(bool(torch.isfinite(a).all()) for a in got)
-        ok = finite and all(torch.allclose(a, b, atol=tol, rtol=tol)
-                            for a, b in zip(got, ref))
-        ms = _time_ms(kern, reps)
-        plain_ms = _time_ms(plain, max(1, reps // 2))
         by, fl = _work(name, c)
-        t_bytes = by / HBM_BYTES_PER_S * 1e3
-        t_ops = fl / FP32_FLOPS_PER_S * 1e3
-        rows.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": replaces, "ok": ok,
-            "max_abs_err": abs_err, "max_rel_err": rel_err, "tol": tol,
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": by, "flops": fl, "library_ms": None,
-        })
+        rows.append(_row(name, SOURCE, replaces, True, got, ref, kern, plain,
+                         by, fl, reps))
     return rows

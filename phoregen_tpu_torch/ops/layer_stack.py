@@ -543,17 +543,23 @@ def layer_weights(packed: Dict[str, torch.Tensor], l: int):
 
 
 def layer_stack(packed: Dict[str, torch.Tensor], h, x, hb,
-                tables: Dict[str, torch.Tensor], dims: StackDims):
+                tables: Dict[str, torch.Tensor], dims: StackDims,
+                use_kernels: bool = True):
     """h [B,N,H]; x [B,N,3]; hb [B,NL,NL,H]; tables from
     `build_block_tables` plus 'edge_type' [B,N,K,4], 'e_w' [B,N,K] and
     'phore_norm' [B,NP,3]. Runs the four stages layer by layer, as
-    `layer_stack_pallas` does."""
+    `layer_stack_pallas` does; with `use_kernels` false through the plain
+    stages on any device (the counterpart of `layer_stack_xla`)."""
+    A, B1, B2, C = (stage_node, stage_triplet_pre, stage_triplet_att,
+                    stage_pos) if use_kernels else (
+        stage_node_plain, stage_triplet_pre_plain, stage_triplet_att_plain,
+        stage_pos_plain)
     L = packed["lin_b"].shape[0]
     for l in range(L):
         w = layer_weights(packed, l)
-        new_h = stage_node(w, h, x, hb, tables, dims)
-        pre_t, q_z = stage_triplet_pre(w, h, x, hb, tables, dims)
-        hb = stage_triplet_att(w, hb, pre_t, q_z, tables, dims)
-        x = stage_pos(w, new_h, x, hb, tables, dims)
+        new_h = A(w, h, x, hb, tables, dims)
+        pre_t, q_z = B1(w, h, x, hb, tables, dims)
+        hb = B2(w, hb, pre_t, q_z, tables, dims)
+        x = C(w, new_h, x, hb, tables, dims)
         h = new_h
     return h, x, hb

@@ -19,24 +19,25 @@ import torch
 from ..constants import MAX_ATOMS, MIN_ATOMS
 from ..data.batching import collate, pad_sample, pick_bucket, replicate_phore
 from ..data.phore import Phore, featurize_phore
-from .chem import MolReconsError, mol_to_smiles
+from .chem import MolReconsError, SimpleMol, mol_to_smiles
 from .decode import decode_batch
 from .reconstruct import reconstruct_from_generated_with_edges
 from .sampler import GuidanceOpt, Sampler
-from .writers import append_timing, write_sdf, write_smiles
+from .writers import append_sdf, append_timing, write_sdf, write_smiles
 
 
 class GenerationPipeline:
     def __init__(self, pg, guidance: Optional[Sequence[GuidanceOpt]] = None,
                  sample_nodes_mode: str = "uniform", normal_scale: float = 4.0,
                  add_edge: str = "predicted", batch_size: int = 30,
-                 seed: int = 2024, sample_steps: int = 0,
-                 device="cuda"):
+                 keep_traj: bool = False, seed: int = 2024,
+                 sample_steps: int = 0, device="cuda"):
         self.pg = pg
         self.cfg = pg.config
         self.device = torch.device(device)
-        self.sampler = Sampler(pg, guidance=guidance,
+        self.sampler = Sampler(pg, guidance=guidance, keep_traj=keep_traj,
                                sample_steps=sample_steps)
+        self.keep_traj = keep_traj
         self.sample_nodes_mode = sample_nodes_mode
         self.normal_scale = normal_scale
         self.add_edge = add_edge
@@ -102,18 +103,45 @@ class GenerationPipeline:
             raise MolReconsError("disconnected molecule")
         return mol, smiles
 
+    def _write_traj(self, raw: Dict, graph_idx: int, path: str,
+                    stride: int = 10) -> None:
+        """Decode every `stride`-th sampled state of one graph into an SDF
+        trajectory."""
+        traj = raw.get("traj")
+        if traj is None:
+            return
+        ka = self.cfg.model.num_atom_classes
+        kb = self.cfg.model.num_bond_classes
+        node = traj["node"][:, graph_idx].cpu().numpy().astype(int)
+        pos = traj["pos"][:, graph_idx].cpu().numpy()
+        edge = traj["edge"][:, graph_idx].cpu().numpy().astype(int)
+        mask = raw["lig_mask"][graph_idx].cpu().numpy()
+        with open(path, "w") as f:
+            for step in range(0, len(node), stride):
+                fr = decode_batch(np.eye(ka)[node[step]][None],
+                                  pos[step][None],
+                                  np.eye(kb)[edge[step]][None], mask[None],
+                                  include_bond=True)[0]
+                mol = SimpleMol(fr["element"], fr["atom_pos"],
+                                fr["bond_index"], fr["bond_type"])
+                append_sdf(mol, f, name=f"step_{step}")
+
     def generate(self, phore: Phore, num_samples: int,
                  out_dir: Optional[str] = None,
-                 fail_budget_factor: int = 3,
+                 fail_budget_factor: int = 3, traj_stride: int = 10,
+                 traj_prob: float = 1.0,
                  time_budget: float = 0.0, max_batches: int = 0) -> Dict:
         """Sample pools until `num_samples` molecules are accepted, the
         failure budget is spent, `time_budget` seconds pass (0 = none) or
-        `max_batches` pools ran (0 = no limit)."""
+        `max_batches` pools ran (0 = no limit). With `keep_traj`, each
+        accepted molecule's trajectory is written with probability
+        `traj_prob`, every `traj_stride`-th state."""
         t0 = time.time()
         name = phore.name or "phore"
+        traj_rng = np.random.default_rng(self.seed)
         phore_sample = self.prepare_phore(phore)
         lower, upper = self._count_interval(phore_sample)
-        mols, smiles_list = [], []
+        mols, smiles_list, trajs = [], [], []
         n_failed = n_sampled = 0
         budget = fail_budget_factor * num_samples
         timed_out = False
@@ -125,10 +153,10 @@ class GenerationPipeline:
                 timed_out = True
                 break
             n = min(self.batch_size, num_samples - len(mols))
-            decoded, _ = self.sample_pool(phore_sample, n, lower, upper)
+            decoded, raw = self.sample_pool(phore_sample, n, lower, upper)
             n_sampled += n
             n_batches += 1
-            for info in decoded:
+            for gi, info in enumerate(decoded):
                 try:
                     mol, smi = self.reconstruct(info)
                 except MolReconsError:
@@ -136,6 +164,8 @@ class GenerationPipeline:
                     continue
                 mols.append(mol)
                 smiles_list.append(smi)
+                if self.keep_traj and traj_rng.random() < traj_prob:
+                    trajs.append((raw, gi))
         elapsed = time.time() - t0
         if out_dir:
             mol_dir = os.path.join(out_dir, name)
@@ -147,6 +177,10 @@ class GenerationPipeline:
                          os.path.join(mol_dir, f"{name}_smiles.txt"))
             append_timing(os.path.join(out_dir, "time_chain.txt"), name,
                           len(mols), elapsed)
+            for i, (raw, gi) in enumerate(trajs):
+                self._write_traj(raw, gi,
+                                 os.path.join(mol_dir, f"traj_{i}.sdf"),
+                                 stride=traj_stride)
         return {"name": name, "mols": mols, "smiles": smiles_list,
                 "n_finished": len(mols), "n_failed": n_failed,
                 "n_sampled": n_sampled, "count_interval": (lower, upper),

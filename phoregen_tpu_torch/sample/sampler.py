@@ -5,8 +5,8 @@ interval prediction, per-graph count draws, prior draws for positions,
 atom and bond types, then the reverse loop (categorical posteriors with
 Gumbel-max sampling, the Gaussian position posterior with the optional
 guidance energies' gradient subtracted from its mean). The phore embedding
-and the packed layer-stack weights are loop-invariant and computed once
-before the loop. Random draws come from an explicit `torch.Generator`; a
+and, for a fused stack, the packed layer-stack weights are loop-invariant
+and computed once before the loop. Random draws come from an explicit `torch.Generator`; a
 test can inject them per step (`step(..., draws=...)`).
 """
 from __future__ import annotations
@@ -27,11 +27,11 @@ from ..ops.masked import log_sample_categorical, masked_mean
 @dataclasses.dataclass(frozen=True)
 class GuidanceOpt:
     """One guidance drift spec (CLI `--pos_guidance_opt` JSON items)."""
-    type: str                 # 'atom_prox' | 'center_prox'
+    type: str                 # 'atom_prox' | 'center_prox' | 'frag_attract'
     min_d: float = 1.0
     max_d: float = 3.0
-    sigma: float = 1.2
-    weight: float = 1.0
+    sigma: float = 1.2        # frag_attract: adjacency kernel scale (A)
+    weight: float = 1.0       # frag_attract: energy scale
 
 
 def atom_prox_energy(pos, h_edge, bond_mask, lig_mask, min_d, max_d):
@@ -46,6 +46,36 @@ def atom_prox_energy(pos, h_edge, bond_mask, lig_mask, min_d, max_d):
     return masked_mean(hinge, is_bond, dim=(1, 2)).mean()
 
 
+def frag_attract_energy(pos, lig_mask, sigma=1.2, weight=1.0, n_hops=7):
+    """Differentiable connectivity energy: the share of a molecule that a
+    soft diffusion from the centroid-nearest atom cannot reach.
+
+    Soft adjacency W = 1 / (1 + (d^2 / sigma^2)^3), row-normalised over
+    valid atoms; reachability r = seed @ W^(2^n_hops) by repeated squaring;
+    energy = 4 * sum of relu(0.25 / n_valid - r) per graph, averaged. A
+    connected cluster gives about 0, a split one about the far cluster's
+    share, with gradients through the inter-cluster distances."""
+    N = pos.shape[1]
+    maskf = lig_mask.to(pos.dtype)
+    d = pos[:, :, None, :] - pos[:, None, :, :]
+    u = (d * d).sum(-1) / (sigma * sigma)
+    W = 1.0 / (1.0 + u * u * u)
+    W = W * maskf[:, None, :] * maskf[:, :, None]
+    W = W / torch.clamp(W.sum(-1, keepdim=True), min=1e-12)
+    centroid = masked_mean(pos, lig_mask[..., None], dim=1)
+    dc = ((pos - centroid[:, None, :]) ** 2).sum(-1)
+    dc = torch.where(lig_mask.to(torch.bool), dc,
+                     torch.full_like(dc, float("inf")))
+    seed = torch.nn.functional.one_hot(dc.argmin(1), N).to(pos.dtype)
+    for _ in range(n_hops):
+        W = W @ W
+    r = torch.einsum("bn,bnm->bm", seed, W)
+    n_valid = torch.clamp(maskf.sum(-1), min=1.0)
+    thresh = 0.25 / n_valid[:, None]
+    unreached = (torch.relu(thresh - r) * maskf).sum(-1) * 4.0
+    return weight * unreached.mean()
+
+
 def center_prox_energy(pos, lig_mask, phore_center):
     """||ligand centroid - non-EX phore centroid|| per graph, averaged."""
     centroid = masked_mean(pos, lig_mask[..., None], dim=1)
@@ -54,14 +84,15 @@ def center_prox_energy(pos, lig_mask, phore_center):
 
 class Sampler:
     def __init__(self, pg, guidance: Optional[Sequence[GuidanceOpt]] = None,
-                 sample_steps: int = 0):
+                 keep_traj: bool = False, sample_steps: int = 0):
         self.pg = pg
         self.guidance = tuple(guidance) if guidance else ()
         for g in self.guidance:
-            if g.type not in ("atom_prox", "center_prox"):
-                raise NotImplementedError(
-                    f"guidance {g.type!r} is not ported yet "
-                    "(supported: atom_prox, center_prox)")
+            if g.type not in ("atom_prox", "center_prox", "frag_attract"):
+                raise ValueError(
+                    f"unknown guidance {g.type!r} (supported: atom_prox, "
+                    "center_prox, frag_attract)")
+        self.keep_traj = keep_traj
         if not (sample_steps == 0 or sample_steps >= 2):
             raise ValueError("sample_steps must be 0 (full schedule) or >= 2")
         self.sample_steps = sample_steps
@@ -122,8 +153,9 @@ class Sampler:
 
     # ----- the reverse loop -----
     def prepare(self, batch: PhoreGraphBatch) -> Dict:
-        """Loop invariants: phore embedding, packed stack weights, the
-        non-EX phore centroid for center_prox."""
+        """Loop invariants: phore embedding, packed weights of a fused
+        stack (None on the per-layer module path), the non-EX phore
+        centroid for center_prox."""
         pg = self.pg
         p_mask = (batch.phore_x[..., pg.ex_col] != 1) & batch.phore_mask
         with torch.no_grad():
@@ -144,6 +176,9 @@ class Sampler:
                                          batch.lig_mask, g.min_d, g.max_d)
             elif g.type == "center_prox":
                 e = e + center_prox_energy(pos, batch.lig_mask, phore_center)
+            elif g.type == "frag_attract":
+                e = e + frag_attract_energy(pos, batch.lig_mask, g.sigma,
+                                            g.weight)
         return e
 
     def init_state(self, batch: PhoreGraphBatch,
@@ -214,19 +249,33 @@ class Sampler:
                generator: Optional[torch.Generator] = None,
                offset_init_by_center: bool = False) -> Dict:
         """The full reverse process for a padded sampling batch (replicated
-        phore, per-graph lig_mask); ligand content of `batch` is ignored."""
+        phore, per-graph lig_mask); ligand content of `batch` is ignored.
+        With `keep_traj` the result also holds 'traj': the sampled node and
+        edge class ids and positions of the prior draw and of every step,
+        each [S+1, B, ...]."""
         ts = self.schedule()[0]
         S = len(ts)
         inv = self.prepare(batch)
         state = self.init_state(batch, generator, offset_init_by_center)
-        for i in range(S - 1):
-            state, _ = self.step(state, i, batch, inv, False, generator)
-        state, preds = self.step(state, S - 1, batch, inv, True, generator)
-        pred_node, pred_pos, pred_edge = preds
         center = batch.center[:, None, :]
-        return {
+        frames = [state] if self.keep_traj else None
+        for i in range(S):
+            state, preds = self.step(state, i, batch, inv, i == S - 1,
+                                     generator)
+            if frames is not None:
+                frames.append(state)
+        pred_node, pred_pos, pred_edge = preds
+        result = {
             "pred_node": pred_node, "pred_pos": pred_pos + center,
             "pred_edge": pred_edge, "lig_mask": batch.lig_mask,
             "final_state": {"pos": state["pos"] + center,
                             "node": state["node"], "edge": state["edge"]},
         }
+        if frames is not None:
+            result["traj"] = {
+                "node": torch.stack([f["node"].to(torch.int8)
+                                     for f in frames]),
+                "pos": torch.stack([f["pos"] + center for f in frames]),
+                "edge": torch.stack([f["edge"].to(torch.int8)
+                                     for f in frames])}
+        return result

@@ -1,14 +1,23 @@
 """Where one reverse step's time goes, on the card.
 
     python -m phoregen_tpu_torch.tools.profile_sampling --batch 16 --nl 48
+    python -m phoregen_tpu_torch.tools.profile_sampling --nl 48 \
+        --fused_stack none --triplet_knn 0 --use_pallas_triplet 1
 
 Loads release/flagship_r4, builds a sampling batch of `--batch` graphs for
 one pharmacophore in the `--nl` ligand bucket, and runs reverse steps of
-the port's sampler (fused stack, CUDA kernels): `--warmup` steps, then
+the port's sampler: `--fused_stack pallas` (the default here: the fused
+stack's four CUDA kernels) or `none` (the per-layer module path, with
+`--triplet_knn` and `--use_pallas_triplet` as in the sampling CLI; -1 keeps
+the checkpoint's value). `--warmup` steps, then
 `--steps` timed steps (host clock around work that ends in a synchronize),
 then `--steps` steps under torch.profiler. Prints ms/step, the device's busy
 time per step (sum of kernel times), its idle share, and the kernels by
-total device time, then one JSON line with the same numbers.
+total device time, then one JSON line with the same numbers. The idle share
+is given twice: against the step time under the profiler (the window the
+busy time was summed in), and against the step time without it, which is
+what a user's run sees; they part where a step makes thousands of small
+launches and the profiler's own cost per launch stretches the host's time.
 """
 from __future__ import annotations
 
@@ -30,6 +39,11 @@ def main(argv=None):
     ap.add_argument("--warmup", type=int, default=5)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--fused_stack", default="pallas",
+                    choices=["none", "xla", "xla2", "pallas"])
+    ap.add_argument("--triplet_knn", type=int, default=-1)
+    ap.add_argument("--use_pallas_triplet", type=int, default=-1,
+                    choices=[-1, 0, 1])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("[E] needs a CUDA device")
@@ -38,10 +52,16 @@ def main(argv=None):
     from ..data.phore import parse_phore_file
     from ..models.phoregen import load_release_model
     from ..ops import layer_stack as ls
+    from ..ops import pallas_triplet as pt
     from ..sample.pipeline import GenerationPipeline
     from ..sample.sampler import GuidanceOpt
 
-    pg, _ = load_release_model(args.ckpt, device="cuda")
+    pg, _ = load_release_model(
+        args.ckpt, device="cuda", fused_stack=args.fused_stack,
+        triplet_knn=None if args.triplet_knn < 0 else args.triplet_knn,
+        use_pallas_triplet=(None if args.use_pallas_triplet < 0
+                            else bool(args.use_pallas_triplet)))
+    dcfg = pg.config.model.denoiser
     pipe = GenerationPipeline(
         pg, guidance=[GuidanceOpt(type="atom_prox"),
                       GuidanceOpt(type="center_prox")], device="cuda")
@@ -91,13 +111,17 @@ def main(argv=None):
                    "trip_pre_kernel": "stage_triplet_pre (B1)",
                    "trip_att_kernel": "stage_triplet_att (B2)",
                    "pos_kernel": "stage_pos (C)",
-                   "rows_gemm": "node projections (A, B1, C)"}
+                   "rows_gemm": "node projections (A, B1, C)",
+                   "triplet_pool_kernel": "triplet_pool (all-k)"}
     gpu = torch.cuda.get_device_name(0)
     print(f"[profile] {gpu}; batch {args.batch}, NL {args.nl}, "
-          f"NP {batch.phore_x.shape[1]}")
+          f"NP {batch.phore_x.shape[1]}; fused_stack {dcfg.fused_stack}, "
+          f"triplet_knn {dcfg.triplet_knn}, use_pallas_triplet "
+          f"{dcfg.use_pallas_triplet}")
     print(f"[profile] ms/step {ms_step:.3f} (under the profiler "
           f"{prof_ms_step:.3f}); device busy {busy:.3f} ms/step; idle share "
-          f"{1 - busy / prof_ms_step:.3f}")
+          f"{1 - busy / prof_ms_step:.3f} of the profiled step, "
+          f"{1 - busy / ms_step:.3f} of the unprofiled step")
     for ms, cnt, key in rows[:args.top]:
         label = next((v for k, v in stage_names.items() if k in key), "")
         print(f"[profile] {ms:9.4f} ms/step {cnt:7.1f} calls/step  "
@@ -105,12 +129,16 @@ def main(argv=None):
     stage_ms = {v: sum(r[0] for r in rows if k in r[2])
                 for k, v in stage_names.items()}
     print(json.dumps({"gpu": gpu, "batch": args.batch, "nl": args.nl,
+                      "fused_stack": dcfg.fused_stack,
+                      "triplet_knn": dcfg.triplet_knn,
+                      "use_pallas_triplet": dcfg.use_pallas_triplet,
                       "ms_per_step": ms_step,
                       "profiled_ms_per_step": prof_ms_step,
                       "device_busy_ms_per_step": busy,
                       "idle_share": 1 - busy / prof_ms_step,
+                      "idle_share_unprofiled": 1 - busy / ms_step,
                       "stage_ms_per_step": stage_ms,
-                      "launch_counts": dict(ls.LAUNCHES)}))
+                      "launch_counts": dict(ls.LAUNCHES, **pt.LAUNCHES)}))
 
 
 if __name__ == "__main__":

@@ -163,14 +163,14 @@ def flatten_tree(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
     return out
 
 
-def from_jax_params(tree: Dict[str, Any], cfg=None) -> Dict[str, torch.Tensor]:
+def from_jax_params(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax param tree (nested dict of arrays) -> the port's state_dict.
 
-    The port's modules keep flax's names and layouts (`kernel` is
-    [in, out], stacked layer params lead with the layer axis), so the map
-    is the flax path joined with '.'. `cfg` is accepted for symmetry with
-    loaders that need the architecture; the names do not depend on it."""
-    del cfg
+    The port's modules and parameter trees keep flax's names and layouts
+    (`kernel` is [in, out]; stacked layer params lead with the layer axis
+    under `denoiser.layers.layer`, unstacked ones sit under
+    `denoiser.layer_<i>`), so the map is the flax path joined with '.' for
+    every leaf of either path (per-layer modules or the fused stack)."""
     flat = flatten_tree(strip_collections(tree))
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in flat.items()}

@@ -44,7 +44,7 @@ def test_release_loads_strictly_into_the_port():
     from phoregen_tpu_torch.models.phoregen import load_release_model
     pg, meta = load_release_model(RELEASE, device="cpu")
     assert meta["step"] == 6000
-    assert pg.config.model.denoiser.fused_stack == "pallas"
+    assert pg.config.model.denoiser.fused_stack == "none"  # the checkpoint's
     sd = pg.net.state_dict()
     tree, _ = ck.load_release(RELEASE)
     flat = ck.flatten_tree(tree)

@@ -1,5 +1,5 @@
-"""The port's CUDA layer-stack kernels against their plain PyTorch versions,
-on the card. Imports neither JAX nor the JAX package, so it also runs where
+"""The port's CUDA kernels (the four layer-stack stages and the all-k
+triplet pool) against their plain PyTorch versions, on the card. Imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
@@ -10,6 +10,7 @@ import torch
 
 from phoregen_tpu_torch.ops import kernel_check as kc
 from phoregen_tpu_torch.ops import layer_stack as ls
+from phoregen_tpu_torch.ops import pallas_triplet as pt
 
 
 @pytest.fixture
@@ -56,3 +57,91 @@ def test_wrappers_reject_mismatched_shapes(cuda):
         pre_t, q_z = ls.stage_triplet_pre_plain(w, h, x, hb, t, d)
         ls.stage_triplet_att(w, hb, pre_t[..., 1:, :], q_z, t, d)
     assert all(v == 0 for v in ls.LAUNCHES.values()), ls.LAUNCHES
+
+
+POOL_SHAPES = {
+    "small": dict(B=2, N=8, heads=4, Wt=8),
+    "ragged_tile": dict(B=3, N=13, heads=4, Wt=16),   # N % 4 != 0
+    "flagship_nl32": dict(B=4, N=32),
+}
+
+
+def _pool_args(c):
+    return [c[k] for k in ("a_kj", "a_ji", "q", "pos", "mask", "w_ang",
+                           "ln_scale", "ln_bias", "act", "norm",
+                           "num_ang_funcs")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("norm", [True, False])
+@pytest.mark.parametrize("shape", sorted(POOL_SHAPES))
+def test_triplet_pool_kernel_matches_plain(cuda, shape, norm):
+    case = kc.triplet_case(device=cuda, seed=1, **POOL_SHAPES[shape])
+    case["norm"] = norm
+    row = kc.check_triplet_pool(case, reps=1)
+    assert row["ok"], (row["max_abs_err"], row["tol"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", sorted(pt.ACTS))
+def test_triplet_pool_kernel_activations(cuda, act):
+    case = kc.triplet_case(device=cuda, seed=2, **POOL_SHAPES["small"])
+    case["act"] = act
+    row = kc.check_triplet_pool(case, reps=1)
+    assert row["ok"], (act, row["max_abs_err"])
+
+
+@pytest.mark.cuda
+def test_triplet_pool_counts_and_backward(cuda):
+    """One launch per call with `use_pallas`; the backward recomputes
+    through the plain version and matches its gradients."""
+    case = kc.triplet_case(device=cuda, seed=3, **POOL_SHAPES["small"])
+    args = _pool_args(case)
+    grads = []
+    for use_pallas in (True, False):
+        ins = [a.clone().requires_grad_(True)
+               if torch.is_tensor(a) and a.dtype == torch.float32 else a
+               for a in args]
+        pt.reset_launch_counts()
+        out = pt.triplet_pool(*ins, use_pallas=use_pallas)
+        assert pt.LAUNCHES["triplet_pool"] == int(use_pallas)
+        (out ** 2).sum().backward()
+        grads.append([a.grad for a in ins if torch.is_tensor(a)
+                      and a.dtype == torch.float32])
+    for a, b in zip(*grads):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+def test_triplet_pool_has_no_fallback(cuda, monkeypatch):
+    """With `use_pallas` and CUDA tensors a missing library raises; the
+    plain version is not taken in its place."""
+    from phoregen_tpu_torch.ops import _build
+
+    def no_library(name="layer_stack"):
+        raise RuntimeError("nvcc not found")
+    monkeypatch.setattr(_build, "load", no_library)
+    monkeypatch.setattr(pt, "triplet_pool_plain", lambda *a, **k: pytest.fail(
+        "the plain version ran in place of the kernel"))
+    case = kc.triplet_case(device=cuda, seed=4, **POOL_SHAPES["small"])
+    pt.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="nvcc"):
+        pt.triplet_pool(*_pool_args(case), use_pallas=True)
+    assert pt.LAUNCHES["triplet_pool"] == 0
+
+
+@pytest.mark.cuda
+def test_triplet_pool_wrapper_rejects_bad_inputs(cuda):
+    case = kc.triplet_case(device=cuda, seed=5, **POOL_SHAPES["small"])
+    args = _pool_args(case)
+    pt.reset_launch_counts()
+    with pytest.raises(ValueError, match="a_ji"):
+        pt.triplet_pool_cuda(args[0], args[1][:, 1:], *args[2:])
+    with pytest.raises(ValueError, match="contiguous"):
+        pt.triplet_pool_cuda(args[0].transpose(1, 2), *args[1:])
+    with pytest.raises(TypeError, match="float32"):
+        pt.triplet_pool_cuda(args[0].double(), *args[1:])
+    with pytest.raises(NotImplementedError, match="activation"):
+        pt.triplet_pool_cuda(*args[:8], "swish", True, 3)
+    assert pt.LAUNCHES["triplet_pool"] == 0

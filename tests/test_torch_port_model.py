@@ -119,9 +119,14 @@ def test_count_interval_matches_jax(models):
 @pytest.mark.parametrize("fused", ["none", "xla", "xla2", "pallas3",
                                    "pallas2"])
 def test_unported_fused_stacks_raise(fused):
+    """'pallas3' / 'pallas2' need stage kernels that are still to port and
+    say so; 'none', 'xla' and 'xla2' need no further kernel and build."""
     cfg = port_config(small_config("xla"), fused)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PhoreGen(cfg)
+    if fused in ("pallas3", "pallas2"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            PhoreGen(cfg)
+    else:
+        assert PhoreGen(cfg).net.denoiser.fused_stack == fused
 
 
 def test_fused_stack_requires_flagship_config():

@@ -63,8 +63,71 @@ def _sampling_batch(pg, counts=(5, 9, 12)):
     return replicate_phore(sample, len(counts), np.asarray(counts), 16)
 
 
+@pytest.fixture(scope="module")
+def module_models():
+    """The same small network on the per-layer module path
+    (`fused_stack='none'`, exact all-k triplets) in both packages."""
+    jcfg = small_config("none", trip_k=0)
+    batch = next(iter(PhoreDataLoader(synthetic_dataset(0, 3, max_atoms=12),
+                                      jcfg, 3, shuffle=False)))
+    jpg = JPhoreGen(jcfg)
+    params = jpg.init_params(jax.random.PRNGKey(0), batch)
+    pg = PhoreGen(port_config(jcfg, "none"))
+    pg.net.load_state_dict(from_jax_params(params), strict=True)
+    pg.net.eval()
+    return jpg, params, pg
+
+
 def test_one_reverse_step_matches_jax(models):
-    jpg, params, pg = models
+    _check_one_reverse_step(*models)
+
+
+def test_one_reverse_step_matches_jax_module_path(module_models):
+    jpg, params, pg = module_models
+    assert pg.net.pack_fused() is None
+    _check_one_reverse_step(jpg, params, pg)
+
+
+def test_one_reverse_step_matches_step_core(module_models):
+    """The JAX sampler's own `step_core` on the same state: its network
+    predictions (2e-4, as above) and categorical posteriors (its draws come
+    from a JAX key, so sampled ids are not compared). The posteriors are
+    log-probabilities of each package's own predictions, where a 2e-4
+    logit difference grows in the low-probability classes: 2e-3."""
+    jpg, params, pg = module_models
+    hb = _sampling_batch(pg)
+    batch = hb.to("cpu")
+    sp = psampler.Sampler(pg, [psampler.GuidanceOpt(**g) for g in GUIDANCE])
+    state = sp.init_state(batch, torch.Generator().manual_seed(1))
+    i = 3
+    new, (pn, pp, pe) = sp.step(state, i, batch, sp.prepare(batch), False,
+                                torch.Generator().manual_seed(2))
+    from phoregen_tpu.data.batching import PhoreGraphBatch as JBatch
+    jb = JBatch(**{k: jnp.asarray(np.asarray(v)) for k, v in
+                   vars(hb).items()})
+    step_core, _, S = jsampler.Sampler(
+        jpg, [jsampler.GuidanceOpt(**g) for g in GUIDANCE])._reverse_parts(
+        params, jb)
+    J = lambda a: jnp.asarray(a.numpy())
+    carry = (jax.random.PRNGKey(0), J(state["pos"]),
+             J(state["node"]).astype(jnp.int8), J(state["log_node"]),
+             J(state["edge"]).astype(jnp.int8), J(state["log_edge"]))
+    jcarry, jpreds = step_core(carry, i, is_final=False)
+    assert S == 8
+    lm = hb.lig_mask
+    bm = lm[:, :, None] & lm[:, None, :]
+    for got, want, m in zip((pn, pp, pe), jpreds, (lm, lm, bm)):
+        np.testing.assert_allclose(got.numpy()[m], np.asarray(want)[m],
+                                   atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(new["log_node"].numpy()[lm],
+                               np.asarray(jcarry[3])[lm], atol=2e-3,
+                               rtol=2e-3)
+    np.testing.assert_allclose(new["log_edge"].numpy()[bm],
+                               np.asarray(jcarry[5])[bm], atol=2e-3,
+                               rtol=2e-3)
+
+
+def _check_one_reverse_step(jpg, params, pg):
     hb = _sampling_batch(pg)
     batch = hb.to("cpu")
     sp = psampler.Sampler(pg, [psampler.GuidanceOpt(**g) for g in GUIDANCE])
@@ -174,6 +237,29 @@ def test_energies_match_jax():
     assert float(e) == pytest.approx(float(je), abs=1e-5)
 
 
+def test_frag_attract_energy_and_gradient_match_jax():
+    rng = np.random.default_rng(4)
+    pos = rng.normal(size=(2, 7, 3)).astype(np.float32)
+    pos[0, 4:] += 6.0                       # graph 0 splits into two clusters
+    lig = np.ones((2, 7), bool)
+    lig[1, 5:] = False
+    p = torch.from_numpy(pos).requires_grad_(True)
+    e = psampler.frag_attract_energy(p, torch.from_numpy(lig), 1.2, 2.0)
+    g, = torch.autograd.grad(e, p)
+    je, jg = jax.value_and_grad(
+        lambda q: jsampler.frag_attract_energy(q, jnp.asarray(lig), 1.2,
+                                               2.0))(jnp.asarray(pos))
+    assert e.item() > 0.1
+    assert e.item() == pytest.approx(float(je), abs=1e-5)
+    np.testing.assert_allclose(g.numpy(), np.asarray(jg), atol=1e-5,
+                               rtol=1e-4)
+
+
+def test_unknown_guidance_raises(models):
+    with pytest.raises(ValueError, match="frag_attract"):
+        psampler.Sampler(models[2], [psampler.GuidanceOpt(type="magnet")])
+
+
 @pytest.mark.parametrize("mode", ["uniform", "normal"])
 def test_sample_counts_bounds(mode):
     c = psampler.Sampler.sample_counts(np.random.default_rng(0), 10, 20, 64,
@@ -208,3 +294,57 @@ def test_pipeline_end_to_end_writes_sdf(models, tmp_path):
         text = f.read()
     assert "V2000" in text and text.rstrip().endswith("$$$$")
     assert os.path.exists(os.path.join(out_dir, "time_chain.txt"))
+
+
+def test_pipeline_keeps_and_writes_trajectories(module_models, tmp_path):
+    """keep_traj on the module path: the sampler returns the prior draw and
+    every step's state, the pipeline writes them as a multi-record SDF."""
+    _, _, pg = module_models
+    pipe = GenerationPipeline(
+        pg, guidance=[psampler.GuidanceOpt(type="frag_attract")],
+        batch_size=2, keep_traj=True, seed=3, device="cpu")
+
+    def lenient(info):
+        mol = reconstruct_from_generated_with_edges(
+            info, add_edge="predicted", check_validity=False)
+        return mol, mol.formula()
+    pipe.reconstruct = lenient
+    phore = parse_phore_text(PHORE_TEXT, "pipe_phore")
+    sample = pipe.prepare_phore(phore)
+    _, raw = pipe.sample_pool(sample, 2, 6, 9)
+    T1 = pg.num_timesteps + 1
+    assert tuple(raw["traj"]["pos"].shape) == (T1, 2, 16, 3)
+    assert tuple(raw["traj"]["edge"].shape) == (T1, 2, 16, 16)
+    assert torch.equal(raw["traj"]["node"][-1].long(),
+                       raw["final_state"]["node"])
+    assert torch.equal(raw["traj"]["pos"][-1], raw["final_state"]["pos"])
+    out_dir = str(tmp_path / "gen")
+    res = pipe.generate(phore, num_samples=2, out_dir=out_dir, traj_stride=4)
+    assert res["n_finished"] == 2
+    with open(os.path.join(out_dir, "pipe_phore", "traj_1.sdf")) as f:
+        text = f.read()
+    assert text.count("$$$$") == len(range(0, T1, 4))
+    assert "step_8" in text
+
+
+def test_cli_follows_the_checkpoint_and_guards_narrowing(tmp_path):
+    from phoregen_tpu_torch.cli import sample as cli
+    args = cli.parse_args(["--ckpt", "x", "--phore", "y"])
+    assert args.fused_stack == "" and args.triplet_knn == -1
+    assert args.use_pallas_triplet == -1
+    release = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "release", "flagship_r4")
+    base = ["--ckpt", release, "--phore", "none.phore", "--device", "cpu",
+            "--result_path", str(tmp_path)]
+    with pytest.raises(SystemExit, match="narrows below"):
+        cli.main(base + ["--triplet_knn", "8"])
+    with pytest.raises(SystemExit, match="pallas2"):
+        cli.main(base + ["--fused_stack", "pallas2"])
+    with pytest.raises(SystemExit, match="ROADMAP"):
+        cli.main(base + ["--fused_block_dtype", "bfloat16"])
+    with pytest.raises(SystemExit, match="ROADMAP"):
+        cli.main(base + ["--sample_devices", "2"])
+    with pytest.raises(SystemExit, match="ROADMAP"):
+        cli.main(base + ["--chunk_steps", "100"])
+    with pytest.raises(SystemExit, match="ROADMAP"):
+        cli.main(["--ckpt", "ref.pt", "--phore", "y"])
