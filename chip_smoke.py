@@ -8,10 +8,11 @@ Phases (any failure exits non-zero and prints no result):
    phoregen_tpu_torch/csrc/ with nvcc (sm_90a), one nvcc per source, all
    started together;
 2. kernels: holds each kernel against its plain PyTorch version on the
-   card and times both with CUDA events: the four layer-stack kernels at
-   flagship shapes (B=16, NP=96, NL=80, H=128, 16 heads, Wt=32, kNN 32,
-   K8 32) within atol = rtol = 1e-4 (5e-4 for the triplet pre-features),
-   and the all-k triplet pool at B=16, 16 heads, Wt=32 for N=48 and N=80
+   card and times both with CUDA events: the four layer-stack kernels and
+   the two merged ones (A + B1, B2 + C) at flagship shapes (B=16, NP=96,
+   NL=80, H=128, 16 heads, Wt=32, kNN 32, K8 32) within atol = rtol = 1e-4
+   (5e-4 for the triplet pre-features, whose angle arithmetic the merged
+   kernel shares), and the all-k triplet pool at B=16, 16 heads, Wt=32 for N=48 and N=80
    with padded slots, within 5e-4 on the unmasked (j, i) pairs (masked
    ones must be exactly 0); see ops/kernel_check.py::TOLERANCE for why;
 3. main path 1, the fused layer stack (`fused_stack='pallas'`): loads
@@ -27,13 +28,41 @@ Phases (any failure exits non-zero and prints no result):
    (`use_pallas_triplet=True`): the same recipe at the same width and
    depth; the triplet pool must have been launched steps x layers x blocks
    times and the layer-stack kernels not at all;
-5. check: accepted molecules are finite and written, and one forward of
+5. main path 3, training at full width: the trainer's own step (`Run`,
+   release/flagship_r4's configuration and weights, `fused_stack='pallas2'`,
+   float32) for 8 steps of 16 graphs of the hermetic `mixed` corpus, four
+   in the NL=48 bucket and four in the NL=80 bucket. Loss and gradient norm
+   must be finite on every step, parameters and EMA must have moved, the
+   two merged kernels must have been launched steps x 6 times each and no
+   other kernel; and on one NL=80 batch the loss and every parameter
+   gradient with kernels forward must agree with the all-plain path
+   (`fused_stack='xla'`) on the same draws, in both buckets: loss within
+   1e-4 relative, the whole gradient within 3e-3 (L2 norm of the difference
+   over the L2 norm), each leaf within 5e-2 of its largest gradient. These
+   are looser than the 1e-4 per leaf that tests/test_torch_port_cuda.py
+   holds the same backward to on one small stack, because here the two
+   forwards differ by float32 rounding (kernels against plain stages)
+   before six layers at full width, and the trained weights sit near a
+   stationary point, where a gradient is a small remainder of large terms
+   that cancel: moving the noised positions by 1e-6 moves the plain path's
+   own gradients by 6e-5 (L2) and 2.5e-3 (worst leaf) at NL=80
+   (`tools/profile_training --sensitivity 1e-6`), and the kernels' forward
+   differs from the plain one by several such roundings (measured 4.2e-4
+   and 8.9e-3). Leaves whose gradient is below 1e-4 of the largest leaf's
+   are held to that floor (a softmax's key bias has an exactly zero
+   gradient and only rounding noise). Prints
+   steps/s, ms/step by bucket, forward and backward ms and peak memory;
+6. main path 4, sampling with `fused_stack='pallas2'`: the recipe of path
+   1 through the two merged kernels, steps x 6 launches each;
+7. check: accepted molecules are finite and written, and one forward of
    the flagship network on a small input agrees between the card (kernels)
-   and the CPU (plain versions), on both paths, within atol = rtol = 1e-3
-   (6 layers of float32 attention, different summation order).
+   and the CPU (plain versions), on the three sampling paths, within
+   atol = rtol = 1e-3 (6 layers of float32 attention, different summation
+   order).
 The second-to-last lines are the `kernels` JSON and the card's name and
 power limit; the last line is the device JSON.
 """
+import copy
 import json
 import os
 import subprocess
@@ -44,10 +73,24 @@ import time
 FORWARD_TOL = 1e-3
 NUM_STEPS = 1000
 BATCH = 16
+TRAIN_STEPS_PER_BUCKET = 4
+TRAIN_BUCKETS = (48, 80)
+LOSS_TOL = 1e-4
+GRAD_TOL = 3e-3        # whole gradient, relative L2
+LEAF_GRAD_TOL = 5e-2   # each leaf, of its largest gradient
+GRAD_FLOOR = 1e-4
 PATHS = {
     "fused": dict(fused_stack="pallas"),
     "module": dict(fused_stack="none", triplet_knn=0,
                    use_pallas_triplet=True),
+    "pallas2": dict(fused_stack="pallas2"),
+}
+# kernels a path launches steps x layers x blocks times; every other: never
+PATH_KERNELS = {
+    "fused": ("stage_node", "stage_triplet_pre", "stage_triplet_att",
+              "stage_pos"),
+    "module": ("triplet_pool",),
+    "pallas2": ("stage_node_pre", "stage_att_pos"),
 }
 
 
@@ -75,7 +118,7 @@ def print_row(r, shape: str) -> None:
 
 
 def phase_kernels(kc):
-    """Rows of the four layer-stack kernels, and the triplet pool's row for
+    """Rows of the six layer-stack kernels, and the triplet pool's row for
     each N."""
     import torch
     case = kc.flagship_case(B=16, NP=96, NL=80, device="cuda", seed=0)
@@ -98,7 +141,7 @@ def phase_kernels(kc):
 
 def phase_main(root, label, ls, pt):
     """Sample one batch through the path `label`; returns (launch counts of
-    all five kernels on that run, the NL bucket)."""
+    all seven kernels on that run, the NL bucket)."""
     import numpy as np
     import torch
     from phoregen_tpu_torch.data.phore import parse_phore_file
@@ -148,14 +191,10 @@ def phase_main(root, label, ls, pt):
           f"{res['n_finished'] / wall:.4f} (wall {wall:.3f} s)")
     print(f"{tag} launches: {json.dumps(launches)} "
           f"(a kernel of this path: {per_kernel})", flush=True)
-    stack = [v for k, v in launches.items() if k != "triplet_pool"]
-    if label == "fused":
-        if any(v <= 0 for v in stack) or launches["triplet_pool"] != 0:
-            fail(f"the fused path must launch each layer-stack kernel and "
-                 f"no triplet pool: {launches}")
-    elif launches["triplet_pool"] != per_kernel or any(stack):
-        fail(f"the module path must launch the triplet pool {per_kernel} "
-             f"times and no layer-stack kernel: {launches}")
+    want = {k: per_kernel * (k in PATH_KERNELS[label]) for k in launches}
+    if launches != want:
+        fail(f"the {label} path must launch {PATH_KERNELS[label]} "
+             f"{per_kernel} times each and no other kernel: {launches}")
     if res["n_sampled"] != BATCH:
         fail(f"{res['n_sampled']} sampled, expected {BATCH}")
     if len(sdfs) != res["n_finished"]:
@@ -169,6 +208,137 @@ def phase_main(root, label, ls, pt):
     if not 4 <= lo <= up <= 78:
         fail(f"count interval {res['count_interval']} out of bounds")
     return launches, pipe.last_bucket
+
+
+def check_gradients(pg, plain, batch, nl, lig_noise_std):
+    """Loss and parameter gradients of `pg` (kernels forward) against
+    `plain` (the plain stages) on one batch and the same draws."""
+    import torch
+    res = []
+    for model in (pg, plain):
+        model.net.zero_grad(set_to_none=True)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        loss, _ = model.compute_loss(batch, gen, lig_noise_std=lig_noise_std)
+        loss.backward()
+        res.append((float(loss.detach()), {
+            n: p.grad.clone() for n, p in model.net.named_parameters()}))
+        model.net.zero_grad(set_to_none=True)
+    (l_k, g_k), (l_p, g_p) = res
+    rel_loss = abs(l_k - l_p) / abs(l_p)
+    top = max(float(g.abs().max()) for g in g_p.values())
+    diff2 = sum(float(((g_k[n] - g) ** 2).sum()) for n, g in g_p.items())
+    rel_grad = (diff2 / sum(float((g ** 2).sum())
+                            for g in g_p.values())) ** 0.5
+    worst, worst_name = 0.0, ""
+    for n, g in g_p.items():
+        if not torch.isfinite(g_k[n]).all():
+            fail(f"non-finite gradient of {n}")
+        err = float((g_k[n] - g).abs().max()) / max(
+            float(g.abs().max()), GRAD_FLOOR * top)
+        if err > worst:
+            worst, worst_name = err, n
+    print(f"[check train] NL={nl} batch, kernels forward vs plain stages: "
+          f"loss {l_k:.6f} vs {l_p:.6f} (relative {rel_loss:.3e}, tol "
+          f"{LOSS_TOL}); gradient relative L2 error {rel_grad:.3e} (tol "
+          f"{GRAD_TOL}); worst leaf relative error {worst:.3e} "
+          f"({worst_name}; tol {LEAF_GRAD_TOL})", flush=True)
+    if rel_loss > LOSS_TOL or rel_grad > GRAD_TOL or worst > LEAF_GRAD_TOL:
+        fail("loss or gradients with kernels forward disagree with the "
+             "plain path")
+
+
+def phase_train(root, ls, pt):
+    """Main path 3: train steps at full width through `fused_stack=pallas2`;
+    returns the launch counts of all seven kernels on those steps."""
+    import numpy as np
+    import torch
+    from phoregen_tpu_torch.models.phoregen import PhoreGen
+    from phoregen_tpu_torch.tools.profile_training import (
+        bucket_batches, flagship_trainer, forward_backward_ms)
+
+    tag = "[main train]"
+    prefix = os.path.join(root, "release", "flagship_r4")
+    with tempfile.TemporaryDirectory() as run_dir:
+        run = flagship_trainer(prefix, "cuda", "pallas2", run_dir=run_dir)
+        cfg, state = run.config, run.state
+        dcfg = cfg.model.denoiser
+        if cfg.train.batch_size != BATCH:
+            fail(f"flagship_r4 is expected to train with batches of {BATCH}")
+        batches = {nl: [b.to("cuda") for b in bucket_batches(
+            cfg, nl, TRAIN_STEPS_PER_BUCKET + 1, seed=2024)]
+            for nl in TRAIN_BUCKETS}
+        named = dict(state.net.named_parameters())
+        before = {n: p.detach().clone() for n, p in named.items()}
+        # one step per bucket outside the count, so that the timed steps
+        # find the allocator warm
+        for nl in TRAIN_BUCKETS:
+            run.train_step(state, 0, batches[nl][-1])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ls.reset_launch_counts()
+        pt.reset_launch_counts()
+        ms = {}
+        step = 0
+        t_all = time.time()
+        for nl in TRAIN_BUCKETS:
+            t0 = time.time()
+            for b in batches[nl][:TRAIN_STEPS_PER_BUCKET]:
+                m = run.train_step(state, 1 + step, b)
+                step += 1
+                loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+                print(f"{tag} step {step} NL={nl}: loss {loss:.4f} "
+                      f"grad_norm {gnorm:.4f}")
+                if not (np.isfinite(loss) and np.isfinite(gnorm)):
+                    fail(f"non-finite loss or gradient norm at step {step}")
+            torch.cuda.synchronize()
+            ms[nl] = (time.time() - t0) * 1e3 / TRAIN_STEPS_PER_BUCKET
+        wall = time.time() - t_all
+        launches = dict(ls.LAUNCHES, **pt.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        per_kernel = step * dcfg.num_layers * dcfg.num_blocks
+        print(f"{tag} fused_stack={dcfg.fused_stack} train.dtype="
+              f"{cfg.train.dtype}; {step} steps of {BATCH} graphs, "
+              f"{dcfg.num_blocks} block x {dcfg.num_layers} layers, hidden "
+              f"{dcfg.hidden_dim}, {dcfg.n_heads} heads")
+        print(f"{tag} steps/s {step / wall:.4f}; ms/step "
+              + ", ".join(f"NL={nl}: {v:.3f}" for nl, v in ms.items()))
+        for nl in TRAIN_BUCKETS:
+            f_ms, b_ms = forward_backward_ms(run, batches[nl][0])
+            print(f"{tag} NL={nl}: forward {f_ms:.3f} ms, backward "
+                  f"{b_ms:.3f} ms")
+        print(f"{tag} peak memory {peak / 2 ** 30:.3f} GiB "
+              f"(torch.cuda.max_memory_allocated over the {step} steps)")
+        print(f"{tag} launches: {json.dumps(launches)} "
+              f"(a kernel of this path: {per_kernel})", flush=True)
+        want = {k: per_kernel * (k in PATH_KERNELS["pallas2"])
+                for k in launches}
+        if launches != want:
+            fail(f"training through pallas2 must launch "
+                 f"{PATH_KERNELS['pallas2']} {per_kernel} times each and no "
+                 f"other kernel: {launches}")
+        if state.step != step + len(TRAIN_BUCKETS):
+            fail(f"the state counts {state.step} steps")
+        moved = sum(not torch.equal(before[n], p.detach())
+                    for n, p in named.items())
+        ema_moved = sum(not torch.equal(before[n], state.ema_params[n])
+                        for n in named)
+        print(f"{tag} leaves moved: params {moved}/{len(named)}, EMA "
+              f"{ema_moved}/{len(named)}")
+        # a decay of 0.9999 moves a leaf's shadow by less than one float32
+        # step where the leaf itself barely moved
+        if moved < 0.9 * len(named) or ema_moved < 0.5 * len(named):
+            fail("parameters or EMA did not move")
+
+        # kernels forward vs the all-plain path, same weights, same draws
+        pcfg = copy.deepcopy(cfg)
+        pcfg.model.denoiser.fused_stack = "xla"
+        plain = PhoreGen(pcfg)
+        plain.net.load_state_dict(state.net.state_dict())
+        plain.net.to("cuda")
+        for nl in TRAIN_BUCKETS:
+            check_gradients(run.pg, plain, batches[nl][0], nl,
+                            cfg.train.lig_noise_std)
+    return launches
 
 
 def phase_reference(root, label):
@@ -250,8 +420,12 @@ def main():
     torch.cuda.empty_cache()
     launches_mod, bucket = phase_main(root, "module", ls, pt)
     torch.cuda.empty_cache()
-    phase_reference(root, "fused")
-    phase_reference(root, "module")
+    launches_train = phase_train(root, ls, pt)
+    torch.cuda.empty_cache()
+    launches_p2, _ = phase_main(root, "pallas2", ls, pt)
+    torch.cuda.empty_cache()
+    for label in PATHS:
+        phase_reference(root, label)
 
     # the triplet pool's row at the N the module path gave it; the other N
     # rides along under "other_shapes"
@@ -262,8 +436,17 @@ def main():
         for n, r in pool.items() if n != main_n])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels = [{k: dict(r, launches=launches[r["name"]])[k] for k in keys}
-               for r in rows]
+    kernels = []
+    for r in rows:
+        name = r["name"]
+        if name in PATH_KERNELS["fused"]:
+            kernels.append({k: dict(r, launches=launches[name])[k]
+                            for k in keys})
+        else:   # the merged kernels: the training path's count
+            kernels.append(dict(
+                {k: dict(r, launches=launches_train[name])[k] for k in keys},
+                launches_by_path={"train": launches_train[name],
+                                  "pallas2": launches_p2[name]}))
     pool_row["launches"] = launches_mod["triplet_pool"]
     kernels.append({k: pool_row[k]
                     for k in keys + ("shape", "other_shapes")})

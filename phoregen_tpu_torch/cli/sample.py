@@ -5,7 +5,8 @@ flags where the port supports them, and flax msgpack release checkpoints
 read without flax. The denoiser's path follows the checkpoint's own
 configuration (the release checkpoints: the per-layer module path,
 `fused_stack: none`) unless overridden: `--fused_stack pallas` selects the
-fused layer stack (four CUDA kernels per layer), `--triplet_knn 0` the
+fused layer stack (four CUDA kernels per layer; `pallas3` three, `pallas2`
+two, with merged stages), `--triplet_knn 0` the
 exact all-k triplets, `--use_pallas_triplet 1` their CUDA kernel. Runs on
 the card unless `--device cpu` is given.
 """
@@ -56,9 +57,10 @@ def parse_args(argv=None):
                    help="override denoiser.fused_stack ('' = the "
                         "checkpoint's own value): 'none' = per-layer "
                         "modules, 'pallas' = the fused layer stack (four "
-                        "CUDA kernels per layer), 'xla'/'xla2' = the fused "
-                        "stack's plain PyTorch stages; 'pallas3'/'pallas2' "
-                        "are not ported yet")
+                        "CUDA kernels per layer), 'pallas3'/'pallas2' = the "
+                        "same with merged stages (three / two kernels per "
+                        "layer), 'xla'/'xla2' = the fused stack's plain "
+                        "PyTorch stages")
     p.add_argument("--fused_block_dtype", default="",
                    choices=["", "float32", "bfloat16"])
     p.add_argument("--edge_mlp_apply", default="",

@@ -102,10 +102,12 @@ class DenoiserConfig:
     # How the layer stack runs (models/denoiser.py): 'none' = per-layer
     # modules, kNN sets rebuilt every layer (the release checkpoints'
     # value); 'pallas' = the fused stack, four CUDA kernels per layer;
-    # 'xla' / 'xla2' = the fused stack through its plain PyTorch stages;
-    # 'pallas3' / 'pallas2' are not ported. Fused modes freeze the
-    # layer-internal kNN index sets per block and require the flagship
-    # configuration.
+    # 'pallas3' = stages A and B1 merged (three kernels), 'pallas2' = B2
+    # and C merged as well (two kernels); 'xla' / 'xla2' = the fused stack
+    # through its plain PyTorch stages. Every value trains (the 'pallas*'
+    # ones with kernels forward and the plain stages recomputed backward).
+    # Fused modes freeze the layer-internal kNN index sets per block and
+    # require the flagship configuration.
     fused_stack: str = "none"
     # dtype of the fused stack's inter-stage blocks; only 'float32' is
     # ported.
@@ -133,7 +135,8 @@ class DenoiserConfig:
     # Restrict the triplet source bond k->j to the K nearest neighbours of
     # j (0 = all k, exact): O(NL^2 K) instead of O(NL^3).
     triplet_knn: int = 0
-    # Training only (not ported): rematerialize each layer in the backward.
+    # Training only: recompute each layer in the backward
+    # (torch.utils.checkpoint) on the module path and the 'xla' stacks.
     remat_layers: bool = True
 
 
@@ -245,8 +248,8 @@ class LoggerConfig:
     restart_dir: str = ""
     model_ckp: str = "last"
     tensorboard: bool = True
-    # TPU-specific: capture a jax.profiler trace of N train steps of the
-    # first epoch into <run_dir>/profile (0 = off). SURVEY.md §5.1 upgrade.
+    # capture a torch.profiler trace of N train steps of the first epoch
+    # into <run_dir>/profile (0 = off)
     profile_steps: int = 0
 
 

@@ -6,6 +6,12 @@
 //   ls_stage_trip_pre   <- _stage_pallas o _stage_triplet_pre  (stage B1)
 //   ls_stage_trip_att   <- _att_pallas / _head_att_accumulate  (stage B2)
 //   ls_stage_pos        <- _stage_pallas o _stage_pos          (stage C)
+// and the two merged kernels of fused_stack 'pallas3' / 'pallas2':
+//   ls_stage_node_pre   <- _stage_pallas o _stage_node_pre     (A + B1)
+//   ls_stage_att_pos    <- _att_pos_pallas                     (B2 + C)
+// The merged kernels and the single ones run the SAME __device__ bodies
+// (node_body, trip_pre_body, trip_att_pairs_impl, pos_body), so the settings
+// cannot drift apart.
 //
 // Design notes (what differs from the TPU kernels, and why):
 // - Parallelism. The Pallas kernels run grid (B,) — one graph per step,
@@ -322,14 +328,32 @@ __device__ void edge_attention(
   __syncthreads();
 }
 
+// Row source of bond_attention that reads the bond grid from device
+// memory: rows[sr] = hbg[b, s0 + sr, dl, :].
+struct HbColumnRows {
+  const float* hbg;
+  __device__ void operator()(const Dims& d, int b, int dl, int s0, int ns,
+                             float* rows) const {
+    for (int idx = threadIdx.x; idx < ns * d.H; idx += blockDim.x) {
+      const int sr = idx / d.H, c = idx % d.H;
+      rows[idx] = hbg[(((size_t)b * d.NL + s0 + sr) * d.NL + dl) * d.H + c];
+    }
+    __syncthreads();
+  }
+};
+
 // Dense bond-grid attention over the NL sources of ligand destination dl:
-// first layer on hbg[s, dl] (columns of W1 [H, 2H]) plus the node terms
-// P[dst][dcol:dcol+2H] and P[NP+s][scol:scol+2H], LN+ReLU, second layers
-// (k: H columns into kv, v: Nv columns into vall[s]), the query (already in
-// qv) and scores into scb[s][heads]; then the masked softmax over s.
+// `load_rows` leaves the bond features of sources [s0, s0+ns) towards dl in
+// rows[ns][H] (and ends with a block barrier); then the first layer
+// (columns of W1 [H, 2H]) plus the node terms P[dst][dcol:dcol+2H] and
+// P[NP+s][scol:scol+2H], LN+ReLU, second layers (k: H columns into kv, v:
+// Nv columns into vall[s]), the query (already in qv) and scores into
+// scb[s][heads]; then the masked softmax over s.
+template <class Rows>
 __device__ void bond_attention(
     const Dims& d, const Args& a, const EdgeSmem& s, float* rows,
-    float* vall, float* scb, int b, int dl, const float* hbg, const float* P,
+    float* vall, float* scb, int b, int dl, const Rows& load_rows,
+    const float* P,
     int PW, int dcol, int scol, const float* W1, const float* b1,
     const float* ln_s, const float* ln_b, const float* k2W,
     const float* k2b, const float* v2W, const float* v2b, int Nv) {
@@ -338,11 +362,7 @@ __device__ void bond_attention(
   const float* Pn = P + ((size_t)b * N + d.NP + dl) * PW;
   for (int s0 = 0; s0 < NL; s0 += SCH) {
     const int ns = min(SCH, NL - s0);
-    for (int idx = tid; idx < ns * H; idx += blockDim.x) {
-      const int sr = idx / H, c = idx % H;
-      rows[idx] = hbg[(((size_t)b * NL + s0 + sr) * NL + dl) * H + c];
-    }
-    __syncthreads();
+    load_rows(d, b, dl, s0, ns, rows);
     mm_smem<16>(rows, H, ns, W1, 2 * H, H, 2 * H, b1, s.pre, 2 * H, false);
     __syncthreads();
     for (int idx = tid; idx < ns * 2 * H; idx += blockDim.x) {
@@ -430,11 +450,12 @@ enum {
   NA_COUNT
 };
 
-__global__ void __launch_bounds__(NT) node_kernel(Dims d, Args a) {
-  extern __shared__ float sm[];
-  const int b = blockIdx.y, n = blockIdx.x, tid = threadIdx.x;
+// Stage A for node n of graph b. P holds the node projections
+// h @ nodeA_W in columns [0, 10H) of rows of pitch PW.
+__device__ void node_body(const Dims& d, const Args& a, float* sm, int b,
+                          int n, int PW) {
+  const int tid = threadIdx.x;
   const int N = d.NP + d.NL, H = d.H, NH = d.heads, dh = H / NH;
-  const int PW = 10 * H;
   float *rows, *vall, *scb, *outv;
   EdgeSmem s = carve_edge(d, sm, H, &rows, &vall, &scb, &outv);
   const float* xb = FP(NA_X) + (size_t)b * N * 3;
@@ -463,8 +484,8 @@ __global__ void __launch_bounds__(NT) node_kernel(Dims d, Args a) {
     mm_smem<1>(s.qt, H, 1, qW1 + H * H, H, H, H, FP(NA_Q_B1) + H, s.qv, H,
                false);
     __syncthreads();
-    bond_attention(d, a, s, rows, vall, scb, b, dl, FP(NA_HB), P, PW, 6 * H,
-                   8 * H, FP(NA_B_W), FP(NA_B_B), FP(NA_B_LN_S),
+    bond_attention(d, a, s, rows, vall, scb, b, dl, HbColumnRows{FP(NA_HB)},
+                   P, PW, 6 * H, 8 * H, FP(NA_B_W), FP(NA_B_B), FP(NA_B_LN_S),
                    FP(NA_B_LN_B), FP(NA_B_K2), FP(NA_B_B2),
                    FP(NA_B_K2) + H * H, FP(NA_B_B2) + H, H);
     if (tid < H) {
@@ -484,6 +505,11 @@ __global__ void __launch_bounds__(NT) node_kernel(Dims d, Args a) {
   }
 }
 
+__global__ void __launch_bounds__(NT) node_kernel(Dims d, Args a) {
+  extern __shared__ float sm[];
+  node_body(d, a, sm, blockIdx.y, blockIdx.x, 10 * d.H);
+}
+
 // ------------------------------------------------- stage C: position update
 
 enum {
@@ -494,13 +520,16 @@ enum {
   PA_P_XK2B, PA_P_XV2, PA_P_XV2B, PA_COUNT
 };
 
-__global__ void __launch_bounds__(NT) pos_kernel(Dims d, Args a) {
-  extern __shared__ float sm[];
-  const int b = blockIdx.y, tid = threadIdx.x;
+// Stage C for ligand destination dl of graph b (phore rows are copied by
+// the host entry). `load_rows` gives the new bond features towards dl (see
+// bond_attention).
+template <class Rows>
+__device__ void pos_body(const Dims& d, const Args& a, float* sm, int b,
+                         int dl, const Rows& load_rows) {
+  const int tid = threadIdx.x;
   const int NP = d.NP, N = NP + d.NL, H = d.H, NH = d.heads;
-  const int n = NP + blockIdx.x;  // ligand rows only; phore rows are copied
+  const int n = NP + dl;
   const int PW = 10 * H;
-  const int dl = n - NP;
   float *rows, *vall, *scb, *outv;
   EdgeSmem s = carve_edge(d, sm, NH, &rows, &vall, &scb, &outv);
   const float* xb = FP(PA_X) + (size_t)b * N * 3;
@@ -532,7 +561,7 @@ __global__ void __launch_bounds__(NT) pos_kernel(Dims d, Args a) {
   __syncthreads();
   mm_smem<1>(s.qt, H, 1, qW1 + H * H, H, H, H, qb1 + H, s.qv, H, false);
   __syncthreads();
-  bond_attention(d, a, s, rows, vall, scb, b, dl, FP(PA_HB), P, PW, 6 * H,
+  bond_attention(d, a, s, rows, vall, scb, b, dl, load_rows, P, PW, 6 * H,
                  8 * H, FP(PA_P_W), FP(PA_P_B), FP(PA_P_LN_S), FP(PA_P_LN_B),
                  FP(PA_P_XK2), FP(PA_P_XK2B), FP(PA_P_XV2), FP(PA_P_XV2B),
                  NH);
@@ -551,6 +580,11 @@ __global__ void __launch_bounds__(NT) pos_kernel(Dims d, Args a) {
   }
 }
 
+__global__ void __launch_bounds__(NT) pos_kernel(Dims d, Args a) {
+  extern __shared__ float sm[];
+  pos_body(d, a, sm, blockIdx.y, blockIdx.x, HbColumnRows{FP(PA_HB)});
+}
+
 // --------------------------------------- stage B1: triplet pre-features
 
 enum {
@@ -566,11 +600,13 @@ __host__ __device__ inline size_t smem_trip_pre_floats(const Dims& d) {
          NANG * d.Wt + d.K8 + 8;
 }
 
-__global__ void __launch_bounds__(NT) trip_pre_kernel(Dims d, Args a) {
-  extern __shared__ float sm[];
-  const int b = blockIdx.y, j = blockIdx.x, tid = threadIdx.x;
+// Stage B1 for ligand atom j of graph b. PB points at the graph's first
+// ligand row of the node projections h @ nodeB_W (columns [0, 2Wt+H) of
+// rows of pitch PBW).
+__device__ void trip_pre_body(const Dims& d, const Args& a, float* sm, int b,
+                              int j, const float* PB, int PBW) {
+  const int tid = threadIdx.x;
   const int NL = d.NL, NP = d.NP, N = NP + NL, H = d.H, K8 = d.K8, Wt = d.Wt;
-  const int PBW = 2 * Wt + H;
   const int RB = K8 > SCH ? K8 : SCH;
   float* posl = sm;
   float* rf = posl + NL * 3;     // [NL][20] rbf of |pos_j - pos_i|
@@ -580,7 +616,6 @@ __global__ void __launch_bounds__(NT) trip_pre_kernel(Dims d, Args a) {
   float* qp = rows + RB * H;     // [SCH][H]
   float* wang = qp + SCH * H;    // [13][Wt]
   int* tidx = reinterpret_cast<int*>(wang + NANG * Wt);
-  const float* PB = FP(TP_PB) + (size_t)b * NL * PBW;
   const float* hb = FP(TP_HB);
 
   for (int idx = tid; idx < NL * 3; idx += blockDim.x)
@@ -683,6 +718,13 @@ __global__ void __launch_bounds__(NT) trip_pre_kernel(Dims d, Args a) {
   }
 }
 
+__global__ void __launch_bounds__(NT) trip_pre_kernel(Dims d, Args a) {
+  extern __shared__ float sm[];
+  const int PBW = 2 * d.Wt + d.H, b = blockIdx.y;
+  trip_pre_body(d, a, sm, b, blockIdx.x,
+                FP(TP_PB) + (size_t)b * d.NL * PBW, PBW);
+}
+
 // --------------------------------------- stage B2: triplet head attention
 
 enum {
@@ -690,36 +732,64 @@ enum {
   TA_TQ_W1, TA_TQ_B1, TA_T_OUT_W, TA_T_OUT_B, TA_COUNT
 };
 
+// One block's scratch is kept under 75 KB at the flagship widths so that
+// three blocks of the stand-alone B2 kernel fit an SM (outb lies over qz).
 __host__ __device__ inline size_t smem_trip_att_floats(const Dims& d) {
   const int HW = d.heads * d.Wt;
-  return (size_t)IT * d.H * 2 + (size_t)IT * HW * 2 +
-         (size_t)IT * d.K8 * (d.Wt + 1) + 2 * (size_t)d.K8 + 8;
+  return (size_t)IT * d.H + (size_t)IT * HW * 2 +
+         (size_t)IT * d.K8 * (d.Wt + 1) + 2 * (size_t)IT * d.K8 + 8;
 }
 
-__global__ void __launch_bounds__(NT) trip_att_kernel(Dims d, Args a) {
-  extern __shared__ float sm[];
-  const int i0 = blockIdx.x * IT, j = blockIdx.y, b = blockIdx.z;
+// Stage B2 for np <= IT pairs: per-head queries, masked softmax over the K8
+// sources of j, pool, t_out_W. ROW: the pairs are (j0, i0 + p), contiguous
+// in memory, moved as one run, written to TA_OUT; else (j0 + p, i0), one
+// column of the bond grid, moved pair by pair, written to TA_OUT and kept in
+// keep[p][H] (shared memory), ending with a block barrier. `sm` is scratch
+// of smem_trip_att_floats(d) floats.
+template <bool ROW>
+__device__ __forceinline__ void trip_att_pairs_impl(
+    const Dims& d, const Args& a, float* sm, int b, int j0, int i0, int np,
+    float* keep) {
+  constexpr int dj = ROW ? 0 : 1, di = ROW ? 1 : 0;
   const int tid = threadIdx.x, NL = d.NL, H = d.H, K8 = d.K8, Wt = d.Wt;
   const int NH = d.heads, HW = NH * Wt, WP = Wt + 1;
-  const int ni = min(IT, NL - i0);
   float* qz = sm;                  // [IT][H]
+  float* outb = qz;                // [IT][H], after the queries are done
   float* qh = qz + IT * H;         // [IT][heads*Wt]
   float* pt = qh + IT * HW;        // [IT][K8][Wt+1]
   float* pooled = pt + IT * K8 * WP;  // [IT][heads*Wt]
-  float* outb = pooled + IT * HW;  // [IT][H]
-  float* tmk = outb + IT * H;      // [K8]
-  int* tidx = reinterpret_cast<int*>(tmk + K8);
-  const size_t pair0 = ((size_t)b * NL + j) * NL + i0;
+  float* tmk = pooled + IT * HW;   // [IT][K8]
+  int* tidx = reinterpret_cast<int*>(tmk + IT * K8);  // [IT][K8]
+#define PAIR(p) (((size_t)b * NL + j0 + (p) * dj) * NL + i0 + (p) * di)
 
-  for (int idx = tid; idx < IT * H; idx += blockDim.x)
-    qz[idx] = idx < ni * H ? FP(TA_QZ)[pair0 * H + idx] : 0.f;
-  for (int idx = tid; idx < ni * K8 * Wt; idx += blockDim.x) {
-    const int r = idx / Wt, w = idx % Wt;
-    pt[r * WP + w] = FP(TA_PRE_T)[pair0 * K8 * Wt + idx];
+  if (ROW) {
+    const size_t pair0 = PAIR(0);
+    for (int idx = tid; idx < IT * H; idx += blockDim.x)
+      qz[idx] = idx < np * H ? FP(TA_QZ)[pair0 * H + idx] : 0.f;
+    for (int idx = tid; idx < np * K8 * Wt; idx += blockDim.x)
+      pt[(idx / Wt) * WP + idx % Wt] = FP(TA_PRE_T)[pair0 * K8 * Wt + idx];
+  } else {
+    for (int idx = tid; idx < IT * H; idx += blockDim.x) {
+      const int p = idx / H, c = idx % H;
+      qz[idx] = p < np ? FP(TA_QZ)[PAIR(p) * H + c] : 0.f;
+    }
+    for (int p = 0; p < np; ++p) {
+      const float* src = FP(TA_PRE_T) + PAIR(p) * K8 * Wt;
+      for (int idx = tid; idx < K8 * Wt; idx += blockDim.x)
+        pt[(p * K8 + idx / Wt) * WP + idx % Wt] = src[idx];
+    }
   }
-  if (tid < K8) {
-    tidx[tid] = IP(TA_TRIP_IDX)[((size_t)b * NL + j) * K8 + tid];
-    tmk[tid] = FP(TA_TRIP_MASK)[((size_t)b * NL + j) * K8 + tid];
+  if (ROW) {  // one source atom j: one row of the tables for all pairs
+    if (tid < K8) {
+      tidx[tid] = IP(TA_TRIP_IDX)[((size_t)b * NL + j0) * K8 + tid];
+      tmk[tid] = FP(TA_TRIP_MASK)[((size_t)b * NL + j0) * K8 + tid];
+    }
+  } else {
+    for (int idx = tid; idx < np * K8; idx += blockDim.x) {
+      const size_t o = ((size_t)b * NL + j0 + idx / K8) * K8 + idx % K8;
+      tidx[idx] = IP(TA_TRIP_IDX)[o];
+      tmk[idx] = FP(TA_TRIP_MASK)[o];
+    }
   }
   __syncthreads();
   // per-head queries q_h = q_z @ tq_W1[h] + tq_b1[h]; column cc = h*Wt + w
@@ -742,12 +812,14 @@ __global__ void __launch_bounds__(NT) trip_att_kernel(Dims d, Args a) {
   const float inv_sw = (float)(1.0 / sqrt((double)Wt));
   const float* ml = FP(TA_MASK_L) + (size_t)b * NL;
   const int lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5;
-  for (int pr = warp; pr < ni * NH; pr += nw) {
-    const int p = pr / NH, hh = pr % NH, i = i0 + p;
+  for (int pr = warp; pr < np * NH; pr += nw) {
+    const int p = pr / NH, hh = pr % NH;
+    const int j = j0 + p * dj, i = i0 + p * di;
+    const int tb = ROW ? 0 : p * K8;
     float vf = 0.f, sc = 0.f;
     if (lane < K8) {
-      vf = tmk[lane] * ml[i] * ml[j] * (tidx[lane] != i ? 1.f : 0.f) *
-           (i != j ? 1.f : 0.f);
+      vf = tmk[tb + lane] * ml[i] * ml[j] *
+           (tidx[tb + lane] != i ? 1.f : 0.f) * (i != j ? 1.f : 0.f);
       const float* row = pt + (p * K8 + lane) * WP;
       const float* q = qh + p * HW + hh * Wt;
       for (int w = 0; w < Wt; ++w) sc += row[w] * q[w];
@@ -764,14 +836,106 @@ __global__ void __launch_bounds__(NT) trip_att_kernel(Dims d, Args a) {
     if (lane < Wt) pooled[p * HW + hh * Wt + lane] = acc;
   }
   __syncthreads();
-  mm_smem<IT>(pooled, HW, ni, FP(TA_T_OUT_W), H, HW, H, nullptr, outb, H,
+  mm_smem<IT>(pooled, HW, np, FP(TA_T_OUT_W), H, HW, H, nullptr, outb, H,
               false);
   __syncthreads();
-  for (int idx = tid; idx < ni * H; idx += blockDim.x) {
-    const int c = idx % H;
-    OUTP(TA_OUT)[pair0 * H + idx] =
-        FP(TA_HB)[pair0 * H + idx] + (outb[idx] + FP(TA_T_OUT_B)[c]);
+  if (ROW) {
+    const size_t pair0 = PAIR(0);
+    for (int idx = tid; idx < np * H; idx += blockDim.x) {
+      const int c = idx % H;
+      OUTP(TA_OUT)[pair0 * H + idx] =
+          FP(TA_HB)[pair0 * H + idx] + (outb[idx] + FP(TA_T_OUT_B)[c]);
+    }
+  } else {
+    for (int idx = tid; idx < np * H; idx += blockDim.x) {
+      const int p = idx / H, c = idx % H;
+      const size_t o = PAIR(p) * H + c;
+      const float v = FP(TA_HB)[o] + (outb[idx] + FP(TA_T_OUT_B)[c]);
+      OUTP(TA_OUT)[o] = v;
+      keep[idx] = v;
+    }
+    __syncthreads();
   }
+#undef PAIR
+}
+
+// The column form is a call, not inlined into stage C's body: measured on
+// the H100, the merged kernel is a quarter faster that way.
+__device__ __noinline__ void trip_att_column(const Dims& d, const Args& a,
+                                             float* sm, int b, int j0, int i0,
+                                             int np, float* keep) {
+  trip_att_pairs_impl<false>(d, a, sm, b, j0, i0, np, keep);
+}
+
+// Three blocks an SM (the scratch allows it) and so at most 85 registers:
+// left to itself the compiler takes 48 and the kernel is 1.4x slower.
+__global__ void __launch_bounds__(NT, 3) trip_att_kernel(Dims d, Args a) {
+  extern __shared__ float sm[];
+  const int i0 = blockIdx.x * IT;
+  trip_att_pairs_impl<true>(d, a, sm, blockIdx.z, blockIdx.y, i0,
+                            min(IT, d.NL - i0), nullptr);
+}
+
+// ------------------------------- merged stage A + B1 (one main grid)
+//
+// Counterpart of _stage_node_pre: blocks [0, NL) of a graph take the B1
+// role (one ligand atom j each, the longer body, so they start first),
+// blocks [NL, NL + N) the A role (one node each). Both read the node
+// projections of ONE rows_gemm, h @ [nodeA_W | nodeB_W], in P (pitch PW).
+// `an` is laid out as stage A's arguments, `at` as stage B1's.
+__global__ void __launch_bounds__(NT)
+node_pre_kernel(Dims d, Args an, Args at, int PW) {
+  extern __shared__ float sm[];
+  const int b = blockIdx.y, r = blockIdx.x;
+  if (r < d.NL) {
+    const float* PB = reinterpret_cast<const float*>(an.p[NA_P]) +
+                      ((size_t)b * (d.NP + d.NL) + d.NP) * PW + 10 * d.H;
+    trip_pre_body(d, at, sm, b, r, PB, PW);
+  } else {
+    node_body(d, an, sm, b, r - d.NL, PW);
+  }
+}
+
+// ------------------------------- merged stage B2 + C (one main grid)
+//
+// Counterpart of _att_pos_pallas. Stage C's bond-grid attention for
+// destination dl softmaxes over ALL sources j of hb_new[b, j, dl, :], so one
+// block per (graph, dl) finishes that column itself: it walks the sources
+// in chunks of IT pairs (j, dl), runs B2 on each chunk for all heads,
+// writes hb_new once and keeps the chunk in shared memory as the rows of
+// C's first layer. hb_new is never read back, and no block waits for
+// another. B2's scratch lies over C's `pre` and `kv` tiles when it fits
+// there (they are idle while the rows are gathered), else behind them.
+struct AttRows {
+  const Args* ta;
+  float* scratch;
+  __device__ void operator()(const Dims& d, int b, int dl, int s0, int ns,
+                             float* rows) const {
+    for (int j0 = s0; j0 < s0 + ns; j0 += IT)
+      trip_att_column(d, *ta, scratch, b, j0, dl, min(IT, s0 + ns - j0),
+                      rows + (size_t)(j0 - s0) * d.H);
+  }
+};
+
+// Floats of C's pre + kv tiles, which B2's scratch may lie over.
+__host__ __device__ inline size_t att_alias_floats(const Dims& d) {
+  const int KR = d.K > SCH ? d.K : SCH;
+  return 2 * (size_t)KR * 2 * d.H;
+}
+
+__host__ __device__ inline size_t smem_att_pos_floats(const Dims& d) {
+  const size_t e = smem_edge_floats(d, d.heads), t = smem_trip_att_floats(d);
+  return t <= att_alias_floats(d) ? e : e + t;
+}
+
+__global__ void __launch_bounds__(NT)
+att_pos_kernel(Dims d, Args ap, Args ta) {
+  extern __shared__ float sm[];
+  const int KH = d.K * FEP > SCH * d.H ? d.K * FEP : SCH * d.H;
+  float* scratch = smem_trip_att_floats(d) <= att_alias_floats(d)
+                       ? sm + KH  // == EdgeSmem::pre, see carve_edge
+                       : sm + smem_edge_floats(d, d.heads);
+  pos_body(d, ap, sm, blockIdx.y, blockIdx.x, AttRows{&ta, scratch});
 }
 
 // ------------------------------------------------------------ host entries
@@ -889,6 +1053,78 @@ int ls_stage_trip_att(const void* const* p, int np, const int* dims,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   trip_att_kernel<<<dim3((d.NL + IT - 1) / IT, d.NL, d.B), NT, bytes, st>>>(
       d, a);
+  return (int)cudaGetLastError();
+}
+
+// Merged stage A + B1. Pointer slots: stage A's (NA_*, T_*; slot NA_W holds
+// [nodeA_W | nodeB_W]), then pre_t, q_z, trip_idx and stage B1's weights
+// from TP_T_WHB on.
+int ls_stage_node_pre(const void* const* p, int np, const int* dims,
+                      void* stream) {
+  const int extra = TP_COUNT - TP_T_WHB;
+  if (np != NA_COUNT + 3 + extra) return (int)cudaErrorInvalidValue;
+  const Dims d = read_dims(dims);
+  if (!dims_ok(d)) return (int)cudaErrorInvalidValue;
+  const Args an = read_args(p, NA_COUNT);
+  Args at = read_args(p, 0);
+  at.p[TP_H] = p[NA_H];
+  at.p[TP_X] = p[NA_X];
+  at.p[TP_HB] = p[NA_HB];
+  at.p[TP_PRE_T] = p[NA_COUNT];
+  at.p[TP_QZ] = p[NA_COUNT + 1];
+  at.p[TP_TRIP_IDX] = p[NA_COUNT + 2];
+  for (int i = 0; i < extra; ++i) at.p[TP_T_WHB + i] = p[NA_COUNT + 3 + i];
+  cudaStream_t st = (cudaStream_t)stream;
+  const int N = d.NP + d.NL, PW = 10 * d.H + 2 * d.Wt + d.H;
+  const Args& a = an;
+  int rc = launch_rows_gemm(FP(NA_H), d.H, d.B * N, d.B * N, 0, 0, d.H,
+                            FP(NA_W), PW, OUTP(NA_P), st);
+  if (rc) return rc;
+  const size_t fa = smem_edge_floats(d, d.H), fb = smem_trip_pre_floats(d);
+  const size_t bytes = (fa > fb ? fa : fb) * sizeof(float);
+  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(node_pre_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  node_pre_kernel<<<dim3(d.NL + N, d.B), NT, bytes, st>>>(d, an, at, PW);
+  return (int)cudaGetLastError();
+}
+
+// Merged stage B2 + C. Pointer slots: stage C's (PA_*, T_*; PA_HB is the
+// OLD bond grid, B2's input), then pre_t, q_z, hb_new (output), trip_idx,
+// trip_mask and stage B2's weights from TA_TQ_W1 on. Phore rows of x are
+// copied as in ls_stage_pos.
+int ls_stage_att_pos(const void* const* p, int np, const int* dims,
+                     void* stream) {
+  const int extra = TA_COUNT - TA_TQ_W1;
+  if (np != PA_COUNT + 5 + extra) return (int)cudaErrorInvalidValue;
+  const Dims d = read_dims(dims);
+  if (!dims_ok(d)) return (int)cudaErrorInvalidValue;
+  const Args ap = read_args(p, PA_COUNT);
+  Args ta = read_args(p, 0);
+  ta.p[TA_HB] = p[PA_HB];
+  ta.p[TA_PRE_T] = p[PA_COUNT];
+  ta.p[TA_QZ] = p[PA_COUNT + 1];
+  ta.p[TA_OUT] = p[PA_COUNT + 2];
+  ta.p[TA_TRIP_IDX] = p[PA_COUNT + 3];
+  ta.p[TA_TRIP_MASK] = p[PA_COUNT + 4];
+  ta.p[TA_MASK_L] = p[T_MASK_L];
+  for (int i = 0; i < extra; ++i) ta.p[TA_TQ_W1 + i] = p[PA_COUNT + 5 + i];
+  cudaStream_t st = (cudaStream_t)stream;
+  const int N = d.NP + d.NL;
+  const Args& a = ap;
+  cudaError_t ce = cudaMemcpy2DAsync(
+      OUTP(PA_OUT), (size_t)N * 3 * sizeof(float), FP(PA_X),
+      (size_t)N * 3 * sizeof(float), (size_t)d.NP * 3 * sizeof(float), d.B,
+      cudaMemcpyDeviceToDevice, st);
+  if (ce != cudaSuccess) return (int)ce;
+  int rc = launch_rows_gemm(FP(PA_NEW_H), d.H, d.B * N, d.B * N, 0, 0, d.H,
+                            FP(PA_W), 10 * d.H, OUTP(PA_P), st);
+  if (rc) return rc;
+  const size_t bytes = smem_att_pos_floats(d) * sizeof(float);
+  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(att_pos_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  att_pos_kernel<<<dim3(d.NL, d.B), NT, bytes, st>>>(d, ap, ta);
   return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,13 @@
-"""D3PM-style categorical transition with absorbing priors: the sampling half.
+"""D3PM-style categorical transition with absorbing priors.
 
 Counterpart of `phoregen_tpu/diffusion/categorical.py`: the 'tomask' /
-'absorb' / 'uniform' priors, prior draws, the posterior with explicit
-(possibly multi-step) [K, K] tables, and the strided table builder. Tables
-are built on the host in float64 and used as float32.
+'absorb' / 'uniform' priors; for training the forward noising
+`q(v_t | v_0)`, the one-step posterior `q(v_{t-1} | v_t, v_0)` with its
+t == 0 override and the KL / decoder-NLL loss split; for sampling prior
+draws, the posterior with explicit (possibly multi-step) [K, K] tables,
+and the strided table builder. Tables are built on the host in float64 and
+used as float32. Every draw takes a `torch.Generator` or the uniform
+numbers themselves.
 """
 from __future__ import annotations
 
@@ -12,7 +16,8 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..ops.masked import clamped_log, index_to_log_onehot, log_sample_categorical
+from ..ops.masked import (categorical_kl, clamped_log, index_to_log_onehot,
+                          log_categorical, log_sample_categorical)
 
 EPS = 1e-30
 
@@ -56,6 +61,80 @@ class CategoricalTransition:
         prob = build_init_prob(num_classes, init_prob)
         self.init_logprob = np.clip(np.log(prob + EPS), -32.0, None
                                     ).astype(np.float32)
+        one_step, cum = _one_step_mats(np.asarray(betas, np.float64), prob)
+        # cumulative Q-bar_t and transposed one-step Q_t^T, [T, K, K]
+        self.q_mats = cum.astype(np.float32)
+        self.transpose_q_onestep = np.transpose(one_step, (0, 2, 1)).astype(
+            np.float32)
+        self._dev = {}
+
+    def _tables(self, device):
+        """(q_mats, transpose_q_onestep) as tensors on `device`, cached."""
+        key = str(device)
+        if key not in self._dev:
+            self._dev[key] = (torch.as_tensor(self.q_mats, device=device),
+                              torch.as_tensor(self.transpose_q_onestep,
+                                              device=device))
+        return self._dev[key]
+
+    @staticmethod
+    def _mix(p: torch.Tensor, mats: torch.Tensor) -> torch.Tensor:
+        """out[b, ..., k] = sum_j p[b, ..., j] * mats[b, j, k]."""
+        M = mats.reshape(mats.shape[:1] + (1,) * (p.dim() - 2)
+                         + mats.shape[1:])
+        return (p[..., :, None] * M).sum(-2)
+
+    # ----- forward (noising) -----
+    def q_vt_pred(self, log_v0: torch.Tensor, t: torch.Tensor
+                  ) -> torch.Tensor:
+        """log q(v_t | v_0). log_v0: [B, ..., K], t: [B]."""
+        q_mats, _ = self._tables(log_v0.device)
+        return clamped_log(self._mix(torch.exp(log_v0), q_mats[t.long()]))
+
+    def q_vt_sample(self, log_v0, t, generator=None, uniform=None):
+        log_q = self.q_vt_pred(log_v0, t)
+        cls = log_sample_categorical(log_q, generator, uniform)
+        return cls, index_to_log_onehot(cls, self.num_classes)
+
+    def add_noise(self, v: torch.Tensor, t: torch.Tensor,
+                  generator: Optional[torch.Generator] = None,
+                  uniform: Optional[torch.Tensor] = None):
+        """v: [B, ...] int class ids -> (one-hot v_t, log v_t, log v_0)."""
+        log_v0 = index_to_log_onehot(v, self.num_classes)
+        v_pert, log_vt = self.q_vt_sample(log_v0, t, generator, uniform)
+        return self.onehot_encode(v_pert), log_vt, log_v0
+
+    def onehot_encode(self, v: torch.Tensor) -> torch.Tensor:
+        return torch.nn.functional.one_hot(v.long(), self.num_classes).to(
+            torch.float32)
+
+    # ----- reverse (posterior) -----
+    def q_v_posterior(self, log_v0: torch.Tensor, log_vt: torch.Tensor,
+                      t: torch.Tensor, v0_prob: bool = True) -> torch.Tensor:
+        """log q(v_{t-1} | v_t, v_0); t == 0 entries return log_v0."""
+        q_mats, tq = self._tables(log_v0.device)
+        t = t.long()
+        fact1 = self._mix(torch.exp(log_vt), tq[t])
+        fact2_mat = q_mats[torch.clamp(t - 1, min=0)]
+        if v0_prob:
+            fact2 = self._mix(torch.exp(log_v0), fact2_mat)
+        else:
+            fact2 = self._mix(self.onehot_encode(log_v0.argmax(-1)),
+                              fact2_mat)
+        out = clamped_log(fact1) + clamped_log(fact2)
+        out = out - torch.logsumexp(out, dim=-1, keepdim=True)
+        time_zero = (t == 0).reshape(t.shape + (1,) * (out.dim() - 1))
+        return torch.where(time_zero, log_v0, out)
+
+    def compute_v_Lt(self, log_post_true: torch.Tensor,
+                     log_post_pred: torch.Tensor, log_v0: torch.Tensor,
+                     t: torch.Tensor) -> torch.Tensor:
+        """Per-entry loss: KL(true || pred), or decoder NLL where t == 0."""
+        kl_v = categorical_kl(log_post_true, log_post_pred)
+        decoder_nll = -log_categorical(log_v0, log_post_pred)
+        mask = (t == 0).to(kl_v.dtype).reshape(
+            t.shape + (1,) * (kl_v.dim() - 1))
+        return mask * decoder_nll + (1.0 - mask) * kl_v
 
     @staticmethod
     def q_v_posterior_mats(log_v0: torch.Tensor, log_vt: torch.Tensor,
@@ -70,8 +149,8 @@ class CategoricalTransition:
         out = clamped_log(fact1) + clamped_log(fact2)
         return out - torch.logsumexp(out, dim=-1, keepdim=True)
 
-    def sample_init(self, shape, generator: Optional[torch.Generator] = None,
-                    device="cpu", uniform: Optional[torch.Tensor] = None):
+    def sample_init(self, shape, generator: Optional[torch.Generator],
+                    device, uniform: Optional[torch.Tensor] = None):
         """v_T from the stationary prior over a [B, ...] grid ->
         (class ids, one-hot, log one-hot)."""
         logits = torch.as_tensor(self.init_logprob, device=device).expand(

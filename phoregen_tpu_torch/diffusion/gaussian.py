@@ -1,9 +1,11 @@
-"""Gaussian (DDPM) transition for positions: the sampling half.
+"""Gaussian (DDPM) transition for positions.
 
-Counterpart of `phoregen_tpu/diffusion/gaussian.py`: prior draws and the
-reverse step `mu = coef_x0 * x_recon + coef_xt * x_t - energy_grad`, whose
-final (t = 0) step returns the mean. Coefficients are built on the host in
-float64 and used as float32, as in the JAX package.
+Counterpart of `phoregen_tpu/diffusion/gaussian.py`: the forward noising
+`q(x_t | x_0)` of training, prior draws and the reverse step
+`mu = coef_x0 * x_recon + coef_xt * x_t - energy_grad`, whose final (t = 0)
+step returns the mean. Coefficients are built on the host in float64 and
+used as float32, as in the JAX package. Every draw takes a
+`torch.Generator` or the noise itself.
 """
 from __future__ import annotations
 
@@ -19,13 +21,32 @@ class GaussianTransition:
         self.betas = np.asarray(betas, np.float64)
         self.num_classes = num_classes
         self.scaling = scaling
+        self.alphas_bar = np.cumprod(1.0 - self.betas).astype(np.float32)
 
     @property
     def num_timesteps(self) -> int:
         return self.betas.shape[0]
 
-    def sample_init(self, shape, generator: Optional[torch.Generator] = None,
-                    device="cpu") -> torch.Tensor:
+    def add_noise(self, x: torch.Tensor, t: torch.Tensor,
+                  generator: Optional[torch.Generator] = None,
+                  noise: Optional[torch.Tensor] = None):
+        """x_t ~ q(x_t | x_0) = sqrt(ab_t) x_0 + sqrt(1 - ab_t) eps.
+        x: [B, ...] (continuous) or int class ids (-> scaled one-hot, then
+        (x_t, x_0) is returned); t: [B]. `noise` injects eps."""
+        if self.num_classes is not None:
+            x = torch.nn.functional.one_hot(x.long(), self.num_classes).to(
+                torch.float32)
+        x = x / self.scaling
+        a_bar = torch.as_tensor(self.alphas_bar, device=x.device)[t.long()]
+        a_bar = a_bar.reshape(a_bar.shape + (1,) * (x.dim() - 1))
+        if noise is None:
+            noise = torch.randn(x.shape, generator=generator, device=x.device,
+                                dtype=x.dtype)
+        pert = torch.sqrt(a_bar) * x + torch.sqrt(1.0 - a_bar) * noise
+        return pert if self.num_classes is None else (pert, x)
+
+    def sample_init(self, shape, generator: Optional[torch.Generator],
+                    device) -> torch.Tensor:
         if self.num_classes is not None:
             shape = tuple(shape) + (self.num_classes,)
         return torch.randn(tuple(shape), generator=generator, device=device,

@@ -11,13 +11,18 @@ attention layers. `fused_stack` selects how the stack runs:
   atoms, each layer rebuilding its own kNN sets unless `block_knn_freeze`.
   With all-k triplets (`triplet_knn` 0 or >= NL-1) and
   `use_pallas_triplet`, the triplet pool is the CUDA kernel of
-  `ops/pallas_triplet.py`.
+  `ops/pallas_triplet.py`. `remat_layers` recomputes each layer in the
+  backward (`torch.utils.checkpoint`).
 - 'pallas': the fused layer stack of `ops/layer_stack.py` (four CUDA
   kernels per layer on the card), kNN sets frozen per block.
+- 'pallas3': the same with stages A and B1 merged into one kernel (three
+  per layer); 'pallas2': B2 and C merged as well (two per layer).
 - 'xla', 'xla2': the same fused stack through its plain PyTorch stages on
   any device (the JAX package's packed-XLA forms of the same math).
-- 'pallas3', 'pallas2': not ported (their merged stage kernels are still
-  to port, see ROADMAP.md).
+Every 'pallas*' value runs through `ops/layer_stack.make_layer_stack_grad`
+(kernels forward, plain stages recomputed layer by layer backward), so the
+fused stack trains; 'xla'/'xla2' are differentiated by autograd, layer by
+layer with `remat_layers`.
 
 Layout: composed node axis = [phore(NP); ligand(NL)].
 """
@@ -36,15 +41,10 @@ from .layers import (MLP, BondUpdateTriplet, NodeUpdateDense, NodeUpdateKNN,
                      ParamTree, PosUpdateDense, PosUpdateKNN, dense_shapes,
                      gather_nodes)
 
-# fused_stack values that run ops/layer_stack.py, and whether through its
-# kernels (on CUDA tensors) or its plain stages
-FUSED_STACKS = {"pallas": True, "xla": False, "xla2": False}
-_LATER = {
-    "pallas3": "kernel 5, the merged node+triplet-pre stage "
-               "(_stage_node_pre)",
-    "pallas2": "kernels 5 and 6, the merged node+triplet-pre stage and "
-               "triplet attention with the pos epilogue (_att_pos_pallas)",
-}
+# fused_stack values that run ops/layer_stack.py: None = through its plain
+# stages, else (merge_node_pre, merge_pos) of the kernel path
+FUSED_STACKS = {"pallas": (False, False), "pallas3": (True, False),
+                "pallas2": (True, True), "xla": None, "xla2": None}
 
 
 def layer_param_shapes(H: int, heads: int, Wt: int, fe: int,
@@ -101,12 +101,6 @@ class UniDenoiser(nn.Module):
         super().__init__()
         self.cfg = dcfg
         self.fused_stack = dcfg.fused_stack
-        if self.fused_stack in _LATER:
-            raise NotImplementedError(
-                f"denoiser.fused_stack={self.fused_stack!r} is not ported "
-                f"yet: it needs {_LATER[self.fused_stack]}, which ROADMAP.md "
-                f"lists under 'Still to port'. The PyTorch port runs 'none', "
-                f"'pallas', 'xla' and 'xla2'.")
         if self.fused_stack != "none" and self.fused_stack not in FUSED_STACKS:
             raise ValueError(f"unknown fused_stack {self.fused_stack!r}")
         if dcfg.fused_block_dtype != "float32":
@@ -171,9 +165,12 @@ class UniDenoiser(nn.Module):
                 f"flagship configuration; unmet: {missing}")
 
     def pack_fused(self) -> Optional[Dict[str, torch.Tensor]]:
-        """Packed per-layer weights of the fused stack; loop-invariant
-        through a reverse process, so the sampler packs once and passes
-        them to forward. None when no fused stack is configured."""
+        """Packed per-layer weights of the fused stack, built with torch
+        ops on the live parameters (so they carry gradients when grad mode
+        is on). Loop-invariant through a reverse process, so the sampler
+        packs once under `no_grad` and passes them to forward; training
+        packs anew every step (forward does when `packed` is None). None
+        when no fused stack is configured."""
         if self.fused_stack == "none":
             return None
         return ls.pack_layer_params(self.layers.layer.tree(),
@@ -240,10 +237,16 @@ class UniDenoiser(nn.Module):
                     NP=NP, NL=NL, K=nbr_idx.shape[-1],
                     K8=min(dcfg.triplet_knn, NL - 1), H=H,
                     heads=dcfg.n_heads, Wt=dcfg.triplet_width)
-                h, x, h_bond = ls.layer_stack(
-                    packed, h.contiguous(), x.contiguous(),
-                    h_bond.contiguous(), tables, dims,
-                    use_kernels=FUSED_STACKS[self.fused_stack])
+                merges = FUSED_STACKS[self.fused_stack]
+                args = (packed, h.contiguous(), x.contiguous(),
+                        h_bond.contiguous(), tables)
+                if merges is None:
+                    h, x, h_bond = ls.layer_stack(
+                        *args, dims, use_kernels=False,
+                        remat=dcfg.remat_layers)
+                else:
+                    h, x, h_bond = ls.make_layer_stack_grad(
+                        dims, *merges)(*args)
                 continue
             lig3 = trip = None
             if dcfg.block_knn_freeze:
@@ -252,9 +255,16 @@ class UniDenoiser(nn.Module):
                 if 0 < dcfg.triplet_knn < NL - 1:
                     trip = knn_neighbors(pos_l0, mask_l, dcfg.triplet_knn)
             for p in layers:
-                h, h_bond, x = self._attention_layer(
-                    p, h, x, edge_type, nbr_idx, nbr_mask, h_bond, mask_l,
-                    pair_mask, e_w, phore_norm, NP, lig3, trip)
+                layer_args = (p, h, x, edge_type, nbr_idx, nbr_mask, h_bond,
+                              mask_l, pair_mask, e_w, phore_norm, NP, lig3,
+                              trip)
+                if dcfg.remat_layers and torch.is_grad_enabled():
+                    from torch.utils.checkpoint import checkpoint
+                    h, h_bond, x = checkpoint(self._attention_layer,
+                                              *layer_args,
+                                              use_reentrant=False)
+                else:
+                    h, h_bond, x = self._attention_layer(*layer_args)
         return h, x, h_bond
 
     def _attention_layer(self, p, h, x, edge_type, nbr_idx, nbr_mask, h_bond,

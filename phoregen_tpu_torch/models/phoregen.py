@@ -1,19 +1,97 @@
-"""PhoreGen model orchestrator: schedules, transitions and the network.
+"""PhoreGen model orchestrator: schedules, transitions, network, loss.
 
-Counterpart of `phoregen_tpu/models/phoregen.py::PhoreGen`, sampling half:
-the three beta schedules, the position Gaussian transition, the node/edge
-categorical transitions and the network. The training loss is a later
-slice of the port.
+Counterpart of `phoregen_tpu/models/phoregen.py::PhoreGen`: the three beta
+schedules, the position Gaussian transition, the node/edge categorical
+transitions, the network, and the training loss (`compute_loss`: the joint
+position / node / edge / atom-count loss, masked over padded slots). The
+loss is split in two so that a test can inject the perturbation:
+`perturb` draws t, the coordinate jitter and the forward noise (from a
+`torch.Generator`, or takes them as given), `loss_from_perturbation` runs
+the network on it and reduces the losses and metrics.
 """
 from __future__ import annotations
 
-import numpy as np
+from typing import Dict, Optional, Tuple
 
-from ..constants import phore_ex_column
+import numpy as np
+import torch
+
+from ..constants import MAX_ATOMS, MIN_ATOMS, phore_ex_column
 from ..diffusion.categorical import CategoricalTransition
 from ..diffusion.gaussian import GaussianTransition
+from ..ops.masked import masked_mean
 from ..ops.schedules import get_beta_schedule
 from .diffusion_model import PhoreDiffNet
+
+
+def qd_loss(y_true, y_l, y_u, a=0.05, s=160.0, nd=15.0, factor=1.0,
+            epsilon=1e-12, weights=None):
+    """Quality-driven interval loss (soft PICP / MPIW). y_*: [B, 1].
+    `weights` ([B, 1] in {0, 1}) excludes graphs from the means; None keeps
+    the unweighted form. The hard counts use sign and relu, as in the JAX
+    package."""
+    if weights is None:
+        weights = torch.ones_like(y_true)
+    n = weights.sum()
+    k_u_h = torch.relu(torch.sign(y_u - y_true))
+    k_l_h = torch.relu(torch.sign(y_true - y_l))
+    k_u_s = torch.sigmoid((y_u - y_true) * s)
+    k_l_s = torch.sigmoid((y_true - y_l) * s)
+    k_s = k_u_s * k_l_s
+    k_h = k_u_h * k_l_h
+    mpiw_c = (((y_u - y_l) * k_h * weights).sum()
+              / ((k_h * weights).sum() + epsilon) * factor)
+    picp = (k_s * weights).sum() / torch.clamp(n, min=1.0)
+    return mpiw_c + torch.relu((1 - a) - picp) ** 2 * (n ** 0.5) * nd
+
+
+def _graph_mean(per_graph, graph_weights):
+    if graph_weights is None:
+        return per_graph.mean()
+    w = graph_weights.to(torch.float32)
+    return (per_graph * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def exact_match_accuracy(true, pred_logits, mask, graph_weights=None):
+    """Fraction of graphs whose every valid entry is argmax-correct. mask:
+    [B, ...] validity grid; `graph_weights` [B] excludes graphs."""
+    wrong = (pred_logits.argmax(-1) != true) & mask
+    graph_ok = (~wrong.flatten(1).any(1)).to(torch.float32)
+    return _graph_mean(graph_ok, graph_weights)
+
+
+def element_accuracy(true, pred_logits, mask, graph_weights=None):
+    """Per-element argmax accuracy over valid entries (per-graph mean with
+    the denominator floored at 1, then batch mean)."""
+    ok = ((pred_logits.argmax(-1) == true) & mask).to(torch.float32)
+    per_graph = ok.flatten(1).sum(1) / torch.clamp(
+        mask.to(torch.float32).flatten(1).sum(1), min=1.0)
+    return _graph_mean(per_graph, graph_weights)
+
+
+def init_params(net: torch.nn.Module, seed: int) -> None:
+    """Fresh parameters as the JAX package's flax modules initialise them:
+    every kernel (and `tf_ang_w`) LeCun-normal over its fan-in (a normal of
+    variance 1/fan_in truncated at two standard deviations; per layer for
+    stacked leaves), LayerNorm scales 1, biases 0, and the two atom-count
+    heads' output biases +2 and -2. Drawn from a generator seeded with
+    `seed` (torch's numbers, not JAX's)."""
+    gen = torch.Generator().manual_seed(int(seed))
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "scale" or leaf.endswith("ln_scale"):
+                p.fill_(1.0)
+            elif leaf == "bias" or leaf.endswith("ln_bias"):
+                p.fill_({"atom_mlp_2.bias": 2.0,
+                         "atom_mlp_1_2.bias": -2.0}.get(name, 0.0))
+            else:
+                # 0.8796 = std of a unit normal truncated at +-2
+                std = (1.0 / p.shape[-2]) ** 0.5 / 0.87962566103423978
+                w = torch.empty(p.shape)
+                torch.nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                            generator=gen)
+                p.copy_(w)
 
 
 class PhoreGen:
@@ -42,6 +120,128 @@ class PhoreGen:
             self.edge_betas, mcfg.num_bond_classes, diff.diff_bond.init_prob)
         self.ex_col = phore_ex_column(config.dataset.data_name)
         self.net = PhoreDiffNet(mcfg, self.ex_col)
+        self.loss_weight = tuple(mcfg.loss_weight)
+
+    # ----- time sampling -----
+    def sample_time(self, num_graphs: int,
+                    generator: Optional[torch.Generator], device
+                    ) -> torch.Tensor:
+        """Antithetic: half uniform, half T-1-t."""
+        half = num_graphs // 2 + 1
+        t = torch.randint(0, self.num_timesteps, (half,),
+                          generator=generator, device=device)
+        return torch.cat([t, self.num_timesteps - t - 1])[:num_graphs]
+
+    # ----- training loss -----
+    def perturb(self, batch, generator: Optional[torch.Generator] = None,
+                lig_noise_std: float = 0.0, *, t=None, jitter=None,
+                pos_noise=None, node_uniform=None, edge_uniform=None
+                ) -> Dict[str, torch.Tensor]:
+        """The random half of a training step: timestep per graph,
+        coordinate jitter (`lig_noise_std` > 0) and the forward noise of
+        positions, atom types and bond types. Each draw comes from
+        `generator` unless given: `t` [B] int, `jitter` and `pos_noise`
+        [B,NL,3] standard normal, `node_uniform` [B,NL,Ka] and
+        `edge_uniform` [B,NL,NL,Kb] in [0,1)."""
+        dev = batch.lig_pos.device
+        lig_pos = batch.lig_pos
+        if lig_noise_std > 0:
+            if jitter is None:
+                jitter = torch.randn(lig_pos.shape, generator=generator,
+                                     device=dev)
+            lig_pos = lig_pos + lig_noise_std * jitter
+        if t is None:
+            t = self.sample_time(batch.num_graphs, generator, dev)
+        t = t.long()
+        h_node, log_node_t, log_node_0 = self.node_transition.add_noise(
+            batch.lig_type, t, generator, node_uniform)
+        h_edge, log_edge_t, log_edge_0 = self.edge_transition.add_noise(
+            batch.bond_type, t, generator, edge_uniform)
+        return dict(
+            t=t, lig_pos=lig_pos,
+            pos_pert=self.pos_transition.add_noise(lig_pos, t, generator,
+                                                   pos_noise),
+            h_node_pert=h_node, log_node_t=log_node_t, log_node_0=log_node_0,
+            h_edge_pert=h_edge, log_edge_t=log_edge_t, log_edge_0=log_edge_0)
+
+    def _categorical_loss(self, trans, pred_logits, log_v0, log_vt, t, mask):
+        log_recon = torch.log_softmax(pred_logits, dim=-1)
+        post_true = trans.q_v_posterior(log_v0, log_vt, t, v0_prob=True)
+        post_pred = trans.q_v_posterior(log_recon, log_vt, t, v0_prob=True)
+        return masked_mean(trans.compute_v_Lt(post_true, post_pred, log_v0,
+                                              t), mask)
+
+    def loss_from_perturbation(self, batch, pert, graph_mask=None
+                               ) -> Tuple[torch.Tensor, Dict]:
+        """Network on the perturbed state, then the joint loss and the
+        metrics. `graph_mask` ([B] bool) excludes graphs from every
+        reduction (the cycled duplicates of a validation tail batch)."""
+        mcfg = self.config.model
+        t, lig_pos = pert["t"], pert["lig_pos"]
+        pred_node, pred_pos, pred_edge, pred_count = self.net(
+            pert["h_node_pert"], pert["pos_pert"], batch.lig_mask,
+            pert["h_edge_pert"], t, batch.phore_x, batch.phore_pos,
+            batch.phore_norm, batch.phore_mask)
+        lmask, emask, gw = batch.lig_mask, batch.bond_mask, None
+        if graph_mask is not None:
+            gm = graph_mask.to(torch.bool)
+            lmask = lmask & gm[:, None]
+            emask = emask & gm[:, None, None]
+            gw = gm.to(torch.float32)
+        out = {}
+        # position MSE over valid atoms (summed over xyz, per valid atom)
+        loss_pos = masked_mean((pred_pos - lig_pos) ** 2,
+                               lmask[..., None]) * self.loss_weight[0]
+        loss_node = self._categorical_loss(
+            self.node_transition, pred_node, pert["log_node_0"],
+            pert["log_node_t"], t, lmask) * self.loss_weight[1]
+        loss_edge = self._categorical_loss(
+            self.edge_transition, pred_edge, pert["log_edge_0"],
+            pert["log_edge_t"], t, emask) * self.loss_weight[2]
+        loss_len = 0.0
+        if mcfg.bond_len_loss:  # over true bonds
+            bmask = emask & (batch.bond_type > 0)
+            pair_dist = lambda p: torch.sqrt(
+                ((p[:, None] - p[:, :, None]) ** 2).sum(-1) + 1e-12)
+            loss_len = masked_mean(
+                (pair_dist(pred_pos) - pair_dist(lig_pos)) ** 2, bmask)
+            out["loss_len"] = loss_len
+        # atom-count interval loss, count normalized to [0, 1]
+        true_count = batch.lig_mask.sum(1).to(torch.float32)
+        norm_count = ((true_count - MIN_ATOMS) / (MAX_ATOMS - MIN_ATOMS)
+                      )[:, None]
+        loss_count = qd_loss(norm_count, *pred_count, s=160.0, nd=15.0,
+                             factor=mcfg.count_factor,
+                             weights=None if gw is None else gw[:, None])
+        hit = ((norm_count >= pred_count[0]) & (norm_count <= pred_count[1])
+               ).to(torch.float32)[:, 0]
+        loss = loss_pos + loss_node + loss_edge + loss_count + loss_len
+        out.update(
+            loss=loss, loss_pos=loss_pos, loss_node=loss_node,
+            loss_count=loss_count, count_hit=_graph_mean(hit, gw),
+            node_acc=exact_match_accuracy(batch.lig_type, pred_node, lmask,
+                                          gw),
+            node_elem_acc=element_accuracy(batch.lig_type, pred_node, lmask,
+                                           gw),
+            loss_edge=loss_edge,
+            edge_acc=exact_match_accuracy(batch.bond_type, pred_edge, emask,
+                                          gw),
+            edge_elem_acc=element_accuracy(batch.bond_type, pred_edge, emask,
+                                           gw))
+        return loss, out
+
+    def compute_loss(self, batch, generator: Optional[torch.Generator] = None,
+                     lig_noise_std: float = 0.0,
+                     compute_dtype: str = "float32", graph_mask=None,
+                     **draws) -> Tuple[torch.Tensor, Dict]:
+        """Joint pos/node/edge/count loss of one batch on the network's
+        current parameters; `draws` are `perturb`'s injected draws."""
+        if compute_dtype != "float32":
+            raise NotImplementedError(
+                f"compute_dtype={compute_dtype!r} (train.dtype) is not "
+                f"ported yet: ROADMAP.md, 'Still to port', bf16")
+        pert = self.perturb(batch, generator, lig_noise_std, **draws)
+        return self.loss_from_perturbation(batch, pert, graph_mask)
 
 
 def load_release_model(prefix: str, device="cuda", config=None,

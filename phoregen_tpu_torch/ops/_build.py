@@ -24,7 +24,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LIBRARIES = {
     "layer_stack": ("layer_stack.cu",
                     ("ls_stage_node", "ls_stage_trip_pre",
-                     "ls_stage_trip_att", "ls_stage_pos")),
+                     "ls_stage_trip_att", "ls_stage_pos",
+                     "ls_stage_node_pre", "ls_stage_att_pos")),
     "triplet_pool": ("triplet_pool.cu", ("tp_triplet_pool",)),
 }
 

@@ -1,10 +1,11 @@
 """Hold each CUDA kernel against its plain version on the card, and time
-both, at the shapes the sampling paths give it.
+both, at the shapes the sampling and training paths give it.
 
 `flagship_case()` builds one layer's inputs at the flagship width (H=128,
 16 heads, Wt=32, kNN 32, K8 32) for a batch of B graphs with NP phore and
 NL ligand slots, from a seed, on the given device. `check_kernels(case)`
-returns one row per kernel: max abs/rel error against the plain version on
+returns one row per layer-stack kernel (the four single stages and the two
+merged ones): max abs/rel error against the plain version on
 the same inputs, kernel and plain times (CUDA events), and the H100 bound
 from the bytes and float32 operations the function needs.
 `triplet_case()` and `check_triplet_pool()` do the same for the all-k
@@ -36,6 +37,11 @@ KERNELS = (
      "_head_att_accumulate:1188)"),
     ("stage_pos",
      "phoregen_tpu/ops/layer_stack.py:629 (_stage_pos via _stage_pallas:1114)"),
+    ("stage_node_pre",
+     "phoregen_tpu/ops/layer_stack.py:578 (_stage_node_pre via "
+     "_stage_pallas:1114)"),
+    ("stage_att_pos",
+     "phoregen_tpu/ops/layer_stack.py:1261 (_att_pos_pallas)"),
 )
 SOURCE = "phoregen_tpu_torch/csrc/layer_stack.cu"
 TRIPLET_REPLACES = ("phoregen_tpu/ops/pallas_triplet.py:214 "
@@ -50,9 +56,14 @@ TRIPLET_SOURCE = "phoregen_tpu_torch/csrc/triplet_pool.cu"
 # against the plain version run in float64).
 # triplet_pool gets the same 5e-4 for the same reason: its pre-features
 # carry that angle, and a softmax over k and a pool follow them.
+# stage_node_pre runs the same B1 body, so its pre_t keeps the 5e-4 (its
+# new_h and q_z are held to 1e-4).
 TOLERANCE = {"stage_node": 1e-4, "stage_triplet_pre": 5e-4,
              "stage_triplet_att": 1e-4, "stage_pos": 1e-4,
+             "stage_node_pre": 5e-4, "stage_att_pos": 1e-4,
              "triplet_pool": 5e-4}
+# per-output override of a row's tolerance, by position in the output tuple
+OUTPUT_TOL = {"stage_node_pre": (1e-4, 5e-4, 1e-4)}
 
 
 def _random_tree(spec, g: torch.Generator, device):
@@ -106,6 +117,16 @@ def _work(name: str, c: Dict):
     N, NP, NL, K, K8 = d.N, d.NP, d.NL, d.K, d.K8
     H, nh, Wt = d.H, d.heads, d.Wt
     f4 = 4
+    if name == "stage_node_pre":
+        # A + B1 with h, x and hb read once (the weights of the two differ)
+        (b1, f1), (b2, f2) = (_work(n, c) for n in ("stage_node",
+                                                    "stage_triplet_pre"))
+        return b1 + b2 - (B * N * (H + 3) + B * NL * NL * H) * f4, f1 + f2
+    if name == "stage_att_pos":
+        # B2 + C with hb_new written once and not read back
+        (b1, f1), (b2, f2) = (_work(n, c) for n in ("stage_triplet_att",
+                                                    "stage_pos"))
+        return b1 + b2 - B * NL * NL * H * f4, f1 + f2
     wbytes = sum(v.numel() for v in c["w"].values()) * f4
     tab = (B * N * K * (4 + 4 + 16 + 4) + B * NL * (3 + K8) * 8
            + B * NP * 12 + B * NL * 4)
@@ -154,11 +175,13 @@ def _row(name, source, replaces, ok, got, ref, kern, plain, by, fl, reps):
     """One result row: errors of `got` against `ref` (tuples of tensors),
     both times, and the bound from `by` bytes and `fl` operations."""
     tol = TOLERANCE[name]
+    tols = OUTPUT_TOL.get(name, (tol,) * len(got))
     abs_err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
     rel_err = max(float(((a - b).abs() / (b.abs() + 1e-3)).max())
                   for a, b in zip(got, ref))
     ok = ok and all(bool(torch.isfinite(a).all()) for a in got) and all(
-        torch.allclose(a, b, atol=tol, rtol=tol) for a, b in zip(got, ref))
+        torch.allclose(a, b, atol=tl, rtol=tl)
+        for a, b, tl in zip(got, ref, tols))
     t_bytes = by / HBM_BYTES_PER_S * 1e3
     t_ops = fl / FP32_FLOPS_PER_S * 1e3
     return {
@@ -246,6 +269,13 @@ def check_kernels(c: Dict, reps: int = 5) -> List[Dict]:
             lambda: ls.stage_triplet_att_plain(w, hb, pre_r, qz_r, t, d)),
         "stage_pos": (lambda: ls.stage_pos(w, nh_r, x, hbn_r, t, d),
                       lambda: ls.stage_pos_plain(w, nh_r, x, hbn_r, t, d)),
+        "stage_node_pre": (
+            lambda: ls.stage_node_pre(w, h, x, hb, t, d),
+            lambda: ls.stage_node_pre_plain(w, h, x, hb, t, d)),
+        "stage_att_pos": (
+            lambda: ls.stage_att_pos(w, hb, pre_r, qz_r, nh_r, x, t, d),
+            lambda: ls.stage_att_pos_plain(w, hb, pre_r, qz_r, nh_r, x, t,
+                                           d)),
     }
     rows = []
     for name, replaces in KERNELS:
@@ -254,14 +284,15 @@ def check_kernels(c: Dict, reps: int = 5) -> List[Dict]:
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         ref = ref if isinstance(ref, tuple) else (ref,)
-        if name == "stage_triplet_pre":
+        if name in ("stage_triplet_pre", "stage_node_pre"):
             # pre_t slots of masked triplets (source slot beyond a graph's
             # atoms, k == i, j == i) are inert downstream; a masked slot may
             # repeat j itself, an exactly collinear triple whose angle is
             # ill-conditioned. Compare the triplets the attention reads.
             valid = ls.trip_valid(t)[..., None] > 0
-            got = (got[0][valid.expand_as(got[0])], got[1])
-            ref = (ref[0][valid.expand_as(ref[0])], ref[1])
+            i = 0 if name == "stage_triplet_pre" else 1
+            got = (*got[:i], got[i][valid.expand_as(got[i])], *got[i + 1:])
+            ref = (*ref[:i], ref[i][valid.expand_as(ref[i])], *ref[i + 1:])
         by, fl = _work(name, c)
         rows.append(_row(name, SOURCE, replaces, True, got, ref, kern, plain,
                          by, fl, reps))

@@ -9,9 +9,20 @@ card (`csrc/layer_stack.cu`) with a plain PyTorch version beside it:
     stage_triplet_att  <- _att_pallas / _head_att_accumulate  (B2: new hb)
     stage_pos          <- _stage_pallas o _stage_pos          (C: new x)
 
+and, merged two by two (`layer_stack(merge_node_pre=, merge_pos=)`, the
+`fused_stack` values 'pallas3' and 'pallas2'):
+
+    stage_node_pre     <- _stage_pallas o _stage_node_pre     (A + B1)
+    stage_att_pos      <- _att_pos_pallas                     (B2 + C)
+
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises. `LAUNCHES` counts kernel
 launches per stage.
+
+`make_layer_stack_grad` makes the stack trainable: kernels forward,
+backward by recomputing one layer at a time through the plain stages
+(`LayerStackFn`), as the JAX package's custom VJP recomputes through
+`layer_stack_xla`.
 
 Differences from the TPU layout, kept in the plain versions too so the two
 can be compared element for element:
@@ -43,7 +54,7 @@ NEG_INF = -1e9
 CROSS_SQ_EPS = 1e-12
 
 LAUNCHES = {"stage_node": 0, "stage_triplet_pre": 0, "stage_triplet_att": 0,
-            "stage_pos": 0}
+            "stage_pos": 0, "stage_node_pre": 0, "stage_att_pos": 0}
 
 
 def reset_launch_counts() -> None:
@@ -113,7 +124,11 @@ def pack_layer_params(raw, hidden: int, fe: int) -> Dict[str, torch.Tensor]:
     `fe` = knn edge-feature width (93 with direction_match). Keys follow the
     JAX package's packing for what the four stages read, plus the merged
     node-projection operands the kernels use (`nodeA_W`, `nodeB_W`,
-    `nodeC_W`: every projection of one node-feature tensor in one matrix)."""
+    `nodeC_W`: every projection of one node-feature tensor in one matrix;
+    `nodeAB_W` = [nodeA_W | nodeB_W] for the merged A + B1 kernel).
+
+    Every output is built with torch ops on the given leaves, so under
+    autograd the packed tensors carry gradients back to the parameters."""
     H = hidden
 
     def cat(arrs, dim):
@@ -209,6 +224,7 @@ def pack_layer_params(raw, hidden: int, fe: int) -> Dict[str, torch.Tensor]:
     out["nodeC_W"] = cat([out["e_Wn_nh"], q_W0[:, 2], q_W0[:, 3],
                           out["p_Wn"]], 2)                  # [L,H,10H]
     out["nodeB_W"] = cat([out["t_Wn"], out["tq_Wi"]], 2)    # [L,H,2Wt+H]
+    out["nodeAB_W"] = cat([out["nodeA_W"], out["nodeB_W"]], 2)
     return out
 
 
@@ -417,6 +433,20 @@ def stage_pos_plain(w, new_h, x, hb_new, t, d: StackDims):
     return x + dx * lig[..., None]
 
 
+def stage_node_pre_plain(w, h, x, hb, t, d: StackDims):
+    """Merged stage A + B1 (`_stage_node_pre`): (new_h, pre_t, q_z)."""
+    return (stage_node_plain(w, h, x, hb, t, d),
+            *stage_triplet_pre_plain(w, h, x, hb, t, d))
+
+
+def stage_att_pos_plain(w, hb, pre_t, q_z, new_h, x, t, d: StackDims):
+    """Merged stage B2 + C (`_att_pos_pallas`): the triplet attention over
+    all heads, then the position update on the finished bond grid.
+    Returns (hb_new, x_new)."""
+    hb_new = stage_triplet_att_plain(w, hb, pre_t, q_z, t, d)
+    return hb_new, stage_pos_plain(w, new_h, x, hb_new, t, d)
+
+
 # --------------------------------------------------------------------------
 # kernel wrappers
 # --------------------------------------------------------------------------
@@ -538,28 +568,195 @@ def stage_pos(w, new_h, x, hb_new, t, d: StackDims):
     return out
 
 
+def stage_node_pre(w, h, x, hb, t, d: StackDims):
+    """Merged stage A + B1; one CUDA kernel for CUDA tensors (one node
+    projection phase, one main grid whose blocks take either role), plain
+    version on the CPU. Returns (new_h, pre_t, q_z)."""
+    if not h.is_cuda:
+        return stage_node_pre_plain(w, h, x, hb, t, d)
+    B = h.shape[0]
+    _check_shapes(d, B, t, h=h, x=x, hb=hb)
+    new_h = torch.empty_like(h)
+    pre_t = torch.empty(B, d.NL, d.NL, d.K8, d.Wt, device=h.device)
+    q_z = torch.empty(B, d.NL, d.NL, d.H, device=h.device)
+    P = torch.empty(B * d.N, 11 * d.H + 2 * d.Wt, device=h.device)
+    named = ([("h", h), ("x", x), ("hb", hb), ("new_h", new_h), ("P", P)]
+             + [(k, t[k]) for k in _TABLE_ARGS]
+             + [("nodeAB_W", w["nodeAB_W"])]
+             + [(k, w[k]) for k in _NODE_W[1:]]
+             + [("pre_t", pre_t), ("q_z", q_z), ("trip_idx", t["trip_idx"])]
+             + [(k, w[k]) for k in _TRIP_PRE_W[1:]])
+    _launch("ls_stage_node_pre", named, d, B)
+    LAUNCHES["stage_node_pre"] += 1
+    return new_h, pre_t, q_z
+
+
+def stage_att_pos(w, hb, pre_t, q_z, new_h, x, t, d: StackDims):
+    """Merged stage B2 + C; one CUDA kernel for CUDA tensors (a block per
+    (graph, destination) finishes its column of the new bond grid and feeds
+    it to the position update), plain version on the CPU.
+    Returns (hb_new, x_new)."""
+    if not hb.is_cuda:
+        return stage_att_pos_plain(w, hb, pre_t, q_z, new_h, x, t, d)
+    B = hb.shape[0]
+    _check_shapes(d, B, t, h=new_h, x=x, hb=hb, pre_t=pre_t, q_z=q_z)
+    hb_new = torch.empty_like(hb)
+    x_new = torch.empty_like(x)
+    P = torch.empty(B * d.N, 10 * d.H, device=x.device, dtype=torch.float32)
+    named = ([("new_h", new_h), ("x", x), ("hb", hb), ("x_new", x_new),
+              ("P", P)] + [(k, t[k]) for k in _TABLE_ARGS]
+             + [(k, w[k]) for k in _POS_W]
+             + [("pre_t", pre_t), ("q_z", q_z), ("hb_new", hb_new),
+                ("trip_idx", t["trip_idx"]), ("trip_mask", t["trip_mask"])]
+             + [(k, w[k]) for k in _TRIP_ATT_W])
+    _launch("ls_stage_att_pos", named, d, B)
+    LAUNCHES["stage_att_pos"] += 1
+    return hb_new, x_new
+
+
 def layer_weights(packed: Dict[str, torch.Tensor], l: int):
     return {k: v[l] for k, v in packed.items()}
 
 
+def _layer(w, h, x, hb, t, d: StackDims, use_kernels: bool,
+           merge_node_pre: bool, merge_pos: bool):
+    """One attention layer -> (new_h, x_new, hb_new)."""
+    if not use_kernels:
+        # the merged plain versions are compositions of these four
+        new_h = stage_node_plain(w, h, x, hb, t, d)
+        pre_t, q_z = stage_triplet_pre_plain(w, h, x, hb, t, d)
+        hb_new = stage_triplet_att_plain(w, hb, pre_t, q_z, t, d)
+        return new_h, stage_pos_plain(w, new_h, x, hb_new, t, d), hb_new
+    if merge_node_pre:
+        new_h, pre_t, q_z = stage_node_pre(w, h, x, hb, t, d)
+    else:
+        new_h = stage_node(w, h, x, hb, t, d)
+        pre_t, q_z = stage_triplet_pre(w, h, x, hb, t, d)
+    if merge_pos:
+        hb_new, x_new = stage_att_pos(w, hb, pre_t, q_z, new_h, x, t, d)
+    else:
+        hb_new = stage_triplet_att(w, hb, pre_t, q_z, t, d)
+        x_new = stage_pos(w, new_h, x, hb_new, t, d)
+    return new_h, x_new, hb_new
+
+
 def layer_stack(packed: Dict[str, torch.Tensor], h, x, hb,
                 tables: Dict[str, torch.Tensor], dims: StackDims,
-                use_kernels: bool = True):
+                use_kernels: bool = True, merge_node_pre: bool = False,
+                merge_pos: bool = False, remat: bool = False):
     """h [B,N,H]; x [B,N,3]; hb [B,NL,NL,H]; tables from
     `build_block_tables` plus 'edge_type' [B,N,K,4], 'e_w' [B,N,K] and
-    'phore_norm' [B,NP,3]. Runs the four stages layer by layer, as
-    `layer_stack_pallas` does; with `use_kernels` false through the plain
-    stages on any device (the counterpart of `layer_stack_xla`)."""
-    A, B1, B2, C = (stage_node, stage_triplet_pre, stage_triplet_att,
-                    stage_pos) if use_kernels else (
-        stage_node_plain, stage_triplet_pre_plain, stage_triplet_att_plain,
-        stage_pos_plain)
+    'phore_norm' [B,NP,3]. Runs the stages layer by layer, as
+    `layer_stack_pallas` does: four dispatches a layer, three with
+    `merge_node_pre` ('pallas3'), two with `merge_pos` as well ('pallas2').
+    With `use_kernels` false it runs the plain stages on any device (the
+    counterpart of `layer_stack_xla`), differentiable by autograd; `remat`
+    then recomputes each layer in the backward (`torch.utils.checkpoint`)
+    instead of keeping its O(NL^2 K8) intermediates."""
     L = packed["lin_b"].shape[0]
+    keys = sorted(packed)
     for l in range(L):
         w = layer_weights(packed, l)
-        new_h = A(w, h, x, hb, tables, dims)
-        pre_t, q_z = B1(w, h, x, hb, tables, dims)
-        hb = B2(w, hb, pre_t, q_z, tables, dims)
-        x = C(w, new_h, x, hb, tables, dims)
-        h = new_h
+        if remat and not use_kernels and torch.is_grad_enabled():
+            from torch.utils.checkpoint import checkpoint
+
+            def run(h_, x_, hb_, e_w, pn, *ws):
+                t = dict(tables, e_w=e_w, phore_norm=pn)
+                return _layer(dict(zip(keys, ws)), h_, x_, hb_, t, dims,
+                              False, False, False)
+            h, x, hb = checkpoint(run, h, x, hb, tables["e_w"],
+                                  tables["phore_norm"],
+                                  *[w[k] for k in keys], use_reentrant=False)
+        else:
+            h, x, hb = _layer(w, h, x, hb, tables, dims, use_kernels,
+                              merge_node_pre, merge_pos)
     return h, x, hb
+
+
+# --------------------------------------------------------------------------
+# the trainable fused stack: kernels forward, plain stages backward
+# --------------------------------------------------------------------------
+
+_DIFF_TABLES = ("e_w", "phore_norm")
+
+
+class LayerStackFn(torch.autograd.Function):
+    """`layer_stack` through its kernels with a backward.
+
+    forward runs the stages (kernels on CUDA tensors) and saves only the
+    layer-boundary (h, x, hb); backward walks the layers in reverse,
+    recomputes ONE layer through the plain stages under autograd and pulls
+    the cotangents back to that layer's packed weights, to h, x, hb and to
+    the differentiable tables `e_w` and `phore_norm`. Index and mask tables
+    get no gradient (the kNN sets are frozen per block). There is no
+    backward kernel, as in the JAX package, whose custom VJP recomputes
+    `layer_stack_xla`; one layer at a time keeps the recomputed
+    [B,NL,NL,K8,Wt] and per-head intermediates of a single layer live
+    instead of the whole stack's. The straight-through treatment of bf16
+    inter-stage blocks (`fused_block_dtype`) is not ported yet.
+
+    Arguments: (dims, merge_node_pre, merge_pos, tables, keys, h, x, hb,
+    e_w, phore_norm, *packed values in the order of `keys`)."""
+
+    @staticmethod
+    def forward(ctx, dims, merge_node_pre, merge_pos, tables, keys, h, x, hb,
+                e_w, phore_norm, *values):
+        packed = dict(zip(keys, values))
+        t = dict(tables, e_w=e_w, phore_norm=phore_norm)
+        L = packed["lin_b"].shape[0]
+        bounds = []
+        for l in range(L):
+            bounds.append((h, x, hb))
+            h, x, hb = _layer(layer_weights(packed, l), h, x, hb, t, dims,
+                              True, merge_node_pre, merge_pos)
+        ctx.dims, ctx.tables, ctx.keys = dims, t, keys
+        ctx.bounds, ctx.values = bounds, values
+        return h, x, hb
+
+    @staticmethod
+    def backward(ctx, g_h, g_x, g_hb):
+        dims, t, keys = ctx.dims, ctx.tables, ctx.keys
+        L = len(ctx.bounds)
+        g_vals = [torch.zeros_like(v) for v in ctx.values]
+        g_tab = [torch.zeros_like(t[k]) for k in _DIFF_TABLES]
+        zero = lambda g, like: torch.zeros_like(like) if g is None else g
+        for l in reversed(range(L)):
+            h, x, hb = (a.detach().requires_grad_(True)
+                        for a in ctx.bounds[l])
+            w = [v[l].detach().requires_grad_(True) for v in ctx.values]
+            tabs = [t[k].detach().requires_grad_(True) for k in _DIFF_TABLES]
+            with torch.enable_grad():
+                tl = dict(t, **dict(zip(_DIFF_TABLES, tabs)))
+                outs = _layer(dict(zip(keys, w)), h, x, hb, tl, dims, False,
+                              False, False)
+                gouts = (zero(g_h, outs[0]), zero(g_x, outs[1]),
+                         zero(g_hb, outs[2]))
+                # order of `_layer`'s outputs is (h, x, hb)
+                grads = torch.autograd.grad(
+                    outs, [h, x, hb] + tabs + w, gouts, allow_unused=True)
+            g_h, g_x, g_hb = grads[:3]
+            for acc, g in zip(g_tab, grads[3:3 + len(tabs)]):
+                if g is not None:
+                    acc += g
+            for acc, g in zip(g_vals, grads[3 + len(tabs):]):
+                if g is not None:
+                    acc[l] = g
+        ctx.bounds = None
+        return (None, None, None, None, None, g_h, g_x, g_hb, *g_tab,
+                *g_vals)
+
+
+def make_layer_stack_grad(dims: StackDims, merge_node_pre: bool = False,
+                          merge_pos: bool = False):
+    """The fused stack usable under autograd: f(packed, h, x, hb, tables)
+    -> (h, x, hb), kernels forward, `LayerStackFn`'s backward. Without
+    grad mode (sampling) it is `layer_stack` itself."""
+    def f(packed, h, x, hb, tables):
+        if not torch.is_grad_enabled():
+            return layer_stack(packed, h, x, hb, tables, dims, True,
+                               merge_node_pre, merge_pos)
+        keys = tuple(sorted(packed))
+        return LayerStackFn.apply(
+            dims, merge_node_pre, merge_pos, tables, keys, h, x, hb,
+            tables["e_w"], tables["phore_norm"], *[packed[k] for k in keys])
+    return f

@@ -69,3 +69,13 @@ def log_sample_categorical(logits: torch.Tensor,
 def clamped_log(x: torch.Tensor, eps: float = LOG_EPS) -> torch.Tensor:
     """log(x + eps) clamped below at -32."""
     return torch.clamp(torch.log(x + eps), min=LOG_CLAMP)
+
+
+def categorical_kl(log_prob1: torch.Tensor, log_prob2: torch.Tensor
+                   ) -> torch.Tensor:
+    return (torch.exp(log_prob1) * (log_prob1 - log_prob2)).sum(-1)
+
+
+def log_categorical(log_x_start: torch.Tensor, log_prob: torch.Tensor
+                    ) -> torch.Tensor:
+    return (torch.exp(log_x_start) * log_prob).sum(-1)

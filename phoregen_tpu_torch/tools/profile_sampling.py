@@ -7,7 +7,8 @@
 Loads release/flagship_r4, builds a sampling batch of `--batch` graphs for
 one pharmacophore in the `--nl` ligand bucket, and runs reverse steps of
 the port's sampler: `--fused_stack pallas` (the default here: the fused
-stack's four CUDA kernels) or `none` (the per-layer module path, with
+stack's four CUDA kernels), `pallas3` / `pallas2` (its merged kernels,
+three / two a layer) or `none` (the per-layer module path, with
 `--triplet_knn` and `--use_pallas_triplet` as in the sampling CLI; -1 keeps
 the checkpoint's value). `--warmup` steps, then
 `--steps` timed steps (host clock around work that ends in a synchronize),
@@ -29,6 +30,46 @@ import numpy as np
 import torch
 
 
+# kernel-name fragment -> stage; the merged kernels first, since
+# "att_pos_kernel" also contains "pos_kernel"
+STAGE_NAMES = (("node_pre_kernel", "stage_node_pre (A+B1)"),
+               ("att_pos_kernel", "stage_att_pos (B2+C)"),
+               ("node_kernel", "stage_node (A)"),
+               ("trip_pre_kernel", "stage_triplet_pre (B1)"),
+               ("trip_att_kernel", "stage_triplet_att (B2)"),
+               ("pos_kernel", "stage_pos (C)"),
+               ("rows_gemm", "node projections (A, B1, C)"),
+               ("triplet_pool_kernel", "triplet_pool (all-k)"))
+
+
+def stage_label(key: str) -> str:
+    return next((v for k, v in STAGE_NAMES if k in key), "")
+
+
+def kernel_rows(prof, steps: int):
+    """(ms/step, calls/step, name) of the device-side kernel events of a
+    profile, largest first. Device events only: a CPU op (aten::mul) also
+    reports the device time of the kernels it launched, which would count
+    them twice."""
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dt = e.self_device_time_total
+        if dt > 0:
+            rows.append((dt / 1e3 / steps, e.count / steps, e.key))
+    rows.sort(reverse=True)
+    return rows
+
+
+def stage_times(rows):
+    out = {v: 0.0 for _, v in STAGE_NAMES}
+    for ms, _, key in rows:
+        if stage_label(key):
+            out[stage_label(key)] += ms
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--ckpt", default="release/flagship_r4")
@@ -40,7 +81,8 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--fused_stack", default="pallas",
-                    choices=["none", "xla", "xla2", "pallas"])
+                    choices=["none", "xla", "xla2", "pallas", "pallas3",
+                             "pallas2"])
     ap.add_argument("--triplet_knn", type=int, default=-1)
     ap.add_argument("--use_pallas_triplet", type=int, default=-1,
                     choices=[-1, 0, 1])
@@ -96,23 +138,8 @@ def main(argv=None):
         run(args.steps)
         torch.cuda.synchronize()
         prof_ms_step = (time.time() - t0) * 1e3 / args.steps
-    # device-side kernel events only: a CPU op (aten::mul) also reports the
-    # device time of the kernels it launched, which would count them twice
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dt = e.self_device_time_total
-        if dt > 0:
-            rows.append((dt / 1e3 / args.steps, e.count / args.steps, e.key))
-    rows.sort(reverse=True)
+    rows = kernel_rows(prof, args.steps)
     busy = sum(r[0] for r in rows)
-    stage_names = {"node_kernel": "stage_node (A)",
-                   "trip_pre_kernel": "stage_triplet_pre (B1)",
-                   "trip_att_kernel": "stage_triplet_att (B2)",
-                   "pos_kernel": "stage_pos (C)",
-                   "rows_gemm": "node projections (A, B1, C)",
-                   "triplet_pool_kernel": "triplet_pool (all-k)"}
     gpu = torch.cuda.get_device_name(0)
     print(f"[profile] {gpu}; batch {args.batch}, NL {args.nl}, "
           f"NP {batch.phore_x.shape[1]}; fused_stack {dcfg.fused_stack}, "
@@ -123,11 +150,9 @@ def main(argv=None):
           f"{1 - busy / prof_ms_step:.3f} of the profiled step, "
           f"{1 - busy / ms_step:.3f} of the unprofiled step")
     for ms, cnt, key in rows[:args.top]:
-        label = next((v for k, v in stage_names.items() if k in key), "")
         print(f"[profile] {ms:9.4f} ms/step {cnt:7.1f} calls/step  "
-              f"{key[:70]} {label}")
-    stage_ms = {v: sum(r[0] for r in rows if k in r[2])
-                for k, v in stage_names.items()}
+              f"{key[:70]} {stage_label(key)}")
+    stage_ms = stage_times(rows)
     print(json.dumps({"gpu": gpu, "batch": args.batch, "nl": args.nl,
                       "fused_stack": dcfg.fused_stack,
                       "triplet_knn": dcfg.triplet_knn,

@@ -1,12 +1,15 @@
-"""Release checkpoints: a flax msgpack reader with no flax or msgpack.
+"""Checkpoints in the JAX package's format, read and written with no flax
+or msgpack.
 
-The JAX package saves parameters with `flax.serialization.to_bytes`: a
-msgpack map of nested string-keyed maps whose leaves are msgpack ext values
-of type 1, each holding the packed triple `(shape, dtype name, raw bytes)`.
-Beside `<prefix>.msgpack` sits `<prefix>.json` with the training config and
-metadata. `load_release(prefix)` reads both; `from_jax_params` maps the
-flax parameter tree onto the port's `state_dict` names (flax path joined by
-'.'), which is the one place weights cross from the JAX package.
+The JAX package saves with `flax.serialization.to_bytes`: a msgpack map of
+nested string-keyed maps whose leaves are msgpack ext values of type 1,
+each holding the packed triple `(shape, dtype name, raw bytes)`. Beside
+`<prefix>.msgpack` sits `<prefix>.json` with the training config and
+metadata. `load_release(prefix)` reads both; `msgpack_restore` /
+`msgpack_serialize` are the reader and the writer of that subset.
+`from_jax_params` maps the flax parameter tree onto the port's
+`state_dict` names (flax path joined by '.') and `to_jax_params` maps back:
+the one place weights cross between the two packages.
 """
 from __future__ import annotations
 
@@ -106,6 +109,69 @@ class _Reader:
         raise ValueError(f"unsupported msgpack type byte 0x{b:02x}")
 
 
+def _pack_len(n: int, codes, fix=None) -> bytes:
+    """Header of a str / bin / array / map / ext of length n: `fix` is
+    (base, limit) of the one-byte form, `codes` the 8/16/32-bit type
+    bytes (None where the format has no such form)."""
+    if fix is not None and n < fix[1]:
+        return bytes([fix[0] | n])
+    for code, fmt, limit in zip(codes, (">B", ">H", ">I"),
+                                (1 << 8, 1 << 16, 1 << 32)):
+        if code is not None and n < limit:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"object of length {n} is too long for msgpack")
+
+
+def _pack(obj: Any, out: list) -> None:
+    if obj is None:
+        out.append(b"\xc0")
+    elif isinstance(obj, bool):
+        out.append(b"\xc3" if obj else b"\xc2")
+    elif isinstance(obj, int):
+        out.append(bytes([obj]) if 0 <= obj < 128
+                   else b"\xd3" + struct.pack(">q", obj))
+    elif isinstance(obj, float):
+        out.append(b"\xcb" + struct.pack(">d", obj))
+    elif isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        out.append(_pack_len(len(raw), (0xD9, 0xDA, 0xDB), (0xA0, 32)))
+        out.append(raw)
+    elif isinstance(obj, (bytes, memoryview)):
+        out.append(_pack_len(len(obj), (0xC4, 0xC5, 0xC6)))
+        out.append(bytes(obj))
+    elif isinstance(obj, (list, tuple)):
+        out.append(_pack_len(len(obj), (None, 0xDC, 0xDD), (0x90, 16)))
+        for v in obj:
+            _pack(v, out)
+    elif isinstance(obj, dict):
+        out.append(_pack_len(len(obj), (None, 0xDE, 0xDF), (0x80, 16)))
+        for k, v in obj.items():
+            _pack(str(k), out)
+            _pack(v, out)
+    elif isinstance(obj, (np.ndarray, np.generic)):
+        arr = np.asarray(obj)
+        if arr.nbytes >= 1 << 30:
+            raise ValueError("leaves of 1 GiB and more (flax's chunked "
+                             "arrays) are not written")
+        body: list = []
+        _pack((list(arr.shape), arr.dtype.name, arr.tobytes()), body)
+        raw = b"".join(body)
+        out.append(_pack_len(len(raw), (0xC7, 0xC8, 0xC9)))
+        out.append(struct.pack(">b", _EXT_NDARRAY))
+        out.append(raw)
+    else:
+        raise TypeError(f"cannot serialize {type(obj).__name__}")
+
+
+def msgpack_serialize(tree: Dict[str, Any]) -> bytes:
+    """Nested dict of numpy arrays (and str / int / float / None leaves) ->
+    the bytes `flax.serialization.msgpack_restore` reads back to the same
+    tree. Tensors go in as numpy arrays."""
+    out: list = []
+    _pack(tree, out)
+    return b"".join(out)
+
+
 def _ndarray_from_bytes(data: bytes) -> np.ndarray:
     shape, dtype_name, buffer = _Reader(data).read()
     return np.frombuffer(buffer, dtype=np.dtype(dtype_name)).reshape(shape)
@@ -136,12 +202,14 @@ def load_release(prefix: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """`<prefix>.msgpack` + `<prefix>.json` -> (numpy param tree, meta).
 
     The param tree is the flax `params` collection of the model (the
-    checkpoint's `{"params": {"params": ...}}` wrappers removed)."""
+    checkpoint's `{"params": {"params": ...}}` wrappers removed); of a full
+    training checkpoint (`last_model`, `best_model`) it is the `params`
+    entry, the optimizer state and the rest are left aside."""
     with open(prefix + ".msgpack", "rb") as f:
         tree = msgpack_restore(f.read())
     with open(prefix + ".json") as f:
         meta = json.load(f)
-    return strip_collections(tree), meta
+    return strip_collections(tree.get("params", tree)), meta
 
 
 def strip_collections(tree: Dict[str, Any]) -> Dict[str, Any]:
@@ -174,3 +242,22 @@ def from_jax_params(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     flat = flatten_tree(strip_collections(tree))
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in flat.items()}
+
+
+def unflatten_tree(flat: Dict[str, Any]) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for name, v in flat.items():
+        node = out
+        *path, leaf = name.split(".")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return out
+
+
+def to_jax_params(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's state_dict (or any name -> tensor map with its names) ->
+    the flax param tree of numpy arrays, the inverse of `from_jax_params`
+    (without the `{"params": ...}` collection wrapper)."""
+    return unflatten_tree({k: v.detach().cpu().numpy()
+                           for k, v in state_dict.items()})

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (the four layer-stack stages and the all-k
-triplet pool) against their plain PyTorch versions, on the card. Imports neither JAX nor the JAX package, so it also runs where
+"""The port's CUDA kernels (the four layer-stack stages, the two merged
+stages and the all-k triplet pool) against their plain PyTorch versions, on the card. Imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
@@ -35,15 +35,92 @@ def test_kernels_match_plain(cuda, shape):
     assert not bad, bad
 
 
+MERGES = {
+    "pallas": (False, False, ("stage_node", "stage_triplet_pre",
+                              "stage_triplet_att", "stage_pos")),
+    "pallas3": (True, False, ("stage_node_pre", "stage_triplet_att",
+                              "stage_pos")),
+    "pallas2": (True, True, ("stage_node_pre", "stage_att_pos")),
+}
+
+
 @pytest.mark.cuda
-def test_wrappers_count_launches(cuda):
+@pytest.mark.parametrize("setting", sorted(MERGES))
+def test_wrappers_count_launches(cuda, setting):
+    """Each setting launches its own kernels once a layer and no other,
+    and agrees with the plain stack (1e-4; two layers)."""
+    merge_node_pre, merge_pos, names = MERGES[setting]
     case = kc.flagship_case(device=cuda, seed=2,
                             **SHAPES["small"])
     ls.reset_launch_counts()
-    packed = {k: v[None] for k, v in case["w"].items()}
-    ls.layer_stack(packed, case["h"], case["x"], case["hb"], case["t"],
-                   case["d"])
-    assert all(v == 1 for v in ls.LAUNCHES.values()), ls.LAUNCHES
+    packed = {k: torch.stack([v, v]) for k, v in case["w"].items()}
+    args = (packed, case["h"], case["x"], case["hb"], case["t"], case["d"])
+    got = ls.layer_stack(*args, merge_node_pre=merge_node_pre,
+                         merge_pos=merge_pos)
+    assert ls.LAUNCHES == {k: 2 * (k in names) for k in ls.LAUNCHES}
+    ref = ls.layer_stack(*args, use_kernels=False)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("setting", sorted(MERGES))
+def test_layer_stack_fn_gradients(cuda, setting):
+    """`LayerStackFn` (kernels forward, one plain layer at a time backward)
+    gives the gradients of autograd through the whole plain stack, for the
+    packed weights, h, x, hb, e_w and phore_norm (1e-4 of each leaf's
+    largest gradient)."""
+    merge_node_pre, merge_pos, names = MERGES[setting]
+    case = kc.flagship_case(device=cuda, seed=5, **SHAPES["small"])
+    g = torch.Generator().manual_seed(0)
+    grads = []
+    for fused in (True, False):
+        packed = {k: torch.stack([v, 0.9 * v]).requires_grad_(True)
+                  for k, v in case["w"].items()}
+        ins = [case[k].clone().requires_grad_(True) for k in ("h", "x", "hb")]
+        t = dict(case["t"])
+        for k in ("e_w", "phore_norm"):
+            t[k] = t[k].clone().requires_grad_(True)
+        ls.reset_launch_counts()
+        if fused:
+            out = ls.make_layer_stack_grad(case["d"], merge_node_pre,
+                                           merge_pos)(packed, *ins, t)
+            assert ls.LAUNCHES == {k: 2 * (k in names) for k in ls.LAUNCHES}
+        else:
+            out = ls.layer_stack(packed, *ins, t, case["d"],
+                                 use_kernels=False)
+        g.manual_seed(0)
+        loss = sum((o * torch.randn(o.shape, generator=g).to(cuda)).sum()
+                   for o in out)
+        leaves = ins + [t["e_w"], t["phore_norm"]] + [
+            packed[k] for k in sorted(packed)]
+        grads.append(torch.autograd.grad(loss, leaves, allow_unused=True))
+    for a, b in zip(*grads):
+        if b is None:
+            assert a is None or float(a.abs().max()) == 0.0
+            continue
+        assert torch.isfinite(a).all()
+        scale = max(float(b.abs().max()), 1e-3)
+        assert float((a - b).abs().max()) / scale < 1e-4
+
+
+@pytest.mark.cuda
+def test_layer_stack_fn_has_no_fallback(cuda, monkeypatch):
+    """On CUDA tensors a kernel that cannot be loaded raises; the plain
+    stages do not run in its place."""
+    from phoregen_tpu_torch.ops import _build
+
+    def no_library(name="layer_stack"):
+        raise RuntimeError("nvcc not found")
+    monkeypatch.setattr(_build, "load", no_library)
+    case = kc.flagship_case(device=cuda, seed=6, **SHAPES["small"])
+    packed = {k: v[None].clone().requires_grad_(True)
+              for k, v in case["w"].items()}
+    ls.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="nvcc"):
+        ls.make_layer_stack_grad(case["d"], True, True)(
+            packed, case["h"], case["x"], case["hb"], case["t"])
+    assert not any(ls.LAUNCHES.values())
 
 
 @pytest.mark.cuda

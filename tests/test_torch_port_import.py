@@ -1,4 +1,6 @@
-"""The port imports torch and never JAX, flax, msgpack or the JAX package."""
+"""The port imports torch and never JAX, flax, optax, msgpack or the JAX
+package: every module of it, the trainer, the data pipeline and the CLIs
+included."""
 import os
 import pkgutil
 import re
@@ -19,8 +21,14 @@ def _modules():
 def test_every_module_imports_with_jax_blocked():
     mods = _modules()
     assert "phoregen_tpu_torch.ops.layer_stack" in mods
+    for m in ("train.state", "train.step", "train.checkpoint", "train.logger",
+              "train.loop", "cli.train", "cli.sample", "data.transforms",
+              "data.synthetic", "data.realcorpus", "data.loader",
+              "data.dataset"):
+        assert f"phoregen_tpu_torch.{m}" in mods, m
     code = ("import sys\n"
-            "for m in ('jax', 'jaxlib', 'flax', 'msgpack', 'phoregen_tpu'):\n"
+            "for m in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack',\n"
+            "          'phoregen_tpu'):\n"
             "    sys.modules[m] = None\n"
             "import importlib\n"
             f"for m in {mods!r}:\n"
@@ -33,7 +41,7 @@ def test_every_module_imports_with_jax_blocked():
 
 
 def test_no_jax_import_in_source():
-    bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|msgpack|"
+    bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|msgpack|"
                      r"phoregen_tpu)(\s|\.|$)", re.M)
     offenders = []
     for root, _, files in os.walk(PKG):
