@@ -10,7 +10,8 @@ Phases (any failure exits non-zero and prints no result):
 2. kernels: holds each kernel against its plain PyTorch version on the
    card and times both with CUDA events: the four layer-stack kernels and
    the two merged ones (A + B1, B2 + C) at flagship shapes (B=16, NP=96,
-   NL=80, H=128, 16 heads, Wt=32, kNN 32, K8 32) within atol = rtol = 1e-4
+   H=128, 16 heads, Wt=32, kNN 32, K8 32) in the NL=80 bucket and in the
+   NL=48 bucket that the main paths below run in, within atol = rtol = 1e-4
    (5e-4 for the triplet pre-features, whose angle arithmetic the merged
    kernel shares), and the all-k triplet pool at B=16, 16 heads, Wt=32 for N=48 and N=80
    with padded slots, within 5e-4 on the unmasked (j, i) pairs (masked
@@ -75,6 +76,7 @@ NUM_STEPS = 1000
 BATCH = 16
 TRAIN_STEPS_PER_BUCKET = 4
 TRAIN_BUCKETS = (48, 80)
+STACK_NL = (80, 48)     # kernel check: the table's row, then the paths' bucket
 LOSS_TOL = 1e-4
 GRAD_TOL = 3e-3        # whole gradient, relative L2
 LEAF_GRAD_TOL = 5e-2   # each leaf, of its largest gradient
@@ -113,30 +115,36 @@ def print_row(r, shape: str) -> None:
           f"max_rel_err={r['max_rel_err']:.3e} ms={r['ms']:.4f} "
           f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
           f"({r['bound_by']}; {r['bytes'] / 1e6:.1f} MB, "
-          f"{r['flops'] / 1e9:.2f} GFLOP) tol={r['tol']:g} ok={r['ok']}",
-          flush=True)
+          f"{r['flops'] / 1e9:.2f} GFLOP on the slots the masks leave"
+          + (f", {r['flops_all_slots'] / 1e9:.2f} on all slots"
+             if "flops_all_slots" in r else "")
+          + f") tol={r['tol']:g} ok={r['ok']}", flush=True)
 
 
 def phase_kernels(kc):
-    """Rows of the six layer-stack kernels, and the triplet pool's row for
-    each N."""
+    """Rows of the six layer-stack kernels for each NL, and the triplet
+    pool's row for each N."""
     import torch
-    case = kc.flagship_case(B=16, NP=96, NL=80, device="cuda", seed=0)
-    rows = kc.check_kernels(case, reps=5)
-    for r in rows:
-        print_row(r, "B=16 NP=96 NL=80")
-    del case
-    torch.cuda.empty_cache()
+    stack = {}
+    for nl in STACK_NL:
+        case = kc.flagship_case(B=16, NP=96, NL=nl, device="cuda", seed=0)
+        stack[nl] = kc.check_kernels(case, reps=5)
+        for r in stack[nl]:
+            print_row(r, f"B=16 NP=96 NL={nl}")
+        del case
+        torch.cuda.empty_cache()
     pool = {}
     for n in (48, 80):
         pool[n] = kc.check_triplet_pool(
             kc.triplet_case(B=16, N=n, device="cuda", seed=0), reps=5)
         print_row(pool[n], f"B=16 N={n}")
         torch.cuda.empty_cache()
-    bad = [r["name"] for r in rows + list(pool.values()) if not r["ok"]]
+    bad = [(r["name"], shape) for shape, rs in
+           [(f"NL={nl}", stack[nl]) for nl in STACK_NL]
+           + [(f"N={n}", [pool[n]]) for n in pool] for r in rs if not r["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
-    return rows, pool
+    return stack, pool
 
 
 def phase_main(root, label, ls, pt):
@@ -414,7 +422,7 @@ def main():
     print(f"[build] {sorted(paths.values())} in "
           f"{time.time() - t_start:.1f} s", flush=True)
 
-    rows, pool = phase_kernels(kc)
+    stack, pool = phase_kernels(kc)
     torch.cuda.empty_cache()
     launches, _ = phase_main(root, "fused", ls, pt)
     torch.cuda.empty_cache()
@@ -430,23 +438,29 @@ def main():
     # the triplet pool's row at the N the module path gave it; the other N
     # rides along under "other_shapes"
     main_n = bucket if bucket in pool else min(pool)
+    shape_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                  "bytes", "flops")
     pool_row = dict(pool[main_n], shape=f"B=16 N={main_n}", other_shapes=[
-        {"shape": f"B=16 N={n}", **{k: r[k] for k in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}}
+        {"shape": f"B=16 N={n}", **{k: r[k] for k in shape_keys}}
         for n, r in pool.items() if n != main_n])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
-    for r in rows:
+    # the layer-stack kernels' rows are the first NL's; the others ride along
+    for i, r in enumerate(stack[STACK_NL[0]]):
         name = r["name"]
+        extra = dict(shape=f"B=16 NP=96 NL={STACK_NL[0]}", other_shapes=[
+            {"shape": f"B=16 NP=96 NL={nl}",
+             **{k: stack[nl][i][k] for k in shape_keys}}
+            for nl in STACK_NL[1:]])
         if name in PATH_KERNELS["fused"]:
-            kernels.append({k: dict(r, launches=launches[name])[k]
-                            for k in keys})
+            kernels.append(dict({k: dict(r, launches=launches[name])[k]
+                                 for k in keys}, **extra))
         else:   # the merged kernels: the training path's count
             kernels.append(dict(
                 {k: dict(r, launches=launches_train[name])[k] for k in keys},
                 launches_by_path={"train": launches_train[name],
-                                  "pallas2": launches_p2[name]}))
+                                  "pallas2": launches_p2[name]}, **extra))
     pool_row["launches"] = launches_mod["triplet_pool"]
     kernels.append({k: pool_row[k]
                     for k in keys + ("shape", "other_shapes")})

@@ -10,30 +10,80 @@
 //   ls_stage_node_pre   <- _stage_pallas o _stage_node_pre     (A + B1)
 //   ls_stage_att_pos    <- _att_pos_pallas                     (B2 + C)
 // The merged kernels and the single ones run the SAME __device__ bodies
-// (node_body, trip_pre_body, trip_att_pairs_impl, pos_body), so the settings
+// (node_body, trip_pre_body, trip_att_pairs, pos_body), so the settings
 // cannot drift apart.
 //
 // Design notes (what differs from the TPU kernels, and why):
 // - Parallelism. The Pallas kernels run grid (B,) — one graph per step,
-//   right for one TPU core. Here A and C run one block per (graph, node),
-//   B1 one block per (graph, j), B2 one block per (graph, j, i-tile), so a
-//   batch of 16 graphs gives thousands of blocks for 132 SMs.
-// - Heads in B2 are a loop inside the block (a warp per (pair, head)); the
-//   TPU carried the output across a sequential head grid axis, which blocks
-//   on a GPU cannot do. Each (j, i) pair's pre_t tile [K8, Wt] is loaded
-//   once into shared memory and serves all heads.
+//   right for one TPU core. Here A runs one block per (graph, two nodes), C
+//   and B2 + C one block per (graph, ligand destination), B1 one block per
+//   (graph, j), B2 one block per (graph, j, chunk of i), 512 threads each,
+//   one block an SM (launch bounds 512 x 1, up to 128 registers a thread).
+//   A takes two nodes a block so that its kNN edge products run on 2 * K =
+//   64 rows a weight pass instead of 32 (measured on the H100: 9% off stage
+//   A at NL=80 and 48); the bond-grid attention of a ligand node then runs
+//   once for each of the two. B2 + C has no room for a second destination.
+// - One product loop, `mm`, serves every matrix product of the six kernels
+//   and `rows_gemm`. A thread owns TM x 4 outputs (TM = 1..5, chosen so that
+//   the block's row groups cover the rows in one pass: 5 for 80 rows, 3 for
+//   48), reads its A fragment as one 16-byte shared load per row and 4 k and
+//   its weight fragment as four 16-byte loads per 4 k: 80 FMAs on 9 loads at
+//   TM = 5. Row pitches are padded by 4 floats so that row groups of one warp
+//   fall on different banks. Measured, the loop runs at about 60% of the FMA
+//   pipes' rate at TM = 5 and 35% at TM = 2 (the 32 kNN edges of one node).
+//   Weight k-slices of KS = 16 rows x 128 columns
+//   go through a two-deep shared-memory ring filled by cp.async: the slice
+//   after the one being multiplied is in flight behind its FMAs, one block
+//   barrier a slice. Narrow products (16 columns) spread (row, 4 columns)
+//   tiles over the whole block; single-row products (`vec_mat`) split the
+//   sum over k across the block and reduce. Float32 FMA only: TF32 or bf16
+//   tensor-core products would break the 1e-4 tolerances.
+// - Rows per weight pass. B2 takes a whole column of a destination (all
+//   sources j, up to 80 pairs) through its two products at once, so
+//   `tq_W1` and `t_out_W` are read once a block, not once per 8 pairs.
+//   Heads go in groups of 256 / Wt (8 at the flagship): q_h of the group
+//   [pairs][256] is computed, a warp per pair streams the pair's pre_t tile
+//   (K8 x Wt, contiguous, 16-byte cp.async, rows rotated against bank
+//   conflicts) into its own buffer and writes `pooled` over the q_h slots it
+//   has consumed, and the group's slice of `t_out_W` accumulates into the
+//   output tile. In B2 + C that tile IS stage C's `rows` tile: hb_new is
+//   written once and never read back. Each head group re-reads the pre_t
+//   tiles (2 passes at the flagship, 419 MB each at NL=80, B=16). Measured
+//   on the H100 with groups of 4 (4 passes) the tile phase ran at the
+//   memory's rate, not the FMAs': the 132 blocks' tiles (43 MB) do not stay
+//   in L2 between passes. One pass (16 heads, q_h 165 KB) does not fit.
+//   Pairs that the masks void (padding, j == i) skip tile and attention; a
+//   padded destination only copies hb + t_out_b and x, and the products of
+//   B2 and of the bond grid's attention (A, C) run on the sources up to a
+//   graph's last atom only, not on the padding behind it.
+// - Shared memory of B2 + C at the flagship (NL=80): rows 41 KB | q_h 81 KB
+//   (then C's first-layer tile) | q_z 41 KB, then 16 pre_t tile buffers
+//   64 KB, then C's k tile | weight ring 16 KB (between a group's two
+//   products it holds the warps' softmax weights) | scores, values, query:
+//   15 KB; 222,800 bytes, one block an SM. ls_launch_plan reports it. The
+//   kNN edge attention of the same destination runs first and lies over the
+//   same regions.
+// - Wide phases: edge features over (edge, rbf) pairs; each softmax a warp
+//   per head with lanes over sources; pools and closing sums split over the
+//   block or a warp. B1's pre_t phase gives a thread one (i, k8) triplet
+//   with all Wt features (the angle and its encoding are computed once a
+//   triplet, LayerNorm needs no shuffles) and stages a warp's 32 triplets
+//   through shared memory for 512-byte stores.
 // - Gathers load by index (nbr_idx, trip_idx, lig3_idx) instead of the
-//   TPU's one-hot selection matmuls.
-// - The small products (k/v second layers, query MLPs, lin_W, t_out_W) stay
-//   inside the kernels as a tiled shared-memory FMA loop (`mm_smem`). The
-//   node projections that neighbours gather (h @ [e_Wn_h|q_W0|b_Wn], ...)
-//   are a grid-wide phase: each stage entry first launches `rows_gemm`,
-//   then its main kernel — a fixed sequence of two launches, one count.
+//   TPU's one-hot selection matmuls. The node projections that neighbours
+//   gather (h @ [e_Wn_h|q_W0|b_Wn], ...) are a grid-wide phase: each stage
+//   entry first launches `rows_gemm` (the same `mm` on 80-row tiles), then
+//   its main kernels — a fixed sequence of launches, one count. A + B1 runs
+//   ONE rows_gemm on [nodeA_W | nodeB_W], then B1's grid and A's grid, each
+//   with its own shared-memory footprint (measured equal, within 1%, to one
+//   grid whose blocks take either role; two grids need no third kernel).
 // - Bounds on the H100 (flagship, B=16, NL=80, NP=96): every stage is
 //   bound by float32 FMA throughput outside the tensor cores (67 TFLOP/s)
 //   except B1, whose pre_t write (B*NL*NL*K8*Wt*4 = 419 MB) makes it bound
-//   by bytes (3.35 TB/s). No wgmma/TMA yet: a simple kernel that is right
-//   comes first; the measured times sit beside their bounds in PERF.md.
+//   by bytes (3.35 TB/s). The measured times sit beside their bounds in
+//   PERF.md.
+// Widths must be multiples of 4 (H, Wt: 16-byte loads); heads may be any
+// count (a value product with heads % 4 != 0 takes a scalar loop).
 // Numerics kept from the reference: LayerNorm as E[x^2]-mu^2, the masked
 // softmax with (1-mask)*-1e9 and a denominator floor of 1.0, the cross
 // product clamp at 1e-12 before the sqrt, atan2f for the triplet angle.
@@ -47,11 +97,14 @@
 #define CROSS_SQ_EPS_F 1e-12f
 #define NRBF 20
 #define NANG 13
-#define FE 93    // [edge type x rbf (80) | edge type (4) | dire (9)]
-#define FEP 96   // padded row pitch of the edge-feature tile
-#define SCH 32   // bond-grid sources per chunk in stages A and C
-#define IT 8     // (j, i) pairs per block in stage B2
-#define NT 256   // threads per block
+#define FE 93     // [edge type x rbf (80) | edge type (4) | dire (9)]
+#define FEP 100   // row pitch of the edge-feature tile; columns 93..95 are 0
+#define NT 512    // threads per block
+#define KS 16     // weight rows per staged slice
+#define NCMAX 128 // columns per staged pass
+#define PD 4      // pad of shared-memory row pitches
+#define RMAX 80   // most source rows per pass in A, B2, C
+#define RING_FLOATS (2 * KS * NCMAX)
 
 __constant__ float c_rbf_off[NRBF] = {
     0.0f, 1.0f, 1.25f, 1.5f, 1.75f, 2.0f, 2.25f, 2.5f, 2.75f, 3.0f,
@@ -74,6 +127,10 @@ struct Args {
 
 // ---------------------------------------------------------------- helpers
 
+__host__ __device__ inline int imax(int x, int y) { return x > y ? x : y; }
+__host__ __device__ inline int imin(int x, int y) { return x < y ? x : y; }
+__host__ __device__ inline int up4(int x) { return (x + 3) & ~3; }
+
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
@@ -83,6 +140,35 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+// Column chunk c4 of row k of a [rows][4*W4] tile whose rows are rotated by
+// the row index, so that lanes reading one chunk of 8 consecutive rows fall
+// on different banks (W4 a power of two; any other W4 gets a valid, less
+// spread, rotation).
+__device__ __forceinline__ int rot4(int c4, int k, int W4) {
+  const int t = c4 + (k & (W4 - 1));
+  return t >= W4 ? t - W4 : t;
+}
+
+// 16 bytes from device memory into shared memory, asynchronously.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+
+// Waits for every cp_async16 of this thread.
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // LayerNorm (E[x^2] - mu^2 form) and optional ReLU over M rows of width Wd
@@ -112,84 +198,324 @@ __device__ void ln_rows(float* X, int ldx, int M, int Wd,
   }
 }
 
-// out[m*ldo + c] (= or +=) bias[c] + sum_k A[m*lda + k] * W[k*ldw + c]
-// for m < M, c < Nc. A and out live in shared memory; W and bias in device
-// memory (read through L2). A thread owns one column and MR rows in
-// registers; when Nc < blockDim the block splits into row groups.
-template <int MR>
-__device__ void mm_smem(const float* A, int lda, int M,
-                        const float* __restrict__ W, int ldw, int Kd, int Nc,
-                        const float* __restrict__ bias, float* out, int ldo,
-                        bool accumulate) {
-  const int nt = blockDim.x, tid = threadIdx.x;
-  int G, grp, c0, cstep;
-  if (Nc >= nt) {
-    G = 1; grp = 0; c0 = tid; cstep = nt;
-  } else {
-    G = nt / Nc;
-    if (tid >= G * Nc) return;
-    grp = tid / Nc; c0 = tid % Nc; cstep = Nc;
+// ------------------------------------------------------- the product loop
+
+// Weight operand in device memory: element (k, c) lies at
+// W[(c / cbw) * cbs + k * ldw + c % cbw] — a plain row-major matrix (one
+// column block), or per-head blocks [h][k][cbw] as tq_W1 is packed.
+struct WSrc {
+  const float* W;
+  int ldw, cbw, cbs;
+};
+
+__device__ __forceinline__ WSrc wmat(const float* W, int ldw) {
+  WSrc ws;
+  ws.W = W; ws.ldw = ldw; ws.cbw = 1 << 30; ws.cbs = 0;
+  return ws;
+}
+
+// A thread's share of staging columns [c0, c0 + nc) of the weight: the
+// 16-byte chunk at column c0 + cl of slice rows kk0, kk0 + step, ...; worked
+// out once a column chunk, so that a slice costs no division.
+struct StageMap {
+  const float* src;  // (row 0, column c0 + cl)
+  int ldw, kk0, step, cl;
+};
+
+__device__ __forceinline__ StageMap stage_map(const WSrc& ws, int c0, int nc) {
+  const int n4 = nc >> 2, tid = threadIdx.x;
+  StageMap m;
+  m.step = blockDim.x / n4;
+  m.kk0 = tid / n4 < m.step ? tid / n4 : KS;  // spare threads stage nothing
+  m.cl = (tid % n4) * 4;
+  const int c = c0 + m.cl;
+  m.src = ws.W + (size_t)(c / ws.cbw) * ws.cbs + c % ws.cbw;
+  m.ldw = ws.ldw;
+  return m;
+}
+
+// Rows [k0, k0 + KS) of the weight into one ring buffer [KS][NCMAX]; rows
+// from Kd on are zero.
+__device__ __forceinline__ void stage_slice(const StageMap& m, int Kd, int k0,
+                                            float* buf) {
+  for (int kk = m.kk0; kk < KS; kk += m.step) {
+    float* dst = buf + kk * NCMAX + m.cl;
+    if (k0 + kk < Kd)
+      cp_async16(dst, m.src + (size_t)(k0 + kk) * m.ldw);
+    else
+      st4(dst, make_float4(0.f, 0.f, 0.f, 0.f));
   }
-  for (int c = c0; c < Nc; c += cstep) {
-    const float bv = bias ? bias[c] : 0.f;
-    for (int m0 = grp * MR; m0 < M; m0 += G * MR) {
-      float acc[MR];
-      int ro[MR];
+}
+
+struct MmMap {
+  int cpw, nwc, nrg;  // column groups a warp, warps a row of warps, row groups
+};
+
+__device__ __forceinline__ MmMap mm_map(int nc, int nw) {
+  const int ncg = nc >> 2;
+  MmMap m;
+  m.cpw = 8;
+  while (m.cpw > ncg) m.cpw >>= 1;
+  m.nwc = (ncg + m.cpw - 1) / m.cpw;
+  m.nrg = imax(1, nw / m.nwc) * (32 / m.cpw);
+  return m;
+}
+
+#define MM_STEP(KK)                                                  \
+  {                                                                  \
+    const float4 w0 = ld4(wb + (KK) * NCMAX);                        \
+    const float4 w1 = ld4(wb + ((KK) + 1) * NCMAX);                  \
+    const float4 w2 = ld4(wb + ((KK) + 2) * NCMAX);                  \
+    const float4 w3 = ld4(wb + ((KK) + 3) * NCMAX);                  \
+    _Pragma("unroll") for (int r = 0; r < TM; ++r) {                 \
+      const float4 av = ld4(A + ro[r] + k0 + (KK));                  \
+      acc[r][0] = fmaf(av.x, w0.x, acc[r][0]);                       \
+      acc[r][1] = fmaf(av.x, w0.y, acc[r][1]);                       \
+      acc[r][2] = fmaf(av.x, w0.z, acc[r][2]);                       \
+      acc[r][3] = fmaf(av.x, w0.w, acc[r][3]);                       \
+      acc[r][0] = fmaf(av.y, w1.x, acc[r][0]);                       \
+      acc[r][1] = fmaf(av.y, w1.y, acc[r][1]);                       \
+      acc[r][2] = fmaf(av.y, w1.z, acc[r][2]);                       \
+      acc[r][3] = fmaf(av.y, w1.w, acc[r][3]);                       \
+      acc[r][0] = fmaf(av.z, w2.x, acc[r][0]);                       \
+      acc[r][1] = fmaf(av.z, w2.y, acc[r][1]);                       \
+      acc[r][2] = fmaf(av.z, w2.z, acc[r][2]);                       \
+      acc[r][3] = fmaf(av.z, w2.w, acc[r][3]);                       \
+      acc[r][0] = fmaf(av.w, w3.x, acc[r][0]);                       \
+      acc[r][1] = fmaf(av.w, w3.y, acc[r][1]);                       \
+      acc[r][2] = fmaf(av.w, w3.z, acc[r][2]);                       \
+      acc[r][3] = fmaf(av.w, w3.w, acc[r][3]);                       \
+    }                                                                \
+  }
+
+// out[m*ldo + c] (= or +=) bias[c] + sum_k A[m*lda + k] * W(k, c) for
+// m < M, c < Nc (Nc % 4 == 0). A lies in shared memory with lda % 4 == 0
+// and columns [Kd, up4(Kd)) finite; `out` in shared or device memory with
+// 16-byte aligned rows; `ring` is RING_FLOATS of shared memory. Every
+// thread of the block must call it; A must be complete (a barrier) before
+// the call, and a barrier ends it. Thread (cg, rg) owns columns cg*4.. of
+// the 128-column chunk and rows rg, rg + nrg, ... of the pass. A warp is 8
+// column groups x 4 row groups: its weight load is one 128-byte wavefront a
+// quarter warp and its A load four rows on different banks (row pitch = 4
+// mod 32). Measured on the H100: a slice of 16 k takes a warp about 2,000
+// cycles at TM = 5 (1,280 would be the FMA pipes' rate); a 32 x 1 warp
+// layout measured the same, and thread tiles of TM x 8 columns with the
+// warps in two k-groups (13 loads for 160 FMAs) 10% slower.
+template <int TM>
+__device__ __noinline__ void mm_tm(const float* A, int lda, int M, WSrc ws,
+                                   int Kd, int Nc,
+                                   const float* __restrict__ bias, float* out,
+                                   int ldo, bool accumulate, float* ring) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nsl = (Kd + KS - 1) / KS, Kd4 = up4(Kd);
+  for (int c0 = 0; c0 < Nc; c0 += NCMAX) {
+    const int nc = imin(NCMAX, Nc - c0), ncg = nc >> 2;
+    const MmMap mp = mm_map(nc, blockDim.x >> 5);
+    const StageMap sp = stage_map(ws, c0, nc);
+    const int cg = (warp % mp.nwc) * mp.cpw + lane % mp.cpw;
+    const int rg = (warp / mp.nwc) * (32 / mp.cpw) + lane / mp.cpw;
+    const int nrg = mp.nrg;
+    for (int m0 = 0; m0 < M; m0 += nrg * TM) {
+      const int mr = m0 + rg;
+      const bool act = cg < ncg && rg < nrg && mr < M;
+      float acc[TM][4];
+      int ro[TM];
 #pragma unroll
-      for (int r = 0; r < MR; ++r) {
-        acc[r] = 0.f;
-        ro[r] = min(m0 + r, M - 1) * lda;
+      for (int r = 0; r < TM; ++r) {
+        acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
+        ro[r] = imin(mr + r * nrg, M - 1) * lda;
       }
-      for (int k = 0; k < Kd; ++k) {
-        const float wv = __ldg(W + (size_t)k * ldw + c);
+      stage_slice(sp, Kd, 0, ring);
+      for (int s = 0; s < nsl; ++s) {
+        cp_async_wait();
+        __syncthreads();
+        if (s + 1 < nsl)
+          stage_slice(sp, Kd, (s + 1) * KS, ring + ((s + 1) & 1) * KS * NCMAX);
+        if (act) {
+          const float* wb = ring + (s & 1) * KS * NCMAX + cg * 4;
+          const int k0 = s * KS, kn = imin(KS, Kd4 - k0);
+          if (kn == KS) {
 #pragma unroll
-        for (int r = 0; r < MR; ++r) acc[r] = fmaf(A[ro[r] + k], wv, acc[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < MR; ++r) {
-        if (m0 + r < M) {
-          float* o = out + (size_t)(m0 + r) * ldo + c;
-          *o = accumulate ? *o + (acc[r] + bv) : acc[r] + bv;
+            for (int kk = 0; kk < KS; kk += 4) MM_STEP(kk)
+          } else {
+            for (int kk = 0; kk < kn; kk += 4) MM_STEP(kk)
+          }
         }
       }
+      if (act) {
+        const int c = c0 + cg * 4;
+        float bv[4] = {0.f, 0.f, 0.f, 0.f};
+        if (bias) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) bv[q] = __ldg(bias + c + q);
+        }
+#pragma unroll
+        for (int r = 0; r < TM; ++r) {
+          if (mr + r * nrg < M) {
+            float* o = out + (size_t)(mr + r * nrg) * ldo + c;
+            float4 v = make_float4(acc[r][0] + bv[0], acc[r][1] + bv[1],
+                                   acc[r][2] + bv[2], acc[r][3] + bv[3]);
+            if (accumulate) {
+              const float4 old = ld4(o);
+              v.x += old.x; v.y += old.y; v.z += old.z; v.w += old.w;
+            }
+            st4(o, v);
+          }
+        }
+      }
+      __syncthreads();
     }
   }
 }
 
-// Y[r, c] = sum_k X[row(r), k] * W[k, c] (+ bias[c]) with rows grouped per
-// graph: row(r) = (r / rpb) * bstride + roff + r % rpb. Grid-wide phase for
-// the per-node projections that neighbours gather.
-#define RT 32
+// Scalar form for a plain weight whose width is no multiple of 4.
+__device__ void mm_narrow(const float* A, int lda, int M,
+                          const float* __restrict__ W, int ldw, int Kd, int Nc,
+                          const float* __restrict__ bias, float* out,
+                          int ldo) {
+  for (int idx = threadIdx.x; idx < M * Nc; idx += blockDim.x) {
+    const int m = idx / Nc, c = idx % Nc;
+    float acc = 0.f;
+    for (int k = 0; k < Kd; ++k)
+      acc = fmaf(A[m * lda + k], __ldg(W + (size_t)k * ldw + c), acc);
+    out[(size_t)m * ldo + c] = acc + (bias ? bias[c] : 0.f);
+  }
+  __syncthreads();
+}
+
+__device__ void mm(const float* A, int lda, int M, WSrc ws, int Kd, int Nc,
+                   const float* bias, float* out, int ldo, bool accumulate,
+                   float* ring) {
+  if (Nc & 3) {  // only plain weights come here (value heads)
+    mm_narrow(A, lda, M, ws.W, ws.ldw, Kd, Nc, bias, out, ldo);
+    return;
+  }
+  const int nrg = mm_map(imin(NCMAX, Nc), blockDim.x >> 5).nrg;
+#define MM_TM(T) \
+  mm_tm<T>(A, lda, M, ws, Kd, Nc, bias, out, ldo, accumulate, ring)
+  switch ((M + nrg - 1) / nrg) {
+    case 0: case 1: MM_TM(1); break;
+    case 2: MM_TM(2); break;
+    case 3: MM_TM(3); break;
+    case 4: MM_TM(4); break;
+    default: MM_TM(5);
+  }
+#undef MM_TM
+}
+
+// out[c] = bias[c] + sum_k v[k] * W[k*ldw + c] for c < Nc (Nc % 4 == 0,
+// Nc <= 4 * blockDim): a thread takes 4 columns and one of blockDim / (Nc/4)
+// parts of the sum over k, with all its 16-byte weight loads in flight
+// together; the parts are reduced through `scr` (4 * blockDim floats; the
+// idle weight ring). v must be complete before; a barrier ends it.
+__device__ void vec_mat(const float* v, const float* __restrict__ W, int ldw,
+                        int Kd, int Nc, const float* __restrict__ bias,
+                        float* out, float* scr) {
+  const int tid = threadIdx.x, ng = Nc >> 2, parts = blockDim.x / ng;
+  const int kp = (Kd + parts - 1) / parts;
+  if (tid < parts * ng) {
+    const int c = (tid % ng) * 4, p = tid / ng;
+    const int k1 = imin(Kd, (p + 1) * kp);
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+    for (int k = p * kp; k < k1; ++k) {
+      const float4 w = __ldg(reinterpret_cast<const float4*>(
+          W + (size_t)k * ldw + c));
+      const float vk = v[k];
+      acc.x = fmaf(vk, w.x, acc.x); acc.y = fmaf(vk, w.y, acc.y);
+      acc.z = fmaf(vk, w.z, acc.z); acc.w = fmaf(vk, w.w, acc.w);
+    }
+    st4(scr + p * Nc + c, acc);
+  }
+  __syncthreads();
+  if (tid < Nc) {
+    float s = bias[tid];
+    for (int p = 0; p < parts; ++p) s += scr[p * Nc + tid];
+    out[tid] = s;
+  }
+  __syncthreads();
+}
+
+// out[c] (= or +=) sum_k al[k*ldal + c/dh] * V[k*ldv + c] for c < H, k < n:
+// the attention pool of one destination, split over blockDim / H threads a
+// column and reduced through `scr` (blockDim floats; the idle weight ring).
+__device__ void pool_cols(const float* al, int ldal, const float* V, int ldv,
+                          int n, int H, int dh, float* out, bool accumulate,
+                          float* scr) {
+  const int tid = threadIdx.x, parts = blockDim.x / H;
+  if (tid < parts * H) {
+    const int c = tid % H, p = tid / H;
+    float acc = 0.f;
+    for (int k = p; k < n; k += parts)
+      acc = fmaf(al[k * ldal + c / dh], V[(size_t)k * ldv + c], acc);
+    scr[tid] = acc;
+  }
+  __syncthreads();
+  if (tid < H) {
+    float s = 0.f;
+    for (int p = 0; p < parts; ++p) s += scr[p * H + tid];
+    out[tid] = accumulate ? out[tid] + s : s;
+  }
+  __syncthreads();
+}
+
+// 1 + the last ligand slot of the graph that holds an atom (0: none), through
+// the shared-memory word `slot`. Sources from there on are padding: their
+// softmax weights are exactly 0 and their triplets all masked, so the bond
+// grid's attention and B2 run on the sources before it only. Every thread of
+// the block must call it.
+__device__ int valid_sources(const float* ml, int NL, int* slot) {
+  if (threadIdx.x == 0) *slot = 0;
+  __syncthreads();
+  for (int j = threadIdx.x; j < NL; j += blockDim.x)
+    if (ml[j] != 0.f) atomicMax(slot, j + 1);
+  __syncthreads();
+  return *slot;
+}
+
+// Masked softmax over n sources for each head, in place on sc[n][NH]: a
+// warp per head, lanes over sources. mask(k) gives the 0/1 mask of source k.
+template <class Mask>
+__device__ void softmax_heads(float* sc, int n, int NH, const Mask& mask) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  for (int hh = warp; hh < NH; hh += nw) {
+    float m = -INFINITY;
+    for (int k = lane; k < n; k += 32)
+      m = fmaxf(m, sc[k * NH + hh] + (1.f - mask(k)) * NEG_INF_F);
+    m = warp_max(m);
+    float sum = 0.f;
+    for (int k = lane; k < n; k += 32) {
+      const float mk = mask(k);
+      const float e = expf(sc[k * NH + hh] + (1.f - mk) * NEG_INF_F - m) * mk;
+      sc[k * NH + hh] = e;
+      sum += e;
+    }
+    const float den = fmaxf(warp_sum(sum), 1.f);
+    for (int k = lane; k < n; k += 32) sc[k * NH + hh] /= den;
+  }
+}
+
+// Y[r, c] = sum_k X[row(r), k] * W[k, c] with rows grouped per graph:
+// row(r) = (r / rpb) * bstride + roff + r % rpb. Grid-wide phase for the
+// per-node projections that neighbours gather: a block takes RMAX rows and
+// NCMAX columns through `mm`.
 __global__ void __launch_bounds__(NT)
 rows_gemm(const float* __restrict__ X, int ldx, int rows, int rpb,
           int bstride, int roff, int Kd, const float* __restrict__ W, int Nc,
-          const float* __restrict__ bias, float* __restrict__ Y) {
-  extern __shared__ float sm[];  // [RT][Kd]
-  const int r0 = blockIdx.x * RT;
-  for (int idx = threadIdx.x; idx < RT * Kd; idx += blockDim.x) {
-    const int rr = idx / Kd, k = idx % Kd, r = r0 + rr;
-    float v = 0.f;
-    if (r < rows) {
-      const size_t row = (size_t)(r / rpb) * bstride + roff + r % rpb;
-      v = X[row * ldx + k];
-    }
-    sm[idx] = v;
+          float* __restrict__ Y) {
+  extern __shared__ float sm[];  // [RMAX][Kd + PD] | ring
+  const int lda = Kd + PD, K4 = Kd >> 2;
+  const int r0 = blockIdx.x * RMAX, nr = imin(RMAX, rows - r0);
+  const int c0 = blockIdx.y * NCMAX, nc = imin(NCMAX, Nc - c0);
+  for (int idx = threadIdx.x; idx < nr * K4; idx += blockDim.x) {
+    const int rr = idx / K4, k = (idx % K4) * 4, r = r0 + rr;
+    const size_t row = (size_t)(r / rpb) * bstride + roff + r % rpb;
+    st4(sm + rr * lda + k, ld4(X + row * ldx + k));
   }
   __syncthreads();
-  const int c = blockIdx.y * blockDim.x + threadIdx.x;
-  if (c >= Nc) return;
-  float acc[RT];
-#pragma unroll
-  for (int r = 0; r < RT; ++r) acc[r] = 0.f;
-  for (int k = 0; k < Kd; ++k) {
-    const float wv = __ldg(W + (size_t)k * Nc + c);
-#pragma unroll
-    for (int r = 0; r < RT; ++r) acc[r] = fmaf(sm[r * Kd + k], wv, acc[r]);
-  }
-  const float bv = bias ? bias[c] : 0.f;
-#pragma unroll
-  for (int r = 0; r < RT; ++r)
-    if (r0 + r < rows) Y[(size_t)(r0 + r) * Nc + c] = acc[r] + bv;
+  mm(sm, lda, nr, wmat(W + c0, Nc), Kd, nc, nullptr,
+     Y + (size_t)r0 * Nc + c0, Nc, false, sm + RMAX * lda);
 }
 
 // ------------------------------------------------ kNN edge attention (A, C)
@@ -223,18 +549,97 @@ __device__ void node_comb(const Dims& d, const Args& a, const float* xb,
   for (int e = 0; e < 3; ++e) out[e] = c[e] / cnt - pl[e];
 }
 
+// Heads per group in B2: as many as fill 2 * NCMAX columns of q_h (8 at the
+// flagship). Each group is one more pass over the pre_t tiles.
+__host__ __device__ inline int att_head_group(const Dims& d) {
+  return imax(1, imin(d.heads, 2 * NCMAX / d.Wt));
+}
+
+// Shared memory of stages A, C and B2 (+ C), in floats from the block's
+// base. Regions that are never live together lie over one another:
+//   rows: the R source rows of the bond grid (B2's output tile) | the kNN
+//         edge features [K][FEP] (K: the edges of the block's G nodes)
+//   u1:   first-layer tile [R or K][2H+PD] | B2's q_h / pooled
+//         [R][HG*Wt+PD]
+//   u2:   second-layer tile (bond k [R][H+PD], edge k|v [K][2H+PD]) | B2's
+//         q_z [R][H+PD] while a head group's queries are made, then its
+//         per-warp pre_t tiles [K8*Wt]
+// then the weight ring (between B2's two products of a head group it holds
+// the warps' softmax weights [32][4]) and what lives through the whole
+// block. Stage A's bond values [NL][H] lie in `rows` (free once the first
+// layer has read them) when one pass takes all NL sources, else in vall.
+struct Lay {
+  int R, rows, u1, u2, ring, vall, scb, sc, qt, qv, outv, rel, emask, ew,
+      dist, d3, src, wp, misc, total;
+};
+
+__host__ __device__ inline Lay stage_layout(const Dims& d, int vcols, int R,
+                                            bool edge, bool b2, int G = 1) {
+  // K: the edge rows of the block's G destination nodes
+  const int H = d.H, K = edge ? G * d.K : 0, PH = H + PD, PP = 2 * H + PD;
+  const int nw = NT / 32;
+  Lay L;
+  int o = 0;
+  L.R = R;
+  const int u0 = imax(R * PH, K * FEP);
+  int u1 = edge ? imax(R, K) * PP : 0, u2 = edge ? imax(R * PH, K * PP) : 0;
+  if (b2) {
+    u1 = imax(u1, R * (att_head_group(d) * d.Wt + PD));
+    u2 = imax(u2, imax(R * PH, nw * d.K8 * d.Wt));
+  }
+  L.rows = o; o += u0;
+  L.u1 = o; o += u1;
+  L.u2 = o; o += u2;
+  L.ring = o; o += RING_FLOATS;
+  L.vall = o; o += edge && !(vcols == H && R >= d.NL) ? up4(d.NL * vcols) : 0;
+  L.scb = o; o += edge ? up4(d.NL * d.heads) : 0;
+  L.sc = o; o += up4(K * d.heads);
+  const int hk = up4(imax(G * H, K));
+  L.qt = o; o += hk;
+  L.qv = o; o += hk;
+  L.outv = o; o += hk;
+  L.rel = o; o += up4(3 * K);
+  L.emask = o; o += up4(K);
+  L.ew = o; o += up4(K);
+  L.dist = o; o += up4(K);
+  L.d3 = o; o += up4(3 * K);
+  L.src = o; o += up4(K);
+  L.wp = o; o += edge ? up4(d.NL) : 0;
+  L.misc = o; o += 4;
+  L.total = o;
+  return L;
+}
+
 struct EdgeSmem {
-  float *feat, *pre, *kv, *sc, *qt, *qv, *rel, *emask, *ew;
+  float *feat, *pre, *kv, *sc, *qt, *qv, *rel, *emask, *ew, *dist, *d3, *ring;
   int* src;
 };
 
-// Shared first half of stages A and C for destination node n: edge
-// features, the fused first layer (columns [lo, lo+2H) of e_W plus the
-// gathered node terms), LN+ReLU, the k/v second layers (v has Nv columns,
-// scaled by e_w), the node query and the masked per-head softmax over K.
-// Leaves alpha in sc[K][heads], k in kv[:, :H], v in kv[:, H:H+Nv].
+__device__ EdgeSmem edge_smem(float* sm, const Lay& L) {
+  EdgeSmem s;
+  s.feat = sm + L.rows; s.pre = sm + L.u1; s.kv = sm + L.u2;
+  s.sc = sm + L.sc; s.qt = sm + L.qt; s.qv = sm + L.qv; s.rel = sm + L.rel;
+  s.emask = sm + L.emask; s.ew = sm + L.ew; s.dist = sm + L.dist;
+  s.d3 = sm + L.d3; s.ring = sm + L.ring;
+  s.src = reinterpret_cast<int*>(sm + L.src);
+  return s;
+}
+
+struct EdgeMask {
+  const float* m;
+  __device__ float operator()(int k) const { return m[k]; }
+};
+
+// Shared first half of stages A and C for the G destination nodes n0,
+// n0 + 1, ... of graph b (their K edges each are consecutive rows of the
+// tables and of every tile here, KE = G * K rows in all, so that one pass
+// over the weights serves G nodes): edge features, the fused first layer
+// (columns [lo, lo+2H) of e_W plus the gathered node terms), LN+ReLU, the k/v
+// second layers (v has Nv columns, scaled by e_w), the node queries and the
+// masked per-head softmax over each node's K edges. Leaves alpha in
+// sc[KE][heads], k in kv[:, :H], v in kv[:, H:H+Nv] (rows of pitch 2H+PD).
 __device__ void edge_attention(
-    const Dims& d, const Args& a, const EdgeSmem& s, int b, int n,
+    const Dims& d, const Args& a, const EdgeSmem& s, int b, int n0, int G,
     const float* xb, const float* P, int PW, int lo, int ln_row,
     const float* e_W, const float* e_b, const float* dire_W,
     const float* dire_b, const float* e_ln_s, const float* e_ln_b,
@@ -242,202 +647,178 @@ __device__ void edge_attention(
     int Nv, int qcol, const float* q_b0, const float* q_ln_s,
     const float* q_ln_b, const float* q_W1, const float* q_b1) {
   const int N = d.NP + d.NL, K = d.K, H = d.H, NH = d.heads, dh = H / NH;
-  const int tid = threadIdx.x;
-  const float* Pn = P + ((size_t)b * N + n) * PW;
-  if (tid < K) {
-    const size_t e = ((size_t)b * N + n) * K + tid;
+  const int KE = G * K, PP = 2 * H + PD;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const float* Pn = P + ((size_t)b * N + n0) * PW;
+  const size_t e0 = ((size_t)b * N + n0) * K;
+  for (int r = tid; r < KE; r += nt) {
+    const size_t e = e0 + r;
+    const int n = n0 + r / K;
     const int sidx = IP(T_NBR_IDX)[e];
     const float mk = FP(T_NBR_MASK)[e];
-    s.src[tid] = sidx;
-    s.emask[tid] = mk;
-    s.ew[tid] = FP(T_EW)[e];
-    float r[3];
-    for (int c = 0; c < 3; ++c) r[c] = xb[n * 3 + c] - xb[sidx * 3 + c] * mk;
-    for (int c = 0; c < 3; ++c) s.rel[tid * 3 + c] = r[c];
-    const float dist = sqrtf(r[0] * r[0] + r[1] * r[1] + r[2] * r[2] + 1e-12f);
+    s.src[r] = sidx;
+    s.emask[r] = mk;
+    s.ew[r] = FP(T_EW)[e];
+    float rl[3];
+    for (int c = 0; c < 3; ++c) rl[c] = xb[n * 3 + c] - xb[sidx * 3 + c] * mk;
+    for (int c = 0; c < 3; ++c) s.rel[r * 3 + c] = rl[c];
+    s.dist[r] = sqrtf(rl[0] * rl[0] + rl[1] * rl[1] + rl[2] * rl[2] + 1e-12f);
     float cs[3], cn[3];
     node_comb(d, a, xb, b, sidx, cs);
     node_comb(d, a, xb, b, n, cn);
     float d3[3] = {0.f, 0.f, 0.f};
     for (int c = 0; c < 3; ++c) {
-      const float v1 = cs[c] * mk, v2 = cn[c], v3 = -r[c];
+      const float v1 = cs[c] * mk, v2 = cn[c], v3 = -rl[c];
       d3[0] += v1 * v2;
       d3[1] += v1 * v3;
       d3[2] += v2 * v3;
     }
-    float* f = s.feat + tid * FEP;
-    const float* et = FP(T_EDGE_TYPE) + e * 4;
-    for (int t4 = 0; t4 < 4; ++t4) {
-      for (int q = 0; q < NRBF; ++q) {
-        const float df = dist - c_rbf_off[q];
-        f[t4 * NRBF + q] = et[t4] * expf(RBF_COEFF * (df * df));
-      }
-      f[80 + t4] = et[t4];
+    for (int c = 0; c < 3; ++c) s.d3[r * 3 + c] = d3[c];
+  }
+  for (int idx = tid; idx < G * H; idx += nt)
+    s.qt[idx] = Pn[(idx / H) * PW + qcol + idx % H] + q_b0[idx % H];
+  __syncthreads();
+  // features over (edge, rbf) pairs, then the 16 closing columns of a row:
+  // edge type (4), dire (9), zero pad (3)
+  for (int idx = tid; idx < KE * NRBF; idx += nt) {
+    const int k = idx / NRBF, q = idx % NRBF;
+    const float df = s.dist[k] - c_rbf_off[q];
+    const float g = expf(RBF_COEFF * (df * df));
+    const float* et = FP(T_EDGE_TYPE) + (e0 + k) * 4;
+    float* f = s.feat + k * FEP;
+    for (int t4 = 0; t4 < 4; ++t4) f[t4 * NRBF + q] = et[t4] * g;
+  }
+  for (int idx = tid; idx < KE * 16; idx += nt) {
+    const int k = idx / 16, o = idx % 16;
+    float v = 0.f;
+    if (o < 4) {
+      v = FP(T_EDGE_TYPE)[(e0 + k) * 4 + o];
+    } else if (o < 13) {
+      const float* d3 = s.d3 + k * 3;
+      v = d3[0] * dire_W[o - 4] + d3[1] * dire_W[9 + o - 4] +
+          d3[2] * dire_W[18 + o - 4] + dire_b[o - 4];
     }
-    for (int o = 0; o < 9; ++o)
-      f[84 + o] = d3[0] * dire_W[o] + d3[1] * dire_W[9 + o] +
-                  d3[2] * dire_W[18 + o] + dire_b[o];
+    s.feat[k * FEP + 80 + o] = v;
   }
-  if (tid < H) s.qt[tid] = Pn[qcol + tid] + q_b0[tid];
+  ln_rows(s.qt, H, G, H, q_ln_s, q_ln_b, true);
   __syncthreads();
-  mm_smem<16>(s.feat, FEP, K, e_W + lo, 4 * H, FE, 2 * H, e_b + lo, s.pre,
-              2 * H, false);
-  ln_rows(s.qt, H, 1, H, q_ln_s, q_ln_b, true);
-  __syncthreads();
-  for (int idx = tid; idx < K * 2 * H; idx += blockDim.x) {
-    const int k = idx / (2 * H), c = idx % (2 * H);
-    s.pre[idx] += s.emask[k] * P[((size_t)b * N + s.src[k]) * PW + 2 * H + c]
-                  + Pn[c];
+  mm(s.feat, FEP, KE, wmat(e_W + lo, 4 * H), FE, 2 * H, e_b + lo, s.pre, PP,
+     false, s.ring);
+  for (int idx = tid; idx < KE * (H >> 1); idx += nt) {
+    const int k = idx / (H >> 1), c = (idx % (H >> 1)) * 4;
+    const float mk = s.emask[k];
+    const float4 sv = ld4(P + ((size_t)b * N + s.src[k]) * PW + 2 * H + c);
+    const float4 dv = ld4(Pn + (k / K) * PW + c);
+    float* o = s.pre + k * PP + c;
+    const float4 v = ld4(o);
+    st4(o, make_float4(v.x + (mk * sv.x + dv.x), v.y + (mk * sv.y + dv.y),
+                       v.z + (mk * sv.z + dv.z), v.w + (mk * sv.w + dv.w)));
   }
-  mm_smem<1>(s.qt, H, 1, q_W1, H, H, H, q_b1, s.qv, H, false);
-  __syncthreads();
-  ln_rows(s.pre, 2 * H, K, H, e_ln_s + ln_row * H, e_ln_b + ln_row * H, true);
-  ln_rows(s.pre + H, 2 * H, K, H, e_ln_s + (ln_row + 1) * H,
+  for (int g = 0; g < G; ++g)
+    vec_mat(s.qt + g * H, q_W1, H, H, H, q_b1, s.qv + g * H, s.ring);
+  ln_rows(s.pre, PP, KE, H, e_ln_s + ln_row * H, e_ln_b + ln_row * H, true);
+  ln_rows(s.pre + H, PP, KE, H, e_ln_s + (ln_row + 1) * H,
           e_ln_b + (ln_row + 1) * H, true);
   __syncthreads();
-  mm_smem<16>(s.pre, 2 * H, K, k2W, H, H, H, k2b, s.kv, 2 * H, false);
-  mm_smem<16>(s.pre + H, 2 * H, K, v2W, Nv, H, Nv, v2b, s.kv + H, 2 * H,
-              false);
-  __syncthreads();
-  for (int idx = tid; idx < K * NH; idx += blockDim.x) {
+  mm(s.pre, PP, KE, wmat(k2W, H), H, H, k2b, s.kv, PP, false, s.ring);
+  mm(s.pre + H, PP, KE, wmat(v2W, Nv), H, Nv, v2b, s.kv + H, PP, false,
+     s.ring);
+  for (int idx = tid; idx < KE * NH; idx += nt) {
     const int k = idx / NH, hh = idx % NH;
+    const float* qv = s.qv + (k / K) * H;
     float acc = 0.f;
     for (int c = 0; c < dh; ++c)
-      acc += s.kv[k * 2 * H + hh * dh + c] * s.qv[hh * dh + c];
+      acc += s.kv[k * PP + hh * dh + c] * qv[hh * dh + c];
     s.sc[idx] = acc / sqrtf((float)dh);
   }
-  for (int idx = tid; idx < K * Nv; idx += blockDim.x) {
+  for (int idx = tid; idx < KE * Nv; idx += nt) {
     const int k = idx / Nv, c = idx % Nv;
-    s.kv[k * 2 * H + H + c] *= s.ew[k];
+    s.kv[k * PP + H + c] *= s.ew[k];
   }
   __syncthreads();
-  if (tid < NH) {
-    float m = -INFINITY;
-    for (int k = 0; k < K; ++k)
-      m = fmaxf(m, s.sc[k * NH + tid] + (1.f - s.emask[k]) * NEG_INF_F);
-    float sum = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const float e = expf(s.sc[k * NH + tid] +
-                           (1.f - s.emask[k]) * NEG_INF_F - m) * s.emask[k];
-      s.sc[k * NH + tid] = e;
-      sum += e;
-    }
-    const float den = fmaxf(sum, 1.f);
-    for (int k = 0; k < K; ++k) s.sc[k * NH + tid] /= den;
-  }
+  for (int g = 0; g < G; ++g)
+    softmax_heads(s.sc + g * K * NH, K, NH, EdgeMask{s.emask + g * K});
   __syncthreads();
 }
 
 // Row source of bond_attention that reads the bond grid from device
-// memory: rows[sr] = hbg[b, s0 + sr, dl, :].
+// memory: rows[sr] = hbg[b, s0 + sr, dl, :] (pitch H+PD).
 struct HbColumnRows {
   const float* hbg;
   __device__ void operator()(const Dims& d, int b, int dl, int s0, int ns,
                              float* rows) const {
-    for (int idx = threadIdx.x; idx < ns * d.H; idx += blockDim.x) {
-      const int sr = idx / d.H, c = idx % d.H;
-      rows[idx] = hbg[(((size_t)b * d.NL + s0 + sr) * d.NL + dl) * d.H + c];
+    const int H4 = d.H >> 2;
+    for (int idx = threadIdx.x; idx < ns * H4; idx += blockDim.x) {
+      const int sr = idx / H4, c = (idx % H4) * 4;
+      st4(rows + sr * (d.H + PD) + c,
+          ld4(hbg + (((size_t)b * d.NL + s0 + sr) * d.NL + dl) * d.H + c));
     }
     __syncthreads();
   }
 };
 
-// Dense bond-grid attention over the NL sources of ligand destination dl:
-// `load_rows` leaves the bond features of sources [s0, s0+ns) towards dl in
-// rows[ns][H] (and ends with a block barrier); then the first layer
-// (columns of W1 [H, 2H]) plus the node terms P[dst][dcol:dcol+2H] and
-// P[NP+s][scol:scol+2H], LN+ReLU, second layers (k: H columns into kv, v:
-// Nv columns into vall[s]), the query (already in qv) and scores into
-// scb[s][heads]; then the masked softmax over s.
+struct PairMask {
+  const float* ml;
+  float md;
+  int dl;
+  __device__ float operator()(int sr) const {
+    return ml[sr] * md * (sr != dl ? 1.f : 0.f);
+  }
+};
+
+// Dense bond-grid attention over the first nsrc sources (see valid_sources)
+// of ligand destination dl, R sources a pass: `load_rows` leaves the bond
+// features of sources [s0, s0+ns) towards dl in rows[ns][H+PD] (and ends
+// with a block barrier); then the first layer (columns of W1 [H, 2H]) plus
+// the node terms P[dst][dcol:dcol+2H] and P[NP+s][scol:scol+2H], LN+ReLU,
+// second layers (k: H columns into kv, v: Nv columns into vall[s][ldv],
+// which may be `rows` itself when one pass takes all sources), the query
+// (already in qv) and scores into scb[s][heads]; then the masked softmax
+// over s.
 template <class Rows>
 __device__ void bond_attention(
-    const Dims& d, const Args& a, const EdgeSmem& s, float* rows,
-    float* vall, float* scb, int b, int dl, const Rows& load_rows,
-    const float* P,
-    int PW, int dcol, int scol, const float* W1, const float* b1,
-    const float* ln_s, const float* ln_b, const float* k2W,
+    const Dims& d, const Args& a, const EdgeSmem& s, int R, int nsrc,
+    float* rows, float* vall, int ldv, float* scb, int b, int dl,
+    const Rows& load_rows, const float* P, int PW, int dcol, int scol,
+    const float* W1, const float* b1, const float* ln_s, const float* ln_b, const float* k2W,
     const float* k2b, const float* v2W, const float* v2b, int Nv) {
   const int N = d.NP + d.NL, NL = d.NL, H = d.H, NH = d.heads, dh = H / NH;
-  const int tid = threadIdx.x;
+  const int PH = H + PD, PP = 2 * H + PD;
+  const int tid = threadIdx.x, nt = blockDim.x;
   const float* Pn = P + ((size_t)b * N + d.NP + dl) * PW;
-  for (int s0 = 0; s0 < NL; s0 += SCH) {
-    const int ns = min(SCH, NL - s0);
+  for (int s0 = 0; s0 < nsrc; s0 += R) {
+    const int ns = imin(R, nsrc - s0);
     load_rows(d, b, dl, s0, ns, rows);
-    mm_smem<16>(rows, H, ns, W1, 2 * H, H, 2 * H, b1, s.pre, 2 * H, false);
-    __syncthreads();
-    for (int idx = tid; idx < ns * 2 * H; idx += blockDim.x) {
-      const int sr = idx / (2 * H), c = idx % (2 * H);
-      s.pre[idx] += Pn[dcol + c] +
-                    P[((size_t)b * N + d.NP + s0 + sr) * PW + scol + c];
+    mm(rows, PH, ns, wmat(W1, 2 * H), H, 2 * H, b1, s.pre, PP, false, s.ring);
+    for (int idx = tid; idx < ns * (H >> 1); idx += nt) {
+      const int sr = idx / (H >> 1), c = (idx % (H >> 1)) * 4;
+      const float4 dv = ld4(Pn + dcol + c);
+      const float4 sv =
+          ld4(P + ((size_t)b * N + d.NP + s0 + sr) * PW + scol + c);
+      float* o = s.pre + sr * PP + c;
+      const float4 v = ld4(o);
+      st4(o, make_float4(v.x + (dv.x + sv.x), v.y + (dv.y + sv.y),
+                         v.z + (dv.z + sv.z), v.w + (dv.w + sv.w)));
     }
     __syncthreads();
-    ln_rows(s.pre, 2 * H, ns, H, ln_s, ln_b, true);
-    ln_rows(s.pre + H, 2 * H, ns, H, ln_s + H, ln_b + H, true);
+    ln_rows(s.pre, PP, ns, H, ln_s, ln_b, true);
+    ln_rows(s.pre + H, PP, ns, H, ln_s + H, ln_b + H, true);
     __syncthreads();
-    mm_smem<16>(s.pre, 2 * H, ns, k2W, H, H, H, k2b, s.kv, 2 * H, false);
-    mm_smem<16>(s.pre + H, 2 * H, ns, v2W, Nv, H, Nv, v2b, vall + s0 * Nv,
-                Nv, false);
-    __syncthreads();
-    for (int idx = tid; idx < ns * NH; idx += blockDim.x) {
+    mm(s.pre, PP, ns, wmat(k2W, H), H, H, k2b, s.kv, PH, false, s.ring);
+    mm(s.pre + H, PP, ns, wmat(v2W, Nv), H, Nv, v2b, vall + s0 * ldv, ldv,
+       false, s.ring);
+    for (int idx = tid; idx < ns * NH; idx += nt) {
       const int sr = idx / NH, hh = idx % NH;
       float acc = 0.f;
       for (int c = 0; c < dh; ++c)
-        acc += s.kv[sr * 2 * H + hh * dh + c] * s.qv[hh * dh + c];
+        acc += s.kv[sr * PH + hh * dh + c] * s.qv[hh * dh + c];
       scb[(s0 + sr) * NH + hh] = acc / sqrtf((float)dh);
     }
     __syncthreads();
   }
   const float* ml = FP(T_MASK_L) + (size_t)b * NL;
-  if (tid < NH) {
-    const float md = ml[dl];
-    float m = -INFINITY;
-    for (int sr = 0; sr < NL; ++sr) {
-      const float pm = ml[sr] * md * (sr != dl ? 1.f : 0.f);
-      m = fmaxf(m, scb[sr * NH + tid] + (1.f - pm) * NEG_INF_F);
-    }
-    float sum = 0.f;
-    for (int sr = 0; sr < NL; ++sr) {
-      const float pm = ml[sr] * md * (sr != dl ? 1.f : 0.f);
-      const float e =
-          expf(scb[sr * NH + tid] + (1.f - pm) * NEG_INF_F - m) * pm;
-      scb[sr * NH + tid] = e;
-      sum += e;
-    }
-    const float den = fmaxf(sum, 1.f);
-    for (int sr = 0; sr < NL; ++sr) scb[sr * NH + tid] /= den;
-  }
+  softmax_heads(scb, nsrc, NH, PairMask{ml, ml[dl], dl});
   __syncthreads();
-}
-
-// Shared-memory layout of stages A and C (floats; must match smem_edge()).
-__host__ __device__ inline size_t smem_edge_floats(const Dims& d, int vcols) {
-  const int H = d.H, K = d.K, KR = K > SCH ? K : SCH;
-  const size_t r1 = (size_t)(K * FEP > SCH * H ? K * FEP : SCH * H);
-  return r1 + 2 * (size_t)KR * 2 * H + (size_t)d.NL * vcols +
-         (size_t)d.NL * d.heads + (size_t)K * d.heads + 3 * H + 6 * K + 8;
-}
-
-__device__ EdgeSmem carve_edge(const Dims& d, float* sm, int vcols,
-                               float** rows, float** vall, float** scb,
-                               float** outv) {
-  const int H = d.H, K = d.K, KR = K > SCH ? K : SCH;
-  const int r1 = K * FEP > SCH * H ? K * FEP : SCH * H;
-  EdgeSmem s;
-  s.feat = sm;
-  *rows = sm;
-  s.pre = sm + r1;
-  s.kv = s.pre + KR * 2 * H;
-  *vall = s.kv + KR * 2 * H;
-  *scb = *vall + d.NL * vcols;
-  s.sc = *scb + d.NL * d.heads;
-  s.qt = s.sc + K * d.heads;
-  s.qv = s.qt + H;
-  *outv = s.qv + H;
-  s.rel = *outv + H;
-  s.emask = s.rel + 3 * K;
-  s.ew = s.emask + K;
-  s.src = reinterpret_cast<int*>(s.ew + K);
-  return s;
 }
 
 // ------------------------------------------------------ stage A: node update
@@ -450,64 +831,68 @@ enum {
   NA_COUNT
 };
 
-// Stage A for node n of graph b. P holds the node projections
-// h @ nodeA_W in columns [0, 10H) of rows of pitch PW.
-__device__ void node_body(const Dims& d, const Args& a, float* sm, int b,
-                          int n, int PW) {
+// Stage A for nodes n0 .. n0 + G - 1 of graph b: the kNN edge attention of
+// all G at once (G * K rows a weight pass), then each ligand node's bond-grid
+// attention and the output layer. P holds the node projections h @ nodeA_W
+// in columns [0, 10H) of rows of pitch PW.
+__device__ void node_body(const Dims& d, const Args& a, float* sm, int R,
+                          int b, int n0, int G, int PW) {
   const int tid = threadIdx.x;
   const int N = d.NP + d.NL, H = d.H, NH = d.heads, dh = H / NH;
-  float *rows, *vall, *scb, *outv;
-  EdgeSmem s = carve_edge(d, sm, H, &rows, &vall, &scb, &outv);
+  const Lay L = stage_layout(d, H, R, true, false, G);
+  const EdgeSmem s = edge_smem(sm, L);
+  const bool one_pass = R >= d.NL;
+  float *rows = sm + L.rows, *scb = sm + L.scb;
+  float* vall = one_pass ? rows : sm + L.vall;
+  const int ldv = one_pass ? H + PD : H;
+  float* outv = sm + L.outv;
   const float* xb = FP(NA_X) + (size_t)b * N * 3;
   const float* P = FP(NA_P);
   const float* qW1 = FP(NA_Q_W1);
-  edge_attention(d, a, s, b, n, xb, P, PW, 0, 0, FP(NA_E_W), FP(NA_E_B),
+  G = imin(G, N - n0);
+  edge_attention(d, a, s, b, n0, G, xb, P, PW, 0, 0, FP(NA_E_W), FP(NA_E_B),
                  FP(NA_DIRE_W), FP(NA_DIRE_B), FP(NA_E_LN_S), FP(NA_E_LN_B),
                  FP(NA_E_K2), FP(NA_E_B2), FP(NA_E_K2) + H * H,
                  FP(NA_E_B2) + H, H, 4 * H, FP(NA_Q_B0), FP(NA_Q_LN_S),
                  FP(NA_Q_LN_B), qW1, FP(NA_Q_B1));
-  if (tid < H) {
-    const int hh = tid / dh;
-    float o = 0.f;
-    for (int k = 0; k < d.K; ++k)
-      o += s.sc[k * NH + hh] * s.kv[k * 2 * H + H + tid];
-    outv[tid] = o;
+  for (int g = 0; g < G; ++g)
+    pool_cols(s.sc + g * d.K * NH, NH, s.kv + H + g * d.K * (2 * H + PD),
+              2 * H + PD, d.K, H, dh, outv + g * H, false, s.ring);
+  int nsrc = -1;
+  for (int g = 0; g < G; ++g) {
+    const int n = n0 + g;
+    if (n >= d.NP) {
+      const int dl = n - d.NP;
+      const float* Pn = P + ((size_t)b * N + n) * PW;
+      if (tid < H) s.qt[tid] = Pn[5 * H + tid] + FP(NA_Q_B0)[H + tid];
+      __syncthreads();
+      ln_rows(s.qt, H, 1, H, FP(NA_Q_LN_S) + H, FP(NA_Q_LN_B) + H, true);
+      __syncthreads();
+      vec_mat(s.qt, qW1 + H * H, H, H, H, FP(NA_Q_B1) + H, s.qv, s.ring);
+      if (nsrc < 0)
+        nsrc = valid_sources(FP(T_MASK_L) + (size_t)b * d.NL, d.NL,
+                             reinterpret_cast<int*>(sm + L.misc + 3));
+      bond_attention(d, a, s, R, nsrc, rows, vall, ldv, scb, b, dl,
+                     HbColumnRows{FP(NA_HB)}, P, PW, 6 * H, 8 * H, FP(NA_B_W),
+                     FP(NA_B_B), FP(NA_B_LN_S), FP(NA_B_LN_B), FP(NA_B_K2),
+                     FP(NA_B_B2), FP(NA_B_K2) + H * H, FP(NA_B_B2) + H, H);
+      pool_cols(scb, NH, vall, ldv, nsrc, H, dh, outv + g * H, true, s.ring);
+    }
   }
-  __syncthreads();
-  if (n >= d.NP) {
-    const int dl = n - d.NP;
-    const float* Pn = P + ((size_t)b * N + n) * PW;
-    if (tid < H) s.qt[tid] = Pn[5 * H + tid] + FP(NA_Q_B0)[H + tid];
-    __syncthreads();
-    ln_rows(s.qt, H, 1, H, FP(NA_Q_LN_S) + H, FP(NA_Q_LN_B) + H, true);
-    __syncthreads();
-    mm_smem<1>(s.qt, H, 1, qW1 + H * H, H, H, H, FP(NA_Q_B1) + H, s.qv, H,
-               false);
-    __syncthreads();
-    bond_attention(d, a, s, rows, vall, scb, b, dl, HbColumnRows{FP(NA_HB)},
-                   P, PW, 6 * H, 8 * H, FP(NA_B_W), FP(NA_B_B), FP(NA_B_LN_S),
-                   FP(NA_B_LN_B), FP(NA_B_K2), FP(NA_B_B2),
-                   FP(NA_B_K2) + H * H, FP(NA_B_B2) + H, H);
+  for (int g = 0; g < G; ++g) {
+    vec_mat(outv + g * H, FP(NA_LIN_W), H, H, H, FP(NA_LIN_B), s.qt, s.ring);
     if (tid < H) {
-      const int hh = tid / dh;
-      float o = 0.f;
-      for (int sr = 0; sr < d.NL; ++sr)
-        o += scb[sr * NH + hh] * vall[sr * H + tid];
-      outv[tid] += o;
+      const size_t o = ((size_t)b * N + n0 + g) * H + tid;
+      OUTP(NA_OUT)[o] = FP(NA_H)[o] + s.qt[tid];
     }
     __syncthreads();
   }
-  mm_smem<1>(outv, H, 1, FP(NA_LIN_W), H, H, H, FP(NA_LIN_B), s.qt, H, false);
-  __syncthreads();
-  if (tid < H) {
-    const size_t o = ((size_t)b * N + n) * H + tid;
-    OUTP(NA_OUT)[o] = FP(NA_H)[o] + s.qt[tid];
-  }
 }
 
-__global__ void __launch_bounds__(NT) node_kernel(Dims d, Args a) {
+__global__ void __launch_bounds__(NT, 1)
+node_kernel(Dims d, Args a, int R, int G, int PW) {
   extern __shared__ float sm[];
-  node_body(d, a, sm, blockIdx.y, blockIdx.x, 10 * d.H);
+  node_body(d, a, sm, R, blockIdx.y, blockIdx.x * G, G, PW);
 }
 
 // ------------------------------------------------- stage C: position update
@@ -521,17 +906,20 @@ enum {
 };
 
 // Stage C for ligand destination dl of graph b (phore rows are copied by
-// the host entry). `load_rows` gives the new bond features towards dl (see
-// bond_attention).
+// the host entry). `load_rows` gives the new bond features towards dl of the
+// first nsrc sources (see bond_attention, valid_sources).
 template <class Rows>
-__device__ void pos_body(const Dims& d, const Args& a, float* sm, int b,
-                         int dl, const Rows& load_rows) {
-  const int tid = threadIdx.x;
+__device__ void pos_body(const Dims& d, const Args& a, float* sm,
+                         const Lay& L, int b, int dl, int nsrc,
+                         const Rows& load_rows) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
   const int NP = d.NP, N = NP + d.NL, H = d.H, NH = d.heads;
   const int n = NP + dl;
-  const int PW = 10 * H;
-  float *rows, *vall, *scb, *outv;
-  EdgeSmem s = carve_edge(d, sm, NH, &rows, &vall, &scb, &outv);
+  const int PW = 10 * H, PP = 2 * H + PD;
+  const EdgeSmem s = edge_smem(sm, L);
+  float *rows = sm + L.rows, *vall = sm + L.vall, *scb = sm + L.scb;
+  float *outv = sm + L.outv, *wp = sm + L.wp, *dxe = sm + L.misc;  // [3]
   const float* xb = FP(PA_X) + (size_t)b * N * 3;
   const float* P = FP(PA_P);
   // stage A's q slots 0/1 are node queries; stage C reads slots 2/3
@@ -540,7 +928,7 @@ __device__ void pos_body(const Dims& d, const Args& a, float* sm, int b,
   const float* qb0 = FP(PA_Q_B0) + 2 * H;
   const float* qls = FP(PA_Q_LN_S) + 2 * H;
   const float* qlb = FP(PA_Q_LN_B) + 2 * H;
-  edge_attention(d, a, s, b, n, xb, P, PW, 2 * H, 2, FP(PA_E_W), FP(PA_E_B),
+  edge_attention(d, a, s, b, n, 1, xb, P, PW, 2 * H, 2, FP(PA_E_W), FP(PA_E_B),
                  FP(PA_DIRE_W), FP(PA_DIRE_B), FP(PA_E_LN_S), FP(PA_E_LN_B),
                  FP(PA_E_XK2), FP(PA_E_XK2B), FP(PA_E_XV2), FP(PA_E_XV2B),
                  NH, 4 * H, qb0, qls, qlb, qW1, qb1);
@@ -548,41 +936,66 @@ __device__ void pos_body(const Dims& d, const Args& a, float* sm, int b,
   if (tid < d.K) {
     float we = 0.f;
     for (int hh = 0; hh < NH; ++hh)
-      we += s.sc[tid * NH + hh] * s.kv[tid * 2 * H + H + hh];
+      we += s.sc[tid * NH + hh] * s.kv[tid * PP + H + hh];
     outv[tid] = we / NH;
   }
   const float* Pn = P + ((size_t)b * N + n) * PW;
   if (tid < H) s.qt[tid] = Pn[5 * H + tid] + qb0[H + tid];
   __syncthreads();
-  float dxe = 0.f;
-  if (tid < 3)
-    for (int k = 0; k < d.K; ++k) dxe += outv[k] * s.rel[k * 3 + tid];
+  if (warp < 3) {
+    float acc = 0.f;
+    for (int k = lane; k < d.K; k += 32) acc += outv[k] * s.rel[k * 3 + warp];
+    acc = warp_sum(acc);
+    if (lane == 0) dxe[warp] = acc;
+  }
   ln_rows(s.qt, H, 1, H, qls + H, qlb + H, true);
   __syncthreads();
-  mm_smem<1>(s.qt, H, 1, qW1 + H * H, H, H, H, qb1 + H, s.qv, H, false);
+  vec_mat(s.qt, qW1 + H * H, H, H, H, qb1 + H, s.qv, s.ring);
+  bond_attention(d, a, s, L.R, nsrc, rows, vall, NH, scb, b, dl, load_rows, P,
+                 PW,
+                 6 * H, 8 * H, FP(PA_P_W), FP(PA_P_B), FP(PA_P_LN_S),
+                 FP(PA_P_LN_B), FP(PA_P_XK2), FP(PA_P_XK2B), FP(PA_P_XV2),
+                 FP(PA_P_XV2B), NH);
+  for (int sr = tid; sr < nsrc; sr += nt) {
+    float w = 0.f;
+    for (int hh = 0; hh < NH; ++hh)
+      w += scb[sr * NH + hh] * vall[sr * NH + hh];
+    wp[sr] = w / NH;
+  }
   __syncthreads();
-  bond_attention(d, a, s, rows, vall, scb, b, dl, load_rows, P, PW, 6 * H,
-                 8 * H, FP(PA_P_W), FP(PA_P_B), FP(PA_P_LN_S), FP(PA_P_LN_B),
-                 FP(PA_P_XK2), FP(PA_P_XK2B), FP(PA_P_XV2), FP(PA_P_XV2B),
-                 NH);
-  if (tid < 3) {
+  if (warp < 3) {
     const float* pl = xb + (size_t)NP * 3;
-    float dxb = 0.f;
-    for (int sr = 0; sr < d.NL; ++sr) {
-      float wp = 0.f;
-      for (int hh = 0; hh < NH; ++hh)
-        wp += scb[sr * NH + hh] * vall[sr * NH + hh];
-      dxb += (wp / NH) * (pl[dl * 3 + tid] - pl[sr * 3 + tid]);
+    float acc = 0.f;
+    for (int sr = lane; sr < nsrc; sr += 32)
+      acc += wp[sr] * (pl[dl * 3 + warp] - pl[sr * 3 + warp]);
+    acc = warp_sum(acc);
+    if (lane == 0) {
+      const float md = FP(T_MASK_L)[(size_t)b * d.NL + dl];
+      const size_t o = ((size_t)b * N + n) * 3 + warp;
+      OUTP(PA_OUT)[o] = FP(PA_X)[o] + (dxe[warp] + acc) * md;
     }
-    const float md = FP(T_MASK_L)[(size_t)b * d.NL + dl];
-    const size_t o = ((size_t)b * N + n) * 3 + tid;
-    OUTP(PA_OUT)[o] = FP(PA_X)[o] + (dxe + dxb) * md;
   }
 }
 
-__global__ void __launch_bounds__(NT) pos_kernel(Dims d, Args a) {
+// A padded destination keeps its position (its update is masked to zero).
+__device__ bool pos_padded(const Dims& d, const Args& a, int b, int dl) {
+  if (FP(T_MASK_L)[(size_t)b * d.NL + dl] != 0.f) return false;
+  if (threadIdx.x < 3) {
+    const size_t o = ((size_t)b * (d.NP + d.NL) + d.NP + dl) * 3 + threadIdx.x;
+    OUTP(PA_OUT)[o] = FP(PA_X)[o];
+  }
+  return true;
+}
+
+__global__ void __launch_bounds__(NT, 1) pos_kernel(Dims d, Args a, int R) {
   extern __shared__ float sm[];
-  pos_body(d, a, sm, blockIdx.y, blockIdx.x, HbColumnRows{FP(PA_HB)});
+  if (pos_padded(d, a, blockIdx.y, blockIdx.x)) return;
+  const Lay L = stage_layout(d, d.heads, R, true, false);
+  const int nsrc =
+      valid_sources(FP(T_MASK_L) + (size_t)blockIdx.y * d.NL, d.NL,
+                    reinterpret_cast<int*>(sm + L.misc + 3));
+  pos_body(d, a, sm, L, blockIdx.y, blockIdx.x, nsrc,
+           HbColumnRows{FP(PA_HB)});
 }
 
 // --------------------------------------- stage B1: triplet pre-features
@@ -593,38 +1006,62 @@ enum {
   TP_TQ_WHB, TP_TQ_B0, TP_TQ_LN_S, TP_TQ_LN_B, TP_COUNT
 };
 
-__host__ __device__ inline size_t smem_trip_pre_floats(const Dims& d) {
-  const int RB = d.K8 > SCH ? d.K8 : SCH;
-  return (size_t)d.NL * 3 + (size_t)d.NL * NRBF + (size_t)d.NL * d.Wt +
-         (size_t)d.K8 * d.Wt + (size_t)RB * d.H + (size_t)SCH * d.H +
-         NANG * d.Wt + d.K8 + 8;
+// Shared memory of stage B1 (floats). `x` holds the gathered bond rows
+// [max(K8, R)][H+PD] and the q_z tile [R][H+PD], and afterwards the
+// per-warp staging tiles [32][Wt] of the pre_t phase.
+struct PreLay {
+  int R, posl, rf, aji, akj, x, qp, wang, lnsb, ring, tidx, total;
+};
+
+__host__ __device__ inline PreLay pre_layout(const Dims& d, int R) {
+  const int PH = d.H + PD, RB = imax(d.K8, R);
+  PreLay L;
+  int o = 0;
+  L.R = R;
+  L.posl = o; o += up4(d.NL * 3);
+  L.rf = o; o += d.NL * NRBF;
+  L.aji = o; o += d.NL * d.Wt;
+  L.akj = o; o += d.K8 * (d.Wt + PD);
+  L.x = o; L.qp = o + RB * PH;
+  o += imax(RB * PH + R * PH, (NT / 32) * 32 * d.Wt);
+  L.wang = o; o += up4(NANG * d.Wt);
+  L.lnsb = o; o += 2 * d.Wt;
+  L.ring = o; o += RING_FLOATS;
+  L.tidx = o; o += up4(d.K8);
+  L.total = o;
+  return L;
 }
 
 // Stage B1 for ligand atom j of graph b. PB points at the graph's first
 // ligand row of the node projections h @ nodeB_W (columns [0, 2Wt+H) of
 // rows of pitch PBW).
-__device__ void trip_pre_body(const Dims& d, const Args& a, float* sm, int b,
-                              int j, const float* PB, int PBW) {
-  const int tid = threadIdx.x;
+__device__ void trip_pre_body(const Dims& d, const Args& a, float* sm, int R,
+                              int b, int j, const float* PB, int PBW) {
+  const int tid = threadIdx.x, nt = blockDim.x;
   const int NL = d.NL, NP = d.NP, N = NP + NL, H = d.H, K8 = d.K8, Wt = d.Wt;
-  const int RB = K8 > SCH ? K8 : SCH;
-  float* posl = sm;
-  float* rf = posl + NL * 3;     // [NL][20] rbf of |pos_j - pos_i|
-  float* aji = rf + NL * NRBF;   // [NL][Wt]
-  float* akj = aji + NL * Wt;    // [K8][Wt]
-  float* rows = akj + K8 * Wt;   // [RB][H]
-  float* qp = rows + RB * H;     // [SCH][H]
-  float* wang = qp + SCH * H;    // [13][Wt]
-  int* tidx = reinterpret_cast<int*>(wang + NANG * Wt);
+  const int PH = H + PD, AP = Wt + PD, H4 = H >> 2, W4 = Wt >> 2;
+  const PreLay L = pre_layout(d, R);
+  float* posl = sm + L.posl;
+  float* rf = sm + L.rf;      // [NL][20] rbf of |pos_j - pos_i|
+  float* aji = sm + L.aji;    // [NL][Wt]
+  float* akj = sm + L.akj;    // [K8][Wt+PD]
+  float* rows = sm + L.x;     // [max(K8, R)][H+PD]
+  float* qp = sm + L.qp;      // [R][H+PD]
+  float* wang = sm + L.wang;  // [13][Wt]
+  float* lnsb = sm + L.lnsb;  // LayerNorm scale | bias
+  float* ring = sm + L.ring;
+  int* tidx = reinterpret_cast<int*>(sm + L.tidx);
   const float* hb = FP(TP_HB);
 
-  for (int idx = tid; idx < NL * 3; idx += blockDim.x)
+  for (int idx = tid; idx < NL * 3; idx += nt)
     posl[idx] = FP(TP_X)[((size_t)b * N + NP) * 3 + idx];
-  for (int idx = tid; idx < NANG * Wt; idx += blockDim.x)
+  for (int idx = tid; idx < NANG * Wt; idx += nt)
     wang[idx] = FP(TP_T_WANG)[idx];
+  for (int idx = tid; idx < 2 * Wt; idx += nt)
+    lnsb[idx] = idx < Wt ? FP(TP_T_LN_S)[idx] : FP(TP_T_LN_B)[idx - Wt];
   if (tid < K8) tidx[tid] = IP(TP_TRIP_IDX)[((size_t)b * NL + j) * K8 + tid];
   __syncthreads();
-  for (int idx = tid; idx < NL * NRBF; idx += blockDim.x) {
+  for (int idx = tid; idx < NL * NRBF; idx += nt) {
     const int i = idx / NRBF, q = idx % NRBF;
     float r2 = 0.f;
     for (int c = 0; c < 3; ++c) {
@@ -634,95 +1071,132 @@ __device__ void trip_pre_body(const Dims& d, const Args& a, float* sm, int b,
     const float df = sqrtf(r2 + 1e-12f) - c_rbf_off[q];
     rf[idx] = expf(RBF_COEFF * (df * df));
   }
-  for (int idx = tid; idx < K8 * H; idx += blockDim.x) {
-    const int k8 = idx / H, c = idx % H;
-    rows[idx] = hb[(((size_t)b * NL + tidx[k8]) * NL + j) * H + c];
+  for (int idx = tid; idx < K8 * H4; idx += nt) {
+    const int k8 = idx / H4, c = (idx % H4) * 4;
+    st4(rows + k8 * PH + c,
+        ld4(hb + (((size_t)b * NL + tidx[k8]) * NL + j) * H + c));
   }
   __syncthreads();
-  mm_smem<16>(rf, NRBF, NL, FP(TP_T_WJI), Wt, NRBF, Wt, nullptr, aji, Wt,
-              false);
-  mm_smem<16>(rows, H, K8, FP(TP_T_WHB), Wt, H, Wt, nullptr, akj, Wt, false);
-  __syncthreads();
+  mm(rf, NRBF, NL, wmat(FP(TP_T_WJI), Wt), NRBF, Wt, nullptr, aji, Wt, false,
+     ring);
+  mm(rows, PH, K8, wmat(FP(TP_T_WHB), Wt), H, Wt, nullptr, akj, AP, false,
+     ring);
   // a_kj[m, j] for the K8 frozen sources m of j: + rbf(|pos_m - pos_j|) @
-  // t_Wr + t_b + (h_m @ t_Wn[:, :Wt]) + (h_j @ t_Wn[:, Wt:])
-  for (int idx = tid; idx < K8 * Wt; idx += blockDim.x) {
+  // t_Wr + t_b + (h_m @ t_Wn[:, :Wt]) + (h_j @ t_Wn[:, Wt:]); the rbf row
+  // of (m, j) is rf[m], the distance being symmetric
+  for (int idx = tid; idx < K8 * Wt; idx += nt) {
     const int k8 = idx / Wt, w = idx % Wt, m = tidx[k8];
-    float r2 = 0.f;
-    for (int c = 0; c < 3; ++c) {
-      const float r = posl[m * 3 + c] - posl[j * 3 + c];
-      r2 += r * r;
-    }
-    const float dist = sqrtf(r2 + 1e-12f);
     float acc = 0.f;
-    for (int q = 0; q < NRBF; ++q) {
-      const float df = dist - c_rbf_off[q];
-      acc += expf(RBF_COEFF * (df * df)) * FP(TP_T_WR)[q * Wt + w];
-    }
-    akj[idx] += acc + FP(TP_T_B)[w] + PB[m * PBW + w] + PB[j * PBW + Wt + w];
+    for (int q = 0; q < NRBF; ++q)
+      acc += rf[m * NRBF + q] * FP(TP_T_WR)[q * Wt + w];
+    akj[k8 * AP + w] +=
+        acc + FP(TP_T_B)[w] + PB[m * PBW + w] + PB[j * PBW + Wt + w];
   }
   // q_z[j, i] = relu(LN(hb[j, i] @ tq_Whb + h_i @ tq_Wi + tq_b0))
-  for (int i0 = 0; i0 < NL; i0 += SCH) {
-    const int ni = min(SCH, NL - i0);
+  for (int i0 = 0; i0 < NL; i0 += R) {
+    const int ni = imin(R, NL - i0);
     __syncthreads();
-    for (int idx = tid; idx < ni * H; idx += blockDim.x)
-      rows[idx] = hb[(((size_t)b * NL + j) * NL + i0) * H + idx];
-    __syncthreads();
-    mm_smem<16>(rows, H, ni, FP(TP_TQ_WHB), H, H, H, nullptr, qp, H, false);
-    __syncthreads();
-    for (int idx = tid; idx < ni * H; idx += blockDim.x) {
-      const int i = idx / H, c = idx % H;
-      qp[idx] += PB[(i0 + i) * PBW + 2 * Wt + c] + FP(TP_TQ_B0)[c];
+    for (int idx = tid; idx < ni * H4; idx += nt) {
+      const int i = idx / H4, c = (idx % H4) * 4;
+      st4(rows + i * PH + c,
+          ld4(hb + (((size_t)b * NL + j) * NL + i0 + i) * H + c));
     }
     __syncthreads();
-    ln_rows(qp, H, ni, H, FP(TP_TQ_LN_S), FP(TP_TQ_LN_B), true);
+    mm(rows, PH, ni, wmat(FP(TP_TQ_WHB), H), H, H, nullptr, qp, PH, false,
+       ring);
+    for (int idx = tid; idx < ni * H; idx += nt) {
+      const int i = idx / H, c = idx % H;
+      qp[i * PH + c] += PB[(i0 + i) * PBW + 2 * Wt + c] + FP(TP_TQ_B0)[c];
+    }
     __syncthreads();
-    for (int idx = tid; idx < ni * H; idx += blockDim.x)
-      OUTP(TP_QZ)[(((size_t)b * NL + j) * NL + i0) * H + idx] = qp[idx];
+    ln_rows(qp, PH, ni, H, FP(TP_TQ_LN_S), FP(TP_TQ_LN_B), true);
+    __syncthreads();
+    for (int idx = tid; idx < ni * H4; idx += nt) {
+      const int i = idx / H4, c = (idx % H4) * 4;
+      st4(OUTP(TP_QZ) + (((size_t)b * NL + j) * NL + i0 + i) * H + c,
+          ld4(qp + i * PH + c));
+    }
   }
   __syncthreads();
   // pre_t[j, i, k8, :] = relu(LN(a_kj[m, j] + a_ji[j, i] + enc(angle) @
-  // t_Wang)); one warp per (i, k8), lane = feature w; lane e < 13 computes
-  // encoding component e once and shares it by shuffle.
-  const int lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5;
-  const float ls = lane < Wt ? FP(TP_T_LN_S)[lane] : 0.f;
-  const float lb = lane < Wt ? FP(TP_T_LN_B)[lane] : 0.f;
-  for (int pr = warp; pr < NL * K8; pr += nw) {
-    const int i = pr / K8, k8 = pr % K8, m = tidx[k8];
-    float dot = 0.f, njsq = 0.f, nksq = 0.f;
-    for (int c = 0; c < 3; ++c) {
-      const float rj = posl[j * 3 + c] - posl[i * 3 + c];
-      const float rk = posl[m * 3 + c] - posl[i * 3 + c];
-      dot += rj * rk;
-      njsq += rj * rj;
-      nksq += rk * rk;
+  // t_Wang)). A thread takes one triplet (i, k8) with all Wt features: the
+  // angle and its 13 encodings once, LayerNorm sums in registers. A warp's
+  // 32 triplets are consecutive in pre_t: their values go through the warp's
+  // staging tile (rows rotated by the triplet against bank conflicts) and
+  // out as 16-byte stores, 512 bytes an instruction.
+  const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
+  const int ntask = NL * K8;
+  float* stw = rows + warp * 32 * Wt;
+  float* outp = OUTP(TP_PRE_T) + ((size_t)b * NL + j) * NL * K8 * Wt;
+  for (int t0 = warp * 32; t0 < ntask; t0 += nw * 32) {
+    const int t = t0 + lane;
+    float mu = 0.f, rs = 0.f;
+    if (t < ntask) {
+      const int i = t / K8, k8 = t % K8, m = tidx[k8];
+      float dot = 0.f, njsq = 0.f, nksq = 0.f;
+      for (int c = 0; c < 3; ++c) {
+        const float rj = posl[j * 3 + c] - posl[i * 3 + c];
+        const float rk = posl[m * 3 + c] - posl[i * 3 + c];
+        dot += rj * rk;
+        njsq += rj * rj;
+        nksq += rk * rk;
+      }
+      const float cross =
+          sqrtf(fmaxf(njsq * nksq - dot * dot, CROSS_SQ_EPS_F));
+      const float ang = atan2f(cross, dot);
+      float enc[NANG];
+      enc[0] = ang;
+#pragma unroll
+      for (int e = 0; e < 6; ++e) {
+        enc[1 + e] = sinf(ang * c_bands[e]);
+        enc[7 + e] = cosf(ang * c_bands[e]);
+      }
+      float s1 = 0.f, s2 = 0.f;
+      for (int c4 = 0; c4 < W4; ++c4) {
+        const float4 k4 = ld4(akj + k8 * AP + c4 * 4);
+        const float4 j4 = ld4(aji + i * Wt + c4 * 4);
+        float4 ea = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int e = 0; e < NANG; ++e) {
+          const float4 w4 = ld4(wang + e * Wt + c4 * 4);
+          ea.x += enc[e] * w4.x; ea.y += enc[e] * w4.y;
+          ea.z += enc[e] * w4.z; ea.w += enc[e] * w4.w;
+        }
+        const float4 v = make_float4(k4.x + j4.x + ea.x, k4.y + j4.y + ea.y,
+                                     k4.z + j4.z + ea.z, k4.w + j4.w + ea.w);
+        s1 += v.x + v.y + v.z + v.w;
+        s2 += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
+        st4(stw + lane * Wt + rot4(c4, lane, W4) * 4, v);
+      }
+      mu = s1 / Wt;
+      rs = rsqrtf(s2 / Wt - mu * mu + LN_EPS_F);
     }
-    const float cross = sqrtf(fmaxf(njsq * nksq - dot * dot, CROSS_SQ_EPS_F));
-    const float ang = atan2f(cross, dot);
-    float enc = ang;
-    if (lane >= 1 && lane <= 6) enc = sinf(ang * c_bands[lane - 1]);
-    if (lane >= 7 && lane <= 12) enc = cosf(ang * c_bands[lane - 7]);
-    float v = 0.f;
-    if (lane < Wt) v = akj[k8 * Wt + lane] + aji[i * Wt + lane];
-    float ea = 0.f;
-    for (int e = 0; e < NANG; ++e) {
-      const float ev = __shfl_sync(0xffffffffu, enc, e);
-      if (lane < Wt) ea += ev * wang[e * Wt + lane];
+    __syncwarp();
+    const int nout = imin(32, ntask - t0) * W4;
+    for (int q0 = 0; q0 < nout; q0 += 32) {
+      const int q = q0 + lane, tl = imin(q / W4, 31), c4 = q % W4;
+      const float m_ = __shfl_sync(0xffffffffu, mu, tl);
+      const float r_ = __shfl_sync(0xffffffffu, rs, tl);
+      if (q < nout) {
+        const float4 v = ld4(stw + tl * Wt + rot4(c4, tl, W4) * 4);
+        const float4 ls = ld4(lnsb + c4 * 4), lb = ld4(lnsb + Wt + c4 * 4);
+        float4 y;
+        y.x = fmaxf((v.x - m_) * r_ * ls.x + lb.x, 0.f);
+        y.y = fmaxf((v.y - m_) * r_ * ls.y + lb.y, 0.f);
+        y.z = fmaxf((v.z - m_) * r_ * ls.z + lb.z, 0.f);
+        y.w = fmaxf((v.w - m_) * r_ * ls.w + lb.w, 0.f);
+        st4(outp + (size_t)t0 * Wt + q * 4, y);
+      }
     }
-    v += ea;
-    const float s1 = warp_sum(lane < Wt ? v : 0.f);
-    const float s2 = warp_sum(lane < Wt ? v * v : 0.f);
-    const float mu = s1 / Wt, var = s2 / Wt - mu * mu;
-    const float y = fmaxf((v - mu) * rsqrtf(var + LN_EPS_F) * ls + lb, 0.f);
-    if (lane < Wt)
-      OUTP(TP_PRE_T)[((((size_t)b * NL + j) * NL + i) * K8 + k8) * Wt + lane] = y;
+    __syncwarp();
   }
 }
 
-__global__ void __launch_bounds__(NT) trip_pre_kernel(Dims d, Args a) {
+__global__ void __launch_bounds__(NT, 1)
+trip_pre_kernel(Dims d, Args a, int R, const float* P0, int gstride, int PW) {
   extern __shared__ float sm[];
-  const int PBW = 2 * d.Wt + d.H, b = blockIdx.y;
-  trip_pre_body(d, a, sm, b, blockIdx.x,
-                FP(TP_PB) + (size_t)b * d.NL * PBW, PBW);
+  const int b = blockIdx.y;
+  trip_pre_body(d, a, sm, R, b, blockIdx.x, P0 + (size_t)b * gstride, PW);
 }
 
 // --------------------------------------- stage B2: triplet head attention
@@ -732,210 +1206,235 @@ enum {
   TA_TQ_W1, TA_TQ_B1, TA_T_OUT_W, TA_T_OUT_B, TA_COUNT
 };
 
-// One block's scratch is kept under 75 KB at the flagship widths so that
-// three blocks of the stand-alone B2 kernel fit an SM (outb lies over qz).
-__host__ __device__ inline size_t smem_trip_att_floats(const Dims& d) {
-  const int HW = d.heads * d.Wt;
-  return (size_t)IT * d.H + (size_t)IT * HW * 2 +
-         (size_t)IT * d.K8 * (d.Wt + 1) + 2 * (size_t)IT * d.K8 + 8;
+struct AttSmem {
+  float *qz, *qh, *pt, *alw, *ring;
+};
+
+__device__ AttSmem att_smem(const Dims& d, float* sm, const Lay& L) {
+  AttSmem s;
+  s.qh = sm + L.u1;
+  s.qz = sm + L.u2;
+  s.pt = sm + L.u2;  // q_z is reloaded for each head group
+  s.ring = sm + L.ring;
+  s.alw = s.ring;  // the ring is idle between the two products of a group
+  return s;
 }
 
-// Stage B2 for np <= IT pairs: per-head queries, masked softmax over the K8
-// sources of j, pool, t_out_W. ROW: the pairs are (j0, i0 + p), contiguous
-// in memory, moved as one run, written to TA_OUT; else (j0 + p, i0), one
-// column of the bond grid, moved pair by pair, written to TA_OUT and kept in
-// keep[p][H] (shared memory), ending with a block barrier. `sm` is scratch
-// of smem_trip_att_floats(d) floats.
+// Stage B2 for np <= R pairs: per-head queries, masked softmax over the K8
+// sources of j, pool, t_out_W; heads in groups of att_head_group(d). ROW:
+// the pairs are (j0, i0 + p), one row of the bond grid; else (j0 + p, i0),
+// one column. The new bond features go to TA_OUT and stay in out[p][ldo]
+// (shared memory); a block barrier ends it.
 template <bool ROW>
-__device__ __forceinline__ void trip_att_pairs_impl(
-    const Dims& d, const Args& a, float* sm, int b, int j0, int i0, int np,
-    float* keep) {
+__device__ void trip_att_pairs(const Dims& d, const Args& a, const AttSmem& s,
+                               int b, int j0, int i0, int np, float* out,
+                               int ldo) {
   constexpr int dj = ROW ? 0 : 1, di = ROW ? 1 : 0;
-  const int tid = threadIdx.x, NL = d.NL, H = d.H, K8 = d.K8, Wt = d.Wt;
-  const int NH = d.heads, HW = NH * Wt, WP = Wt + 1;
-  float* qz = sm;                  // [IT][H]
-  float* outb = qz;                // [IT][H], after the queries are done
-  float* qh = qz + IT * H;         // [IT][heads*Wt]
-  float* pt = qh + IT * HW;        // [IT][K8][Wt+1]
-  float* pooled = pt + IT * K8 * WP;  // [IT][heads*Wt]
-  float* tmk = pooled + IT * HW;   // [IT][K8]
-  int* tidx = reinterpret_cast<int*>(tmk + IT * K8);  // [IT][K8]
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int NL = d.NL, H = d.H, K8 = d.K8, Wt = d.Wt, NH = d.heads;
+  const int PH = H + PD, H4 = H >> 2, W4 = Wt >> 2;
+  const int HG = att_head_group(d), QP = HG * Wt + PD;
 #define PAIR(p) (((size_t)b * NL + j0 + (p) * dj) * NL + i0 + (p) * di)
-
-  if (ROW) {
-    const size_t pair0 = PAIR(0);
-    for (int idx = tid; idx < IT * H; idx += blockDim.x)
-      qz[idx] = idx < np * H ? FP(TA_QZ)[pair0 * H + idx] : 0.f;
-    for (int idx = tid; idx < np * K8 * Wt; idx += blockDim.x)
-      pt[(idx / Wt) * WP + idx % Wt] = FP(TA_PRE_T)[pair0 * K8 * Wt + idx];
-  } else {
-    for (int idx = tid; idx < IT * H; idx += blockDim.x) {
-      const int p = idx / H, c = idx % H;
-      qz[idx] = p < np ? FP(TA_QZ)[PAIR(p) * H + c] : 0.f;
-    }
-    for (int p = 0; p < np; ++p) {
-      const float* src = FP(TA_PRE_T) + PAIR(p) * K8 * Wt;
-      for (int idx = tid; idx < K8 * Wt; idx += blockDim.x)
-        pt[(p * K8 + idx / Wt) * WP + idx % Wt] = src[idx];
-    }
-  }
-  if (ROW) {  // one source atom j: one row of the tables for all pairs
-    if (tid < K8) {
-      tidx[tid] = IP(TA_TRIP_IDX)[((size_t)b * NL + j0) * K8 + tid];
-      tmk[tid] = FP(TA_TRIP_MASK)[((size_t)b * NL + j0) * K8 + tid];
-    }
-  } else {
-    for (int idx = tid; idx < np * K8; idx += blockDim.x) {
-      const size_t o = ((size_t)b * NL + j0 + idx / K8) * K8 + idx % K8;
-      tidx[idx] = IP(TA_TRIP_IDX)[o];
-      tmk[idx] = FP(TA_TRIP_MASK)[o];
-    }
-  }
-  __syncthreads();
-  // per-head queries q_h = q_z @ tq_W1[h] + tq_b1[h]; column cc = h*Wt + w
-  const float* W1 = FP(TA_TQ_W1);
-  for (int cc = tid; cc < HW; cc += blockDim.x) {
-    const int hh = cc / Wt, w = cc % Wt;
-    float acc[IT];
-#pragma unroll
-    for (int p = 0; p < IT; ++p) acc[p] = 0.f;
-    for (int k = 0; k < H; ++k) {
-      const float wv = __ldg(W1 + ((size_t)hh * H + k) * Wt + w);
-#pragma unroll
-      for (int p = 0; p < IT; ++p) acc[p] = fmaf(qz[p * H + k], wv, acc[p]);
-    }
-    const float bv = FP(TA_TQ_B1)[cc];
-#pragma unroll
-    for (int p = 0; p < IT; ++p) qh[p * HW + cc] = acc[p] + bv;
-  }
-  __syncthreads();
-  const float inv_sw = (float)(1.0 / sqrt((double)Wt));
   const float* ml = FP(TA_MASK_L) + (size_t)b * NL;
-  const int lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5;
-  for (int pr = warp; pr < np * NH; pr += nw) {
-    const int p = pr / NH, hh = pr % NH;
-    const int j = j0 + p * dj, i = i0 + p * di;
-    const int tb = ROW ? 0 : p * K8;
-    float vf = 0.f, sc = 0.f;
-    if (lane < K8) {
-      vf = tmk[tb + lane] * ml[i] * ml[j] *
-           (tidx[tb + lane] != i ? 1.f : 0.f) * (i != j ? 1.f : 0.f);
-      const float* row = pt + (p * K8 + lane) * WP;
-      const float* q = qh + p * HW + hh * Wt;
-      for (int w = 0; w < Wt; ++w) sc += row[w] * q[w];
-      sc = sc * inv_sw + (1.f - vf) * NEG_INF_F;
-    }
-    const float mx = warp_max(lane < K8 ? sc : -INFINITY);
-    const float e = lane < K8 ? expf(sc - mx) * vf : 0.f;
-    const float al = e / fmaxf(warp_sum(e), 1.f);
-    float acc = 0.f;
-    for (int k = 0; k < K8; ++k) {
-      const float ak = __shfl_sync(0xffffffffu, al, k);
-      if (lane < Wt) acc += ak * pt[(p * K8 + k) * WP + lane];
-    }
-    if (lane < Wt) pooled[p * HW + hh * Wt + lane] = acc;
-  }
-  __syncthreads();
-  mm_smem<IT>(pooled, HW, np, FP(TA_T_OUT_W), H, HW, H, nullptr, outb, H,
-              false);
-  __syncthreads();
-  if (ROW) {
-    const size_t pair0 = PAIR(0);
-    for (int idx = tid; idx < np * H; idx += blockDim.x) {
-      const int c = idx % H;
-      OUTP(TA_OUT)[pair0 * H + idx] =
-          FP(TA_HB)[pair0 * H + idx] + (outb[idx] + FP(TA_T_OUT_B)[c]);
-    }
-  } else {
-    for (int idx = tid; idx < np * H; idx += blockDim.x) {
-      const int p = idx / H, c = idx % H;
-      const size_t o = PAIR(p) * H + c;
-      const float v = FP(TA_HB)[o] + (outb[idx] + FP(TA_T_OUT_B)[c]);
-      OUTP(TA_OUT)[o] = v;
-      keep[idx] = v;
+  const float inv_sw = (float)(1.0 / sqrt((double)Wt));
+  const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
+  float* ptw = s.pt + warp * K8 * Wt;  // the warp's tile [K8][Wt], rotated
+  float* alw = s.alw + warp * 128;     // softmax weights [k][4 heads]
+  for (int hg0 = 0; hg0 < NH; hg0 += HG) {
+    const int nhg = imin(HG, NH - hg0), gw = nhg * Wt;
+    for (int idx = tid; idx < np * H4; idx += nt) {
+      const int p = idx / H4, c = (idx % H4) * 4;
+      st4(s.qz + p * PH + c, ld4(FP(TA_QZ) + PAIR(p) * H + c));
     }
     __syncthreads();
+    // q_h = q_z @ tq_W1[h] + tq_b1[h]; column h*Wt + w of the group
+    WSrc w1;
+    w1.W = FP(TA_TQ_W1) + (size_t)hg0 * H * Wt;
+    w1.ldw = Wt; w1.cbw = Wt; w1.cbs = H * Wt;
+    mm(s.qz, PH, np, w1, H, gw, FP(TA_TQ_B1) + hg0 * Wt, s.qh, QP, false,
+       s.ring);
+    for (int p = warp; p < np; p += nw) {
+      const int j = j0 + p * dj, i = i0 + p * di;
+      float* qrow = s.qh + p * QP;
+      const float pv = ml[i] * ml[j] * (i != j ? 1.f : 0.f);
+      if (pv == 0.f) {  // every triplet of the pair is masked: pooled = 0
+        for (int c = lane; c < gw; c += 32) qrow[c] = 0.f;
+        continue;
+      }
+      const float* src = FP(TA_PRE_T) + PAIR(p) * K8 * Wt;
+      for (int q = lane; q < K8 * W4; q += 32) {
+        const int k = q / W4, c4 = q % W4;
+        cp_async16(ptw + k * Wt + rot4(c4, k, W4) * 4, src + q * 4);
+      }
+      float vf = 0.f;
+      if (lane < K8) {
+        const size_t o = ((size_t)b * NL + j) * K8 + lane;
+        vf = FP(TA_TRIP_MASK)[o] * pv *
+             (IP(TA_TRIP_IDX)[o] != i ? 1.f : 0.f);
+      }
+      cp_async_wait();
+      __syncwarp();
+      // the lane's row of the tile (source k8 = lane), all loads in flight
+      float4 trow[8];
+#pragma unroll
+      for (int c4 = 0; c4 < 8; ++c4)
+        trow[c4] = lane < K8 && c4 < W4
+                       ? ld4(ptw + lane * Wt + rot4(c4, lane, W4) * 4)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int h0 = 0; h0 < nhg; h0 += 4) {
+        const int hc = imin(4, nhg - h0);
+        float sc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int c4 = 0; c4 < 8; ++c4) {
+          if (c4 < W4) {
+#pragma unroll
+            for (int h = 0; h < 4; ++h) {
+              if (h < hc) {
+                const float4 q4 = ld4(qrow + (h0 + h) * Wt + c4 * 4);
+                sc[h] = fmaf(trow[c4].x, q4.x, sc[h]);
+                sc[h] = fmaf(trow[c4].y, q4.y, sc[h]);
+                sc[h] = fmaf(trow[c4].z, q4.z, sc[h]);
+                sc[h] = fmaf(trow[c4].w, q4.w, sc[h]);
+              }
+            }
+          }
+        }
+        // masked softmax over the sources (lanes), the 4 heads' shuffle
+        // chains side by side
+        float sv[4], mx[4], ex[4], sm4[4];
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          sv[h] = lane < K8 && h < hc
+                      ? sc[h] * inv_sw + (1.f - vf) * NEG_INF_F
+                      : -INFINITY;
+          mx[h] = sv[h];
+        }
+        for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+          for (int h = 0; h < 4; ++h)
+            mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], o));
+        }
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          ex[h] = lane < K8 && h < hc ? expf(sv[h] - mx[h]) * vf : 0.f;
+          sm4[h] = ex[h];
+        }
+        for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+          for (int h = 0; h < 4; ++h)
+            sm4[h] += __shfl_xor_sync(0xffffffffu, sm4[h], o);
+        }
+        __syncwarp();  // the heads' q_h is consumed, alw is free
+        st4(alw + lane * 4, make_float4(ex[0] / fmaxf(sm4[0], 1.f),
+                                        ex[1] / fmaxf(sm4[1], 1.f),
+                                        ex[2] / fmaxf(sm4[2], 1.f),
+                                        ex[3] / fmaxf(sm4[3], 1.f)));
+        __syncwarp();
+        if (lane < Wt) {
+          float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+          for (int k = 0; k < K8; ++k) {
+            const float4 a4 = ld4(alw + k * 4);
+            const float tv =
+                ptw[k * Wt + rot4(lane >> 2, k, W4) * 4 + (lane & 3)];
+            acc[0] = fmaf(a4.x, tv, acc[0]);
+            acc[1] = fmaf(a4.y, tv, acc[1]);
+            acc[2] = fmaf(a4.z, tv, acc[2]);
+            acc[3] = fmaf(a4.w, tv, acc[3]);
+          }
+#pragma unroll
+          for (int h = 0; h < 4; ++h)
+            if (h < hc) qrow[(h0 + h) * Wt + lane] = acc[h];
+        }
+      }
+      __syncwarp();  // tile and alw are free for the warp's next pair
+    }
+    __syncthreads();
+    mm(s.qh, QP, np, wmat(FP(TA_T_OUT_W) + (size_t)hg0 * Wt * H, H), gw, H,
+       nullptr, out, ldo, hg0 > 0, s.ring);
   }
+  for (int idx = tid; idx < np * H4; idx += nt) {
+    const int p = idx / H4, c = (idx % H4) * 4;
+    const size_t o = PAIR(p) * H + c;
+    const float4 hv = ld4(FP(TA_HB) + o), ov = ld4(out + p * ldo + c);
+    const float4 bv = ld4(FP(TA_T_OUT_B) + c);
+    const float4 v = make_float4(hv.x + (ov.x + bv.x), hv.y + (ov.y + bv.y),
+                                 hv.z + (ov.z + bv.z), hv.w + (ov.w + bv.w));
+    st4(OUTP(TA_OUT) + o, v);
+    st4(out + p * ldo + c, v);
+  }
+  __syncthreads();
 #undef PAIR
 }
 
-// The column form is a call, not inlined into stage C's body: measured on
-// the H100, the merged kernel is a quarter faster that way.
-__device__ __noinline__ void trip_att_column(const Dims& d, const Args& a,
-                                             float* sm, int b, int j0, int i0,
-                                             int np, float* keep) {
-  trip_att_pairs_impl<false>(d, a, sm, b, j0, i0, np, keep);
-}
-
-// Three blocks an SM (the scratch allows it) and so at most 85 registers:
-// left to itself the compiler takes 48 and the kernel is 1.4x slower.
-__global__ void __launch_bounds__(NT, 3) trip_att_kernel(Dims d, Args a) {
-  extern __shared__ float sm[];
-  const int i0 = blockIdx.x * IT;
-  trip_att_pairs_impl<true>(d, a, sm, blockIdx.z, blockIdx.y, i0,
-                            min(IT, d.NL - i0), nullptr);
-}
-
-// ------------------------------- merged stage A + B1 (one main grid)
-//
-// Counterpart of _stage_node_pre: blocks [0, NL) of a graph take the B1
-// role (one ligand atom j each, the longer body, so they start first),
-// blocks [NL, NL + N) the A role (one node each). Both read the node
-// projections of ONE rows_gemm, h @ [nodeA_W | nodeB_W], in P (pitch PW).
-// `an` is laid out as stage A's arguments, `at` as stage B1's.
-__global__ void __launch_bounds__(NT)
-node_pre_kernel(Dims d, Args an, Args at, int PW) {
-  extern __shared__ float sm[];
-  const int b = blockIdx.y, r = blockIdx.x;
-  if (r < d.NL) {
-    const float* PB = reinterpret_cast<const float*>(an.p[NA_P]) +
-                      ((size_t)b * (d.NP + d.NL) + d.NP) * PW + 10 * d.H;
-    trip_pre_body(d, at, sm, b, r, PB, PW);
-  } else {
-    node_body(d, an, sm, b, r - d.NL, PW);
+// What stage B2 gives pairs [p0, p1) of a row or column whose triplets are
+// all masked: hb_new = hb + (0 @ t_out_W + t_out_b).
+template <bool ROW>
+__device__ void trip_att_void_pairs(const Dims& d, const Args& a, int b,
+                                    int j0, int i0, int p0, int p1) {
+  constexpr int dj = ROW ? 0 : 1, di = ROW ? 1 : 0;
+  const int H4 = d.H >> 2;
+  for (int idx = threadIdx.x; idx < (p1 - p0) * H4; idx += blockDim.x) {
+    const int p = p0 + idx / H4, c = (idx % H4) * 4;
+    const size_t o =
+        (((size_t)b * d.NL + j0 + p * dj) * d.NL + i0 + p * di) * d.H + c;
+    const float4 hv = ld4(FP(TA_HB) + o), bv = ld4(FP(TA_T_OUT_B) + c);
+    st4(OUTP(TA_OUT) + o,
+        make_float4(hv.x + (0.f + bv.x), hv.y + (0.f + bv.y),
+                    hv.z + (0.f + bv.z), hv.w + (0.f + bv.w)));
   }
+}
+
+__global__ void __launch_bounds__(NT, 1)
+trip_att_kernel(Dims d, Args a, int R) {
+  extern __shared__ float sm[];
+  const Lay L = stage_layout(d, 0, R, false, true);
+  const int b = blockIdx.z, j = blockIdx.y, i0 = blockIdx.x * R;
+  const int np = imin(R, d.NL - i0);
+  const float* ml = FP(TA_MASK_L) + (size_t)b * d.NL;
+  // the pairs (j, i) with an atom in slot i; none if j itself is padding
+  const int nsrc =
+      valid_sources(ml, d.NL, reinterpret_cast<int*>(sm + L.misc + 3));
+  const int nv = ml[j] != 0.f ? imax(0, imin(np, nsrc - i0)) : 0;
+  if (nv > 0)
+    trip_att_pairs<true>(d, a, att_smem(d, sm, L), b, j, i0, nv, sm + L.rows,
+                         d.H + PD);
+  trip_att_void_pairs<true>(d, a, b, j, i0, nv, np);
 }
 
 // ------------------------------- merged stage B2 + C (one main grid)
 //
 // Counterpart of _att_pos_pallas. Stage C's bond-grid attention for
 // destination dl softmaxes over ALL sources j of hb_new[b, j, dl, :], so one
-// block per (graph, dl) finishes that column itself: it walks the sources
-// in chunks of IT pairs (j, dl), runs B2 on each chunk for all heads,
-// writes hb_new once and keeps the chunk in shared memory as the rows of
+// block per (graph, dl) finishes that column itself: it runs B2 on the
+// column's pairs (j, dl), R sources a pass (all of them up to NL = 80), for
+// all heads, writes hb_new once, and B2's output tile is the `rows` tile of
 // C's first layer. hb_new is never read back, and no block waits for
-// another. B2's scratch lies over C's `pre` and `kv` tiles when it fits
-// there (they are idle while the rows are gathered), else behind them.
+// another. B2's scratch lies over C's first- and second-layer tiles (they
+// are idle while the rows are made).
 struct AttRows {
   const Args* ta;
-  float* scratch;
+  AttSmem s;
   __device__ void operator()(const Dims& d, int b, int dl, int s0, int ns,
                              float* rows) const {
-    for (int j0 = s0; j0 < s0 + ns; j0 += IT)
-      trip_att_column(d, *ta, scratch, b, j0, dl, min(IT, s0 + ns - j0),
-                      rows + (size_t)(j0 - s0) * d.H);
+    trip_att_pairs<false>(d, *ta, s, b, s0, dl, ns, rows, d.H + PD);
   }
 };
 
-// Floats of C's pre + kv tiles, which B2's scratch may lie over.
-__host__ __device__ inline size_t att_alias_floats(const Dims& d) {
-  const int KR = d.K > SCH ? d.K : SCH;
-  return 2 * (size_t)KR * 2 * d.H;
-}
-
-__host__ __device__ inline size_t smem_att_pos_floats(const Dims& d) {
-  const size_t e = smem_edge_floats(d, d.heads), t = smem_trip_att_floats(d);
-  return t <= att_alias_floats(d) ? e : e + t;
-}
-
-__global__ void __launch_bounds__(NT)
-att_pos_kernel(Dims d, Args ap, Args ta) {
+__global__ void __launch_bounds__(NT, 1)
+att_pos_kernel(Dims d, Args ap, Args ta, int R) {
   extern __shared__ float sm[];
-  const int KH = d.K * FEP > SCH * d.H ? d.K * FEP : SCH * d.H;
-  float* scratch = smem_trip_att_floats(d) <= att_alias_floats(d)
-                       ? sm + KH  // == EdgeSmem::pre, see carve_edge
-                       : sm + smem_edge_floats(d, d.heads);
-  pos_body(d, ap, sm, blockIdx.y, blockIdx.x, AttRows{&ta, scratch});
+  const int b = blockIdx.y, dl = blockIdx.x;
+  if (pos_padded(d, ap, b, dl)) {
+    trip_att_void_pairs<false>(d, ta, b, 0, dl, 0, d.NL);
+    return;
+  }
+  const Lay L = stage_layout(d, d.heads, R, true, true);
+  const Args& a = ap;
+  const int nsrc = valid_sources(FP(T_MASK_L) + (size_t)b * d.NL, d.NL,
+                                 reinterpret_cast<int*>(sm + L.misc + 3));
+  trip_att_void_pairs<false>(d, ta, b, 0, dl, nsrc, d.NL);
+  pos_body(d, ap, sm, L, b, dl, nsrc, AttRows{&ta, att_smem(d, sm, L)});
 }
 
 // ------------------------------------------------------------ host entries
@@ -955,25 +1454,118 @@ static Args read_args(const void* const* p, int n) {
 
 static const size_t kMaxSmem = 232448;
 
+static bool dims_ok(const Dims& d) {
+  return d.H % d.heads == 0 && d.H % 4 == 0 && d.Wt % 4 == 0 && d.H <= NT &&
+         d.Wt <= 32 && d.Wt >= 4 && d.K8 <= 32 && d.K8 >= 1 && d.K >= 1 &&
+         d.K <= d.H && d.heads <= 32 && d.NL >= 1 && d.NL <= NT;
+}
+
 static int launch_rows_gemm(const float* X, int ldx, int rows, int rpb,
                             int bstride, int roff, int Kd, const float* W,
                             int Nc, float* Y, cudaStream_t st) {
-  const size_t bytes = (size_t)RT * Kd * sizeof(float);
+  const size_t bytes =
+      ((size_t)RMAX * (Kd + PD) + RING_FLOATS) * sizeof(float);
   if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaFuncSetAttribute(rows_gemm, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)bytes);
-  dim3 grid((rows + RT - 1) / RT, (Nc + NT - 1) / NT);
+  dim3 grid((rows + RMAX - 1) / RMAX, (Nc + NCMAX - 1) / NCMAX);
   rows_gemm<<<grid, NT, bytes, st>>>(X, ldx, rows, rpb, bstride, roff, Kd, W,
-                                     Nc, nullptr, Y);
+                                     Nc, Y);
   return (int)cudaGetLastError();
 }
 
-static bool dims_ok(const Dims& d) {
-  return d.H % d.heads == 0 && d.H <= NT && d.Wt <= 32 && d.K8 <= 32 &&
-         d.K8 >= 1 && d.K >= 1 && d.K <= d.H && d.heads <= 32;
+// The main kernels, as ls_launch_plan numbers them.
+enum { PLAN_NODE, PLAN_TRIP_PRE, PLAN_TRIP_ATT, PLAN_POS, PLAN_ATT_POS,
+       PLAN_COUNT };
+
+// Destination nodes a block of stage A: two, so that the kNN edge products
+// run on 2 * K rows a weight pass, where the whole NL rows still fit beside
+// them; else one.
+static int plan_nodes(const Dims& d);
+
+// Dynamic shared memory of a block of kernel `which` with R source rows a
+// pass (stage A: with G destination nodes a block).
+static size_t plan_bytes(int which, const Dims& d, int R, int G = 1) {
+  int floats = 0;
+  switch (which) {
+    case PLAN_NODE:
+      floats = stage_layout(d, d.H, R, true, false, G).total; break;
+    case PLAN_TRIP_PRE: floats = pre_layout(d, R).total; break;
+    case PLAN_TRIP_ATT:
+      floats = stage_layout(d, 0, R, false, true).total; break;
+    case PLAN_POS:
+      floats = stage_layout(d, d.heads, R, true, false).total; break;
+    default: floats = stage_layout(d, d.heads, R, true, true).total; break;
+  }
+  return (size_t)floats * sizeof(float);
+}
+
+// Source rows a pass: all NL up to RMAX if the block's shared memory allows,
+// else the largest count that fits, evened out over the passes. 0 if
+// nothing fits.
+static int plan_rows(int which, const Dims& d, int G = 1) {
+  int R = d.NL < RMAX ? d.NL : RMAX;
+  while (R > 1 && plan_bytes(which, d, R, G) > kMaxSmem) R -= R > 8 ? 8 : 1;
+  if (plan_bytes(which, d, R, G) > kMaxSmem) return 0;
+  const int np = (d.NL + R - 1) / R;
+  return (d.NL + np - 1) / np;
+}
+
+static int plan_nodes(const Dims& d) {
+  return plan_rows(PLAN_NODE, d, 2) == plan_rows(PLAN_NODE, d, 1) ? 2 : 1;
+}
+
+static int launch_node(const Dims& d, const Args& a, int PW,
+                       cudaStream_t st) {
+  const int G = plan_nodes(d), R = plan_rows(PLAN_NODE, d, G);
+  if (!R) return (int)cudaErrorInvalidValue;
+  const size_t bytes = plan_bytes(PLAN_NODE, d, R, G);
+  cudaFuncSetAttribute(node_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)bytes);
+  node_kernel<<<dim3((d.NP + d.NL + G - 1) / G, d.B), NT, bytes, st>>>(
+      d, a, R, G, PW);
+  return (int)cudaGetLastError();
+}
+
+// P0: graph 0's first ligand row of the B1 node projections; gstride:
+// floats from one graph's rows to the next's; PW: row pitch.
+static int launch_trip_pre(const Dims& d, const Args& a, const float* P0,
+                           int gstride, int PW, cudaStream_t st) {
+  const int R = plan_rows(PLAN_TRIP_PRE, d);
+  if (!R) return (int)cudaErrorInvalidValue;
+  const size_t bytes = plan_bytes(PLAN_TRIP_PRE, d, R);
+  cudaFuncSetAttribute(trip_pre_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  trip_pre_kernel<<<dim3(d.NL, d.B), NT, bytes, st>>>(d, a, R, P0, gstride,
+                                                       PW);
+  return (int)cudaGetLastError();
+}
+
+// Phore rows of x pass through stage C unchanged (their update is masked to
+// zero), so its kernels run on ligand rows only.
+static int copy_phore_rows(const Dims& d, const float* x, float* out,
+                           cudaStream_t st) {
+  const size_t pitch = (size_t)(d.NP + d.NL) * 3 * sizeof(float);
+  return (int)cudaMemcpy2DAsync(out, pitch, x, pitch,
+                                (size_t)d.NP * 3 * sizeof(float), d.B,
+                                cudaMemcpyDeviceToDevice, st);
 }
 
 extern "C" {
+
+// For `dims`: source rows a pass and dynamic shared memory (bytes) a block
+// of node_kernel, trip_pre_kernel, trip_att_kernel, pos_kernel and
+// att_pos_kernel, as out[2 * i] and out[2 * i + 1] (rows 0: does not fit).
+int ls_launch_plan(const int* dims, int* out) {
+  const Dims d = read_dims(dims);
+  if (!dims_ok(d)) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < PLAN_COUNT; ++i) {
+    const int G = i == PLAN_NODE ? plan_nodes(d) : 1;
+    out[2 * i] = plan_rows(i, d, G);
+    out[2 * i + 1] = out[2 * i] ? (int)plan_bytes(i, d, out[2 * i], G) : 0;
+  }
+  return 0;
+}
 
 // Stage A. Pointer slots: see the NA_* and T_* enums.
 int ls_stage_node(const void* const* p, int np, const int* dims, void* stream) {
@@ -986,16 +1578,10 @@ int ls_stage_node(const void* const* p, int np, const int* dims, void* stream) {
   int rc = launch_rows_gemm(FP(NA_H), d.H, d.B * N, d.B * N, 0, 0, d.H,
                             FP(NA_W), 10 * d.H, OUTP(NA_P), st);
   if (rc) return rc;
-  const size_t bytes = smem_edge_floats(d, d.H) * sizeof(float);
-  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaFuncSetAttribute(node_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)bytes);
-  node_kernel<<<dim3(N, d.B), NT, bytes, st>>>(d, a);
-  return (int)cudaGetLastError();
+  return launch_node(d, a, 10 * d.H, st);
 }
 
-// Stage C. Phore rows of x pass through unchanged (their update is masked
-// to zero), so the main kernel runs on ligand rows only.
+// Stage C.
 int ls_stage_pos(const void* const* p, int np, const int* dims, void* stream) {
   if (np != PA_COUNT) return (int)cudaErrorInvalidValue;
   const Dims d = read_dims(dims);
@@ -1003,19 +1589,17 @@ int ls_stage_pos(const void* const* p, int np, const int* dims, void* stream) {
   const Args a = read_args(p, np);
   cudaStream_t st = (cudaStream_t)stream;
   const int N = d.NP + d.NL;
-  cudaError_t ce = cudaMemcpy2DAsync(
-      OUTP(PA_OUT), (size_t)N * 3 * sizeof(float), FP(PA_X),
-      (size_t)N * 3 * sizeof(float), (size_t)d.NP * 3 * sizeof(float), d.B,
-      cudaMemcpyDeviceToDevice, st);
-  if (ce != cudaSuccess) return (int)ce;
-  int rc = launch_rows_gemm(FP(PA_NEW_H), d.H, d.B * N, d.B * N, 0, 0, d.H,
-                            FP(PA_W), 10 * d.H, OUTP(PA_P), st);
+  int rc = copy_phore_rows(d, FP(PA_X), OUTP(PA_OUT), st);
   if (rc) return rc;
-  const size_t bytes = smem_edge_floats(d, d.heads) * sizeof(float);
-  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  rc = launch_rows_gemm(FP(PA_NEW_H), d.H, d.B * N, d.B * N, 0, 0, d.H,
+                        FP(PA_W), 10 * d.H, OUTP(PA_P), st);
+  if (rc) return rc;
+  const int R = plan_rows(PLAN_POS, d);
+  if (!R) return (int)cudaErrorInvalidValue;
+  const size_t bytes = plan_bytes(PLAN_POS, d, R);
   cudaFuncSetAttribute(pos_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)bytes);
-  pos_kernel<<<dim3(d.NL, d.B), NT, bytes, st>>>(d, a);
+  pos_kernel<<<dim3(d.NL, d.B), NT, bytes, st>>>(d, a, R);
   return (int)cudaGetLastError();
 }
 
@@ -1027,16 +1611,11 @@ int ls_stage_trip_pre(const void* const* p, int np, const int* dims,
   if (!dims_ok(d)) return (int)cudaErrorInvalidValue;
   const Args a = read_args(p, np);
   cudaStream_t st = (cudaStream_t)stream;
-  const int N = d.NP + d.NL;
+  const int N = d.NP + d.NL, PBW = 2 * d.Wt + d.H;
   int rc = launch_rows_gemm(FP(TP_H), d.H, d.B * d.NL, d.NL, N, d.NP, d.H,
-                            FP(TP_W), 2 * d.Wt + d.H, OUTP(TP_PB), st);
+                            FP(TP_W), PBW, OUTP(TP_PB), st);
   if (rc) return rc;
-  const size_t bytes = smem_trip_pre_floats(d) * sizeof(float);
-  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaFuncSetAttribute(trip_pre_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  trip_pre_kernel<<<dim3(d.NL, d.B), NT, bytes, st>>>(d, a);
-  return (int)cudaGetLastError();
+  return launch_trip_pre(d, a, FP(TP_PB), d.NL * PBW, PBW, st);
 }
 
 // Stage B2. Pointer slots: see the TA_* enum.
@@ -1047,18 +1626,22 @@ int ls_stage_trip_att(const void* const* p, int np, const int* dims,
   if (!dims_ok(d)) return (int)cudaErrorInvalidValue;
   const Args a = read_args(p, np);
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t bytes = smem_trip_att_floats(d) * sizeof(float);
-  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const int R = plan_rows(PLAN_TRIP_ATT, d);
+  if (!R) return (int)cudaErrorInvalidValue;
+  const size_t bytes = plan_bytes(PLAN_TRIP_ATT, d, R);
   cudaFuncSetAttribute(trip_att_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  trip_att_kernel<<<dim3((d.NL + IT - 1) / IT, d.NL, d.B), NT, bytes, st>>>(
-      d, a);
+  trip_att_kernel<<<dim3((d.NL + R - 1) / R, d.NL, d.B), NT, bytes, st>>>(
+      d, a, R);
   return (int)cudaGetLastError();
 }
 
 // Merged stage A + B1. Pointer slots: stage A's (NA_*, T_*; slot NA_W holds
 // [nodeA_W | nodeB_W]), then pre_t, q_z, trip_idx and stage B1's weights
-// from TP_T_WHB on.
+// from TP_T_WHB on. One rows_gemm gives h @ [nodeA_W | nodeB_W] for both
+// roles; then A's grid and B1's grid, each with its own shared memory (B1's
+// blocks do not run under A's footprint), reading h, x and hb a second time
+// from L2 at most.
 int ls_stage_node_pre(const void* const* p, int np, const int* dims,
                       void* stream) {
   const int extra = TP_COUNT - TP_T_WHB;
@@ -1080,13 +1663,11 @@ int ls_stage_node_pre(const void* const* p, int np, const int* dims,
   int rc = launch_rows_gemm(FP(NA_H), d.H, d.B * N, d.B * N, 0, 0, d.H,
                             FP(NA_W), PW, OUTP(NA_P), st);
   if (rc) return rc;
-  const size_t fa = smem_edge_floats(d, d.H), fb = smem_trip_pre_floats(d);
-  const size_t bytes = (fa > fb ? fa : fb) * sizeof(float);
-  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaFuncSetAttribute(node_pre_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  node_pre_kernel<<<dim3(d.NL + N, d.B), NT, bytes, st>>>(d, an, at, PW);
-  return (int)cudaGetLastError();
+  // B1 reads columns [10H, PW) of the ligand rows
+  rc = launch_trip_pre(d, at, FP(NA_P) + (size_t)d.NP * PW + 10 * d.H, N * PW,
+                       PW, st);
+  if (rc) return rc;
+  return launch_node(d, an, PW, st);
 }
 
 // Merged stage B2 + C. Pointer slots: stage C's (PA_*, T_*; PA_HB is the
@@ -1112,19 +1693,17 @@ int ls_stage_att_pos(const void* const* p, int np, const int* dims,
   cudaStream_t st = (cudaStream_t)stream;
   const int N = d.NP + d.NL;
   const Args& a = ap;
-  cudaError_t ce = cudaMemcpy2DAsync(
-      OUTP(PA_OUT), (size_t)N * 3 * sizeof(float), FP(PA_X),
-      (size_t)N * 3 * sizeof(float), (size_t)d.NP * 3 * sizeof(float), d.B,
-      cudaMemcpyDeviceToDevice, st);
-  if (ce != cudaSuccess) return (int)ce;
-  int rc = launch_rows_gemm(FP(PA_NEW_H), d.H, d.B * N, d.B * N, 0, 0, d.H,
-                            FP(PA_W), 10 * d.H, OUTP(PA_P), st);
+  int rc = copy_phore_rows(d, FP(PA_X), OUTP(PA_OUT), st);
   if (rc) return rc;
-  const size_t bytes = smem_att_pos_floats(d) * sizeof(float);
-  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  rc = launch_rows_gemm(FP(PA_NEW_H), d.H, d.B * N, d.B * N, 0, 0, d.H,
+                        FP(PA_W), 10 * d.H, OUTP(PA_P), st);
+  if (rc) return rc;
+  const int R = plan_rows(PLAN_ATT_POS, d);
+  if (!R) return (int)cudaErrorInvalidValue;
+  const size_t bytes = plan_bytes(PLAN_ATT_POS, d, R);
   cudaFuncSetAttribute(att_pos_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  att_pos_kernel<<<dim3(d.NL, d.B), NT, bytes, st>>>(d, ap, ta);
+  att_pos_kernel<<<dim3(d.NL, d.B), NT, bytes, st>>>(d, ap, ta, R);
   return (int)cudaGetLastError();
 }
 

@@ -84,16 +84,22 @@ def build(verbose: bool = False) -> dict:
     return paths
 
 
+def bind(path: str, name: str):
+    """Load the shared library at `path` and declare the C entries of
+    library `name` on it."""
+    lib = ctypes.CDLL(path)
+    for entry in LIBRARIES[name][1]:
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def load(name: str = "layer_stack"):
     """The loaded kernel library `name` (all libraries are built on the
     first call)."""
     with _lock:
         if name not in _libs:
-            lib = ctypes.CDLL(build()[name])
-            for entry in LIBRARIES[name][1]:
-                fn = getattr(lib, entry)
-                fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
-                               ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-            _libs[name] = lib
+            _libs[name] = bind(build()[name], name)
     return _libs[name]

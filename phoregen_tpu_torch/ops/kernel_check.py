@@ -7,7 +7,11 @@ NL ligand slots, from a seed, on the given device. `check_kernels(case)`
 returns one row per layer-stack kernel (the four single stages and the two
 merged ones): max abs/rel error against the plain version on
 the same inputs, kernel and plain times (CUDA events), and the H100 bound
-from the bytes and float32 operations the function needs.
+from the bytes the function moves and the float32 operations it needs on
+the slots the case's masks leave (`flops`; `flops_all_slots` is the count
+if no slot were masked).
+`stage_calls(case)` gives the kernel and plain calls alone (for a tool
+that times two builds of the kernels against each other).
 `triplet_case()` and `check_triplet_pool()` do the same for the all-k
 triplet pool (`ops/pallas_triplet.py`) at B graphs of N ligand slots.
 """
@@ -81,7 +85,10 @@ def _random_tree(spec, g: torch.Generator, device):
 
 
 def flagship_case(B=16, NP=96, NL=80, H=128, heads=16, Wt=32, K=32,
-                  trip_k=32, seed=0, device="cuda") -> Dict:
+                  trip_k=32, seed=0, device="cuda",
+                  empty_first=False) -> Dict:
+    """One layer's inputs; `empty_first` leaves graph 0 without a valid
+    ligand atom (all its ligand rows are padding)."""
     from ..models.denoiser import layer_param_shapes
     g = torch.Generator().manual_seed(seed)
     N = NP + NL
@@ -91,6 +98,8 @@ def flagship_case(B=16, NP=96, NL=80, H=128, heads=16, Wt=32, K=32,
     x = torch.cat([4.0 * torch.randn(B, NP, 3, generator=g),
                    2.0 * torch.randn(B, NL, 3, generator=g)], 1).to(device)
     n_lig = torch.randint(NL // 2, NL + 1, (B,), generator=g)
+    if empty_first:
+        n_lig[0] = 0
     n_ph = torch.randint(NP // 2, NP + 1, (B,), generator=g)
     ar_l, ar_p = torch.arange(NL), torch.arange(NP)
     node_mask = torch.cat([ar_p[None] < n_ph[:, None],
@@ -110,49 +119,88 @@ def flagship_case(B=16, NP=96, NL=80, H=128, heads=16, Wt=32, K=32,
     return dict(w=w, t=t, d=d, h=h, x=x, hb=hb, B=B)
 
 
-def _work(name: str, c: Dict):
-    """(bytes, float32 operations) one call needs: inputs read once,
-    outputs written once; operations of the products and attention."""
+def all_slots(d, B: int) -> Dict[str, int]:
+    """The slot counts of `_work` if no mask voided anything: every kNN
+    slot, every (source, destination) pair of the bond grid, every triplet.
+    The most a call at these shapes could need."""
+    return {"edges": B * d.N * d.K, "edges_lig": B * d.NL * d.K,
+            "lig_rows": B * d.NL, "pairs": B * d.NL * d.NL,
+            "trip_src": B * d.NL * d.K8,
+            "trips": B * d.NL * d.NL * d.K8}
+
+
+def slot_counts(t: Dict) -> Dict[str, int]:
+    """The slots of one call whose results can reach an output, from the
+    tables' masks (a masked slot gets a softmax weight of exactly 0, a
+    padded ligand row a position update of exactly 0):
+    edges      kNN slots with a valid neighbour, over all destination rows
+    edges_lig  the same over the ligand rows that hold an atom (stage C)
+    lig_rows   ligand rows that hold an atom
+    pairs      (source, destination) pairs of the bond grid with two atoms,
+               source != destination
+    trip_src   (j, k) triplet sources with j an atom and k a valid source
+    trips      valid triplets (`layer_stack.trip_valid`)"""
+    ml = t["mask_l"]
+    NP = t["nbr_mask"].shape[1] - ml.shape[1]
+    count = lambda v: int(v.double().sum())
+    return {"edges": count(t["nbr_mask"]),
+            "edges_lig": count(t["nbr_mask"][:, NP:] * ml[..., None]),
+            "lig_rows": count(ml), "pairs": count(ls._pair_mask(t)),
+            "trip_src": count(t["trip_mask"] * ml[..., None]),
+            "trips": count(ls.trip_valid(t))}
+
+
+def _work(name: str, c: Dict, n: Dict[str, int] = None):
+    """(bytes, float32 operations) one call needs: every input read once
+    and every output written once, at the tensors' full sizes; the
+    operations of the products and the attention on the slots `n` that
+    this call's masks leave (`slot_counts`, the default), so the bound is
+    the work the data needs whatever the kernel does with masked slots.
+    Work that no mask voids is counted in full: the node projections, new_h
+    for every row (stage A), q_z for every pair (stage B1)."""
     d, B = c["d"], c["B"]
-    N, NP, NL, K, K8 = d.N, d.NP, d.NL, d.K, d.K8
-    H, nh, Wt = d.H, d.heads, d.Wt
+    N, NL, H, nh, Wt = d.N, d.NL, d.H, d.heads, d.Wt
+    NP, K, K8 = d.NP, d.K, d.K8
+    if n is None:
+        n = slot_counts(c["t"])
     f4 = 4
     if name == "stage_node_pre":
         # A + B1 with h, x and hb read once (the weights of the two differ)
-        (b1, f1), (b2, f2) = (_work(n, c) for n in ("stage_node",
-                                                    "stage_triplet_pre"))
+        (b1, f1), (b2, f2) = (_work(k, c, n) for k in ("stage_node",
+                                                       "stage_triplet_pre"))
         return b1 + b2 - (B * N * (H + 3) + B * NL * NL * H) * f4, f1 + f2
     if name == "stage_att_pos":
         # B2 + C with hb_new written once and not read back
-        (b1, f1), (b2, f2) = (_work(n, c) for n in ("stage_triplet_att",
-                                                    "stage_pos"))
+        (b1, f1), (b2, f2) = (_work(k, c, n) for k in ("stage_triplet_att",
+                                                       "stage_pos"))
         return b1 + b2 - B * NL * NL * H * f4, f1 + f2
     wbytes = sum(v.numel() for v in c["w"].values()) * f4
     tab = (B * N * K * (4 + 4 + 16 + 4) + B * NL * (3 + K8) * 8
            + B * NP * 12 + B * NL * 4)
     if name in ("stage_node", "stage_pos"):
-        nv = H if name == "stage_node" else nh
-        rows = N if name == "stage_node" else NL    # C updates ligand rows
+        node = name == "stage_node"
+        nv = H if node else nh
+        edges = n["edges"] if node else n["edges_lig"]
+        rows = B * N if node else n["lig_rows"]    # C updates ligand atoms
         fl = 2 * B * N * H * 10 * H                  # node projections
-        fl += 2 * B * rows * K * (93 * 2 * H + H * H + H * nv)
-        fl += 2 * B * rows * (H * H) * 2             # query tail (+ lin_W)
-        fl += 2 * B * NL * NL * (H * 2 * H + H * H + H * nv)
-        fl += 2 * B * NL * H * H
-        fl += 4 * B * (rows * K + NL * NL) * H       # scores + pooling
+        fl += 2 * edges * (93 * 2 * H + H * H + H * nv)
+        fl += 2 * rows * (H * H) * 2                 # query tail (+ lin_W)
+        fl += 2 * n["pairs"] * (H * 2 * H + H * H + H * nv)
+        fl += 2 * n["lig_rows"] * H * H              # bond-grid query
+        fl += 4 * (edges + n["pairs"]) * H           # scores + pooling
         by = (B * N * H * f4 + B * N * 3 * f4 + B * NL * NL * H * f4 + tab
-              + wbytes + (B * N * H * f4 if name == "stage_node"
-                          else B * N * 3 * f4))
+              + wbytes + (B * N * H * f4 if node else B * N * 3 * f4))
         return by, fl
     if name == "stage_triplet_pre":
-        fl = (2 * B * NL * H * (2 * Wt + H) + 2 * B * NL * K8 * H * Wt
-              + 2 * B * NL * NL * 20 * Wt + 2 * B * NL * NL * H * H
-              + 2 * B * NL * NL * K8 * 13 * Wt)
+        fl = (2 * B * NL * H * (2 * Wt + H) + 2 * n["trip_src"] * H * Wt
+              + 2 * n["pairs"] * 20 * Wt + 2 * B * NL * NL * H * H
+              + 2 * n["trips"] * 13 * Wt)
         by = (B * N * H * f4 + B * N * 3 * f4 + B * NL * NL * H * f4
               + B * NL * K8 * 4 + wbytes
               + B * NL * NL * (K8 * Wt + H) * f4)
         return by, fl
-    fl = (2 * B * NL * NL * H * nh * Wt + 4 * B * NL * NL * K8 * nh * Wt
-          + 2 * B * NL * NL * nh * Wt * H)
+    fl = (2 * n["pairs"] * H * nh * Wt + 4 * n["trips"] * nh * Wt
+          + 2 * n["pairs"] * nh * Wt * H)
     by = (B * NL * NL * (K8 * Wt + H + 2 * H) * f4 + B * NL * K8 * 8
           + B * NL * 4 + wbytes)
     return by, fl
@@ -251,14 +299,15 @@ def check_triplet_pool(c: Dict, reps: int = 5) -> Dict:
                 (got[pair],), (ref[pair],), kern, plain, by, fl, reps)
 
 
-def check_kernels(c: Dict, reps: int = 5) -> List[Dict]:
-    """Run every kernel once against its plain version on the same inputs
-    (row 'ok' says whether it agrees within TOLERANCE), then time both."""
+def stage_calls(c: Dict) -> Dict:
+    """{kernel name: (kernel call, plain call)} of the six layer-stack
+    kernels on the inputs of `c`; B2, C and B2 + C take the plain versions'
+    outputs of the stages before them."""
     w, t, d, h, x, hb = c["w"], c["t"], c["d"], c["h"], c["x"], c["hb"]
     pre_r, qz_r = ls.stage_triplet_pre_plain(w, h, x, hb, t, d)
     nh_r = ls.stage_node_plain(w, h, x, hb, t, d)
     hbn_r = ls.stage_triplet_att_plain(w, hb, pre_r, qz_r, t, d)
-    calls = {
+    return {
         "stage_node": (lambda: ls.stage_node(w, h, x, hb, t, d),
                        lambda: ls.stage_node_plain(w, h, x, hb, t, d)),
         "stage_triplet_pre": (
@@ -277,6 +326,14 @@ def check_kernels(c: Dict, reps: int = 5) -> List[Dict]:
             lambda: ls.stage_att_pos_plain(w, hb, pre_r, qz_r, nh_r, x, t,
                                            d)),
     }
+
+
+def check_kernels(c: Dict, reps: int = 5) -> List[Dict]:
+    """Run every kernel once against its plain version on the same inputs
+    (row 'ok' says whether it agrees within TOLERANCE), then time both."""
+    t = c["t"]
+    calls = stage_calls(c)
+    slots, every = slot_counts(t), all_slots(c["d"], c["B"])
     rows = []
     for name, replaces in KERNELS:
         kern, plain = calls[name]
@@ -293,7 +350,9 @@ def check_kernels(c: Dict, reps: int = 5) -> List[Dict]:
             i = 0 if name == "stage_triplet_pre" else 1
             got = (*got[:i], got[i][valid.expand_as(got[i])], *got[i + 1:])
             ref = (*ref[:i], ref[i][valid.expand_as(ref[i])], *ref[i + 1:])
-        by, fl = _work(name, c)
-        rows.append(_row(name, SOURCE, replaces, True, got, ref, kern, plain,
-                         by, fl, reps))
+        by, fl = _work(name, c, slots)
+        row = _row(name, SOURCE, replaces, True, got, ref, kern, plain, by,
+                   fl, reps)
+        row["flops_all_slots"] = _work(name, c, every)[1]
+        rows.append(row)
     return rows

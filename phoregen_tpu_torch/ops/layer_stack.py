@@ -15,9 +15,9 @@ and, merged two by two (`layer_stack(merge_node_pre=, merge_pos=)`, the
     stage_node_pre     <- _stage_pallas o _stage_node_pre     (A + B1)
     stage_att_pos      <- _att_pos_pallas                     (B2 + C)
 
-A wrapper takes the plain version only for tensors on the CPU; for CUDA
-tensors it launches its kernel or raises. `LAUNCHES` counts kernel
-launches per stage.
+The kernels want H and Wt to be multiples of 4 (`_check_dims`). A wrapper
+takes the plain version only for tensors on the CPU; for CUDA tensors it
+launches its kernel or raises. `LAUNCHES` counts kernel launches per stage.
 
 `make_layer_stack_grad` makes the stack trainable: kernels forward,
 backward by recomputing one layer at a time through the plain stages
@@ -465,6 +465,13 @@ _TRIP_PRE_W = ("nodeB_W", "t_Whb", "t_Wr", "t_b", "t_Wji", "t_Wang",
 _TRIP_ATT_W = ("tq_W1", "tq_b1", "t_out_W", "t_out_b")
 
 
+# The kernels read these one float at a time, so a layer's slice of them
+# may start off a 16-byte boundary (27 and 9 floats a layer; `heads` floats
+# where heads is no multiple of 4). Every other tensor is loaded 16 bytes
+# at a time somewhere and must be aligned so.
+_SCALAR_READ = frozenset({"dire_W", "dire_b", "e_xv2b", "p_xv2b"})
+
+
 def _ptr(tensor, name, dtype=torch.float32):
     if not tensor.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor")
@@ -472,6 +479,9 @@ def _ptr(tensor, name, dtype=torch.float32):
         raise TypeError(f"{name}: expected {dtype}, got {tensor.dtype}")
     if not tensor.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+    if name not in _SCALAR_READ and tensor.data_ptr() % 16:
+        raise ValueError(f"{name}: expected 16-byte aligned storage (the "
+                         f"kernels load 16 bytes at a time)")
     return tensor.data_ptr()
 
 
@@ -491,9 +501,36 @@ def _launch(entry: str, named, d: StackDims, B: int):
         raise RuntimeError(f"{entry}: CUDA error {rc}")
 
 
+# what `csrc/layer_stack.cu` takes (its `dims_ok`): 16-byte loads need
+# widths that are multiples of 4, a warp holds the K8 sources and the Wt
+# features of a triplet tile and the heads of a softmax, a block of 512
+# threads a row of H features and a column of NL sources
+MAX_THREADS = 512
+_DIM_RULES = (
+    ("H", lambda d: d.H % 4 == 0 and d.H % d.heads == 0
+     and 4 <= d.H <= MAX_THREADS,
+     "a multiple of 4 and of heads, at most 512"),
+    ("Wt", lambda d: d.Wt % 4 == 0 and 4 <= d.Wt <= 32,
+     "a multiple of 4 from 4 to 32"),
+    ("heads", lambda d: 1 <= d.heads <= 32, "from 1 to 32"),
+    ("K8", lambda d: 1 <= d.K8 <= 32, "from 1 to 32"),
+    ("K", lambda d: 1 <= d.K <= d.H, "from 1 to H"),
+    ("NL", lambda d: 1 <= d.NL <= MAX_THREADS, "from 1 to 512"),
+)
+
+
+def _check_dims(d: StackDims):
+    """Raise, naming the dimension, for dims the kernels do not take."""
+    for name, ok, why in _DIM_RULES:
+        if not ok(d):
+            raise ValueError(f"{name}={getattr(d, name)}: the layer-stack "
+                             f"kernels take {name} {why} ({d})")
+
+
 def _check_shapes(d: StackDims, B: int, t, **named):
     """The kernels index by `d`; a tensor of another shape would be read
     out of bounds, so raise before launching."""
+    _check_dims(d)
     want = {"h": (B, d.N, d.H), "x": (B, d.N, 3),
             "hb": (B, d.NL, d.NL, d.H), "pre_t": (B, d.NL, d.NL, d.K8, d.Wt),
             "q_z": (B, d.NL, d.NL, d.H), "nbr_idx": (B, d.N, d.K),
@@ -569,9 +606,10 @@ def stage_pos(w, new_h, x, hb_new, t, d: StackDims):
 
 
 def stage_node_pre(w, h, x, hb, t, d: StackDims):
-    """Merged stage A + B1; one CUDA kernel for CUDA tensors (one node
-    projection phase, one main grid whose blocks take either role), plain
-    version on the CPU. Returns (new_h, pre_t, q_z)."""
+    """Merged stage A + B1; one C entry for CUDA tensors (one node
+    projection phase for both roles, then B1's grid and A's grid, each with
+    its own shared memory), plain version on the CPU.
+    Returns (new_h, pre_t, q_z)."""
     if not h.is_cuda:
         return stage_node_pre_plain(w, h, x, hb, t, d)
     B = h.shape[0]
@@ -593,8 +631,9 @@ def stage_node_pre(w, h, x, hb, t, d: StackDims):
 
 def stage_att_pos(w, hb, pre_t, q_z, new_h, x, t, d: StackDims):
     """Merged stage B2 + C; one CUDA kernel for CUDA tensors (a block per
-    (graph, destination) finishes its column of the new bond grid and feeds
-    it to the position update), plain version on the CPU.
+    (graph, destination) finishes its whole column of the new bond grid in
+    one pass over the weights and feeds it to the position update), plain
+    version on the CPU.
     Returns (hb_new, x_new)."""
     if not hb.is_cuda:
         return stage_att_pos_plain(w, hb, pre_t, q_z, new_h, x, t, d)

@@ -23,6 +23,16 @@ def cuda():
 SHAPES = {
     "small": dict(B=2, NP=6, NL=8, H=16, heads=2, Wt=8, K=4, trip_k=3),
     "flagship_nl32": dict(B=4, NP=96, NL=32, trip_k=32),
+    # no width a multiple of the kernels' tiles: NL against the row groups,
+    # K and K8 against a warp, H and Wt narrower than a 128-column pass
+    "ragged": dict(B=3, NP=10, NL=37, H=32, heads=4, Wt=16, K=7, trip_k=5),
+    "flagship_nl48": dict(B=2, NP=96, NL=48, trip_k=32),
+    "flagship_nl80": dict(B=2, NP=96, NL=80, trip_k=32),
+    # graph 0 has no valid ligand atom
+    "empty_graph": dict(B=3, NP=10, NL=21, H=32, heads=4, Wt=16, K=7,
+                        trip_k=5, empty_first=True),
+    # more sources than one pass of the bond-grid attention takes
+    "tall": dict(B=1, NP=3, NL=83, H=16, heads=4, Wt=8, K=5, trip_k=6),
 }
 
 
@@ -134,6 +144,43 @@ def test_wrappers_reject_mismatched_shapes(cuda):
         pre_t, q_z = ls.stage_triplet_pre_plain(w, h, x, hb, t, d)
         ls.stage_triplet_att(w, hb, pre_t[..., 1:, :], q_z, t, d)
     assert all(v == 0 for v in ls.LAUNCHES.values()), ls.LAUNCHES
+
+
+# one change to the `small` dims each; None: the dims as they are
+DIM_CHANGES = [None, dict(H=18), dict(H=516, heads=4), dict(H=20, heads=3),
+               dict(H=24, heads=3), dict(Wt=6), dict(Wt=36), dict(Wt=0),
+               dict(Wt=32), dict(H=132, heads=33), dict(K8=33), dict(K8=0),
+               dict(K8=32), dict(K=17), dict(K=16), dict(K=0), dict(NL=513),
+               dict(NL=512), dict(NL=1)]
+
+
+@pytest.mark.cuda
+def test_dim_rules_agree_with_the_kernel_library(cuda):
+    """`_check_dims` refuses exactly the dims that `dims_ok` in
+    csrc/layer_stack.cu refuses (asked through `ls_launch_plan`), so the
+    two copies of the rule cannot drift apart unnoticed."""
+    import ctypes
+    import dataclasses
+
+    from phoregen_tpu_torch.ops import _build
+    plan = _build.load().ls_launch_plan
+    plan.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    plan.restype = ctypes.c_int
+    small = ls.StackDims(NP=6, NL=8, K=4, K8=3, H=16, heads=2, Wt=8)
+    flagship = dataclasses.replace(small, NP=96, NL=80, K=32, K8=32, H=128,
+                                   heads=16, Wt=32)
+    cases = [flagship] + [dataclasses.replace(small, **(c or {}))
+                          for c in DIM_CHANGES]
+    for d in cases:
+        dims = (ctypes.c_int * 8)(2, d.NP, d.NL, d.K, d.K8, d.H, d.heads,
+                                  d.Wt)
+        out = (ctypes.c_int * 10)()
+        try:
+            ls._check_dims(d)
+            python_takes = True
+        except ValueError:
+            python_takes = False
+        assert (plan(dims, out) == 0) == python_takes, d
 
 
 POOL_SHAPES = {

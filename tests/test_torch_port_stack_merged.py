@@ -7,7 +7,13 @@ in interpret mode, as the JAX package's own tests run them on the CPU.
 
 Tolerances: single stages 1e-5 where no triplet angle enters (the JAX
 stages compute it with a polynomial atan2 accurate to ~1e-5 rad, the port
-with atan2: `pre_t` gets 1e-4), stacks and whole forwards 1e-4."""
+with atan2: `pre_t` gets 1e-4), stacks and whole forwards 1e-4.
+
+The merged stages also run at a second, ragged size (`RAGGED`): the plain
+versions are what the card holds the kernels to, so they must be right
+where a kernel's tiles end unevenly: NL no multiple of 8, fewer triplet
+sources than NL - 1, an odd kNN width, and a graph whose ligand rows are all
+padding."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,10 +33,14 @@ MERGES = {"pallas": (False, False), "pallas3": (True, False),
           "pallas2": (True, True)}
 
 
-@pytest.fixture(scope="module")
-def setup():
+RAGGED = dict(NP=5, NL=11, K=5, TRIP_K=4, B=3)
+
+
+def _make_setup(empty_graph=None):
     tree = C.layer_tree(0)
     inp = C.stack_inputs(1)
+    if empty_graph is not None:
+        inp["node_mask"][empty_graph, C.NP:] = False
     jt, nbr_idx, nbr_mask, etype = C.jax_tables(inp)
     pt = C.port_tables(inp, nbr_idx, nbr_mask, etype)
     jpacked = jls.pack_layer_params(jax.tree_util.tree_map(jnp.asarray, tree),
@@ -40,27 +50,51 @@ def setup():
                           K8=min(C.TRIP_K, C.NL - 1), H=C.H, heads=C.HEADS,
                           Wt=C.WT)
     return dict(inp=inp, jt=jt, pt=pt, jp=jpacked, pp=ppacked,
-                jd=jdims, pd=C.dims())
+                jd=jdims, pd=C.dims(), B=C.B)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _make_setup()
+
+
+@pytest.fixture(scope="module")
+def ragged_setup():
+    """The same stack at the sizes of `RAGGED`, graph 2 without a valid
+    ligand atom (the shared helpers read their sizes when called)."""
+    with pytest.MonkeyPatch.context() as mp:
+        for k, v in RAGGED.items():
+            mp.setattr(C, k, v)
+        return _make_setup(empty_graph=2)
+
+
+def _case(request, layer):
+    """(setup, layer) of a `layer` parameter: an int is that layer of the
+    small stack, 'ragged' layer 1 of the ragged one."""
+    if layer == "ragged":
+        return request.getfixturevalue("ragged_setup"), 1
+    return request.getfixturevalue("setup"), layer
 
 
 def _t(a):
     return torch.from_numpy(np.asarray(a))
 
 
-@pytest.mark.parametrize("layer", [0, 2])
-def test_stage_node_pre_matches_jax(setup, layer):
-    s, inp = setup, setup["inp"]
+@pytest.mark.parametrize("layer", [0, 2, "ragged"])
+def test_stage_node_pre_matches_jax(request, layer):
+    s, layer = _case(request, layer)
+    inp, NL = s["inp"], s["pd"].NL
     jw = jax.tree_util.tree_map(lambda a: a[layer], s["jp"])
     pw = pls.layer_weights(s["pp"], layer)
     nh_ref, pre_ref, qz_ref = [], [], []
-    for b in range(C.B):
+    for b in range(s["B"]):
         nh, sl, qz = jls._stage_node_pre(
             jw, inp["h"][b], inp["x"][b], inp["hb"][b],
             {k: v[b] for k, v in s["jt"].items()}, s["jd"])
         nh_ref.append(np.asarray(nh))
         # JAX slices are [K8][j, i, Wt]; the port lays pre_t out [j, i, K8, Wt]
         pre_ref.append(np.stack([np.asarray(a) for a in sl], 2))
-        qz_ref.append(np.asarray(qz).reshape(C.NL, C.NL, C.H))
+        qz_ref.append(np.asarray(qz).reshape(NL, NL, C.H))
     new_h, pre_t, q_z = pls.stage_node_pre(
         pw, _t(inp["h"]), _t(inp["x"]), _t(inp["hb"]), s["pt"], s["pd"])
     np.testing.assert_allclose(new_h.numpy(), np.stack(nh_ref), **TOL5)
@@ -80,22 +114,23 @@ def test_stage_node_pre_matches_jax(setup, layer):
     assert torch.equal(b1[1], q_z)
 
 
-@pytest.mark.parametrize("layer", [0, 1])
-def test_stage_att_pos_matches_jax_pallas_kernel(setup, layer):
+@pytest.mark.parametrize("layer", [0, 1, "ragged"])
+def test_stage_att_pos_matches_jax_pallas_kernel(request, layer):
     """Against `_att_pos_pallas` itself (interpret mode): the head grid
     accumulating hb_new, the pos update in the last head's step."""
-    s, inp = setup, setup["inp"]
+    s, layer = _case(request, layer)
+    inp, B, NL, NP = s["inp"], s["B"], s["pd"].NL, s["pd"].NP
     jw = jax.tree_util.tree_map(lambda a: a[layer], s["jp"])
     pw = pls.layer_weights(s["pp"], layer)
     rng = np.random.default_rng(3 + layer)
     K8 = s["pd"].K8
-    pre = rng.normal(size=(C.B, C.NL, C.NL, K8, C.WT)).astype(np.float32)
-    qz = rng.normal(size=(C.B, C.NL, C.NL, C.H)).astype(np.float32)
+    pre = rng.normal(size=(B, NL, NL, K8, C.WT)).astype(np.float32)
+    qz = rng.normal(size=(B, NL, NL, C.H)).astype(np.float32)
     new_h = rng.normal(size=inp["h"].shape).astype(np.float32)
     hb_ref, x_ref = jls._att_pos_pallas(s["jd"], True)(
         jw, s["jt"], jnp.asarray(inp["hb"]),
         jnp.asarray(np.transpose(pre, (0, 3, 1, 2, 4))),    # [B,K8,j,i,Wt]
-        jnp.asarray(qz.reshape(C.B, C.NL * C.NL, C.H)), jnp.asarray(new_h),
+        jnp.asarray(qz.reshape(B, NL * NL, C.H)), jnp.asarray(new_h),
         jnp.asarray(inp["x"]))
     hb_new, x_new = pls.stage_att_pos(
         pw, _t(inp["hb"]), _t(pre), _t(qz), _t(new_h), _t(inp["x"]),
@@ -103,9 +138,12 @@ def test_stage_att_pos_matches_jax_pallas_kernel(setup, layer):
     np.testing.assert_allclose(hb_new.numpy(), np.asarray(hb_ref), **TOL5)
     np.testing.assert_allclose(x_new.numpy(), np.asarray(x_ref), **TOL5)
     # phore rows and padded ligand rows never move
-    np.testing.assert_array_equal(x_new.numpy()[:, :C.NP],
-                                  inp["x"][:, :C.NP])
+    np.testing.assert_array_equal(x_new.numpy()[:, :NP], inp["x"][:, :NP])
     np.testing.assert_array_equal(x_new.numpy()[1, -2:], inp["x"][1, -2:])
+    if B > 2:       # the graph without a ligand atom: only the output bias
+        np.testing.assert_array_equal(x_new.numpy()[2], inp["x"][2])
+        torch.testing.assert_close(hb_new[2],
+                                   _t(inp["hb"])[2] + pw["t_out_b"])
 
 
 @pytest.mark.parametrize("fused", sorted(MERGES))
