@@ -263,17 +263,22 @@ def triplet_case(B=16, N=48, heads=16, Wt=32, num_ang=3, seed=0,
 
 
 def _triplet_work(c: Dict):
-    """(bytes, float32 operations) of one triplet pool on these inputs:
-    every input read once and the output written once; the operations of
-    the triplets that the mask leaves (angle encoding product, sum and
-    LayerNorm, and per head the score and the pool)."""
+    """(bytes, float32 operations) of one triplet pool on these inputs,
+    both on what the mask leaves: the output written once in full (its
+    zeros on masked pairs are part of the result); q(j, i), a_ji(j, i) and
+    a_kj(k, j) read once on the ordered pairs of two different valid atoms
+    of a graph that holds a triplet (at least three valid atoms); positions,
+    mask, w_ang and LayerNorm read once; the operations of the triplets
+    (angle encoding product, sum and LayerNorm, and per head the score and
+    the pool)."""
     B, N, _, Wt = c["a_kj"].shape
     heads = c["q"].shape[-2]
     enc = c["w_ang"].shape[0]
-    by = 4 * (2 * B * N * N * Wt + 2 * B * N * N * heads * Wt + B * N * 4
-              + enc * Wt + 2 * Wt)
     n = c["mask"].sum(-1).double()
+    pairs = float((n * (n - 1) * (n >= 3)).sum())
     triplets = float((n * (n - 1) * (n - 2)).clamp(min=0).sum())
+    by = 4 * (B * N * N * heads * Wt + pairs * (heads * Wt + 2 * Wt)
+              + B * N * 4 + enc * Wt + 2 * Wt)
     fl = triplets * Wt * (2 * enc + 8 + 4 * heads)
     return by, fl
 

@@ -52,6 +52,8 @@ ACTS: Dict[str, Callable] = {
 ACT_CODES = {name: i for i, name in enumerate(ACTS)}
 
 LAUNCHES = {"triplet_pool": 0}
+# the tensors the kernel reads or writes 16 bytes at a time
+_LOAD16 = frozenset({"a_kj", "a_ji", "q", "out"})
 
 
 def reset_launch_counts() -> None:
@@ -128,6 +130,9 @@ def _ptr(tensor, name, shape):
                          f"{shape}")
     if not tensor.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+    if name in _LOAD16 and tensor.data_ptr() % 16:
+        raise ValueError(f"{name}: expected 16-byte aligned storage (the "
+                         f"kernel moves it 16 bytes at a time)")
     return tensor.data_ptr()
 
 
@@ -146,10 +151,11 @@ def triplet_pool_cuda(a_kj, a_ji, q, pos, mask, w_ang, ln_scale, ln_bias,
     if act not in ACT_CODES:
         raise NotImplementedError(f"activation {act!r} is not built into "
                                   f"the triplet-pool kernel")
-    if Wt > 32 or enc > 32:
-        raise ValueError(f"the triplet-pool kernel takes Wt <= 32 and "
-                         f"num_ang_funcs <= 7 (got Wt={Wt}, "
-                         f"num_ang_funcs={num_ang_funcs})")
+    if Wt > 32 or Wt % 4 or heads > 32 or enc > 32:
+        raise ValueError(f"the triplet-pool kernel takes Wt a multiple of 4 "
+                         f"up to 32, heads <= 32 and num_ang_funcs <= 7 (got "
+                         f"Wt={Wt}, heads={heads}, num_ang_funcs="
+                         f"{num_ang_funcs})")
     maskf = mask.to(torch.float32).contiguous()
     out = torch.empty(B, N, N, heads * Wt, device=a_kj.device,
                       dtype=torch.float32)

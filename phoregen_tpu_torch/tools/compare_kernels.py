@@ -1,16 +1,28 @@
-"""Time two builds of the layer-stack kernels against each other on the card.
+"""Time two builds of one kernel library against each other on the card.
 
     python -m phoregen_tpu_torch.tools.compare_kernels --other path/to/layer_stack.cu
-        [--nl 80 48] [--batch 16] [--reps 5] [--kernels stage_att_pos ...]
+        [--library layer_stack] [--nl 80 48] [--batch 16] [--reps 5]
+        [--kernels stage_att_pos ...]
+    python -m phoregen_tpu_torch.tools.compare_kernels --library triplet_pool
+        --other path/to/triplet_pool.cu [--nl 80 48] [--batch 16] [--reps 5]
 
-Builds `--other` (another version of `csrc/layer_stack.cu` with the same C
-entries and pointer slots, e.g. the parent commit's) and the tree's own
-source with `nvcc -Xptxas -v`, prints each kernel's registers, stack and
-spills and this tree's shared memory and source rows a pass per block
-(`ls_launch_plan`), checks both against the plain versions, and times every kernel at
-the flagship widths in the order other, this, this, other, so that both
+Builds `--other` (another version of the library's source, `csrc/
+layer_stack.cu` or `csrc/triplet_pool.cu`, with the same C entries and
+pointer slots, e.g. the parent commit's) and the tree's own source with
+`nvcc -Xptxas -v`, prints each kernel's registers, stack, spills and static
+shared memory, and the launch plan where the build exports one
+(`ls_launch_plan`: source rows a pass and dynamic shared memory a block;
+`tp_launch_plan`: dynamic shared memory, resident blocks an SM, threads and
+target atoms a block). It checks both builds against the plain versions,
+then times every kernel in the order other, this, this, other, so that both
 builds meet the same card, clocks and neighbours. Times of two separate
 runs differ by several percent; these do not.
+
+`layer_stack`: the six layer-stack kernels at the flagship widths (B graphs,
+NP=96, NL in `--nl`; `kernel_check.flagship_case`). `triplet_pool`: the
+all-k triplet pool at B graphs of N = each of `--nl` slots, 16 heads,
+Wt=32 (`kernel_check.triplet_case`), held by `check_triplet_pool` (5e-4 on
+the unmasked pairs, exact zeros on the masked ones).
 """
 from __future__ import annotations
 
@@ -25,11 +37,13 @@ import torch
 
 from ..ops import _build
 from ..ops import kernel_check as kc
+from ..ops import pallas_triplet as pt
 
 
-def build(source: str, out: str):
+def build(source: str, out: str, library: str):
     """nvcc `source` into the shared library `out`; returns the loaded
-    library and ptxas's resource lines per kernel."""
+    library (the C entries of `library` declared) and ptxas's resource lines
+    per kernel."""
     cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", out,
            source]
     res = subprocess.run(cmd, capture_output=True, text=True)
@@ -43,16 +57,114 @@ def build(source: str, out: str):
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             usage.setdefault(name, {})["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            usage[name]["static_smem"] = int(m.group(1)) if m else 0
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
         if m and name:
             usage.setdefault(name, {}).update(stack=int(m.group(1)),
                                               spill=int(m.group(2)))
-    return _build.bind(out, "layer_stack"), usage
+    return _build.bind(out, library), usage
+
+
+def layer_stack_plans(lib, args):
+    plan = lib.ls_launch_plan
+    plan.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    for nl in args.nl:
+        dims = (ctypes.c_int * 8)(args.batch, 96, nl, 32, 32, 128, 16, 32)
+        out = (ctypes.c_int * 10)()
+        if plan(dims, out):
+            raise SystemExit("ls_launch_plan refused the flagship dims")
+        print(f"[this] B={args.batch} NL={nl} source rows a pass, dynamic "
+              f"shared memory a block: " + ", ".join(
+                  f"{k} {out[2 * i]} rows {out[2 * i + 1]} B" for i, k in
+                  enumerate(("node_kernel", "trip_pre_kernel",
+                             "trip_att_kernel", "pos_kernel",
+                             "att_pos_kernel"))))
+
+
+def triplet_pool_plans(libs, args):
+    for label, lib in libs.items():
+        try:
+            plan = lib.tp_launch_plan
+        except AttributeError:
+            print(f"[{label}] exports no tp_launch_plan")
+            continue
+        plan.argtypes = [ctypes.POINTER(ctypes.c_int),
+                         ctypes.POINTER(ctypes.c_int)]
+        for n in args.nl:
+            dims = (ctypes.c_int * 7)(args.batch, n, 16, 32, 3, 1, 0)
+            out = (ctypes.c_int * 4)()
+            if plan(dims, out):
+                raise SystemExit(f"[{label}] tp_launch_plan refused N={n}")
+            print(f"[{label}] B={args.batch} N={n}: dynamic shared memory "
+                  f"{out[0]} B a block, {out[1]} blocks an SM, {out[2]} "
+                  f"threads and {out[3]} target atoms a block")
+
+
+def compare(kern, check, libs, name, tag, args):
+    """Time `kern` with library `name` of each build in the order other,
+    this, this, other; `check()` describes the current build's error
+    against the plain version."""
+    ms = {"other": [], "this": []}
+    err = {}
+    for label in ("other", "this", "this", "other"):
+        _build._libs[name] = libs[label]
+        err[label] = check()
+        ms[label].append(kc._time_ms(kern, args.reps))
+    o, t = min(ms["other"]), min(ms["this"])
+    print(f"{tag}: other {o:.4f} ms {ms['other']}, this {t:.4f} ms "
+          f"{ms['this']}, other/this {o / t:.3f}; vs plain: other "
+          f"{err['other']}, this {err['this']}", flush=True)
+
+
+def compare_layer_stack(libs, args):
+    layer_stack_plans(libs["this"], args)
+    for nl in args.nl:
+        case = kc.flagship_case(B=args.batch, NP=96, NL=nl, device="cuda",
+                                seed=0)
+        calls = kc.stage_calls(case)
+        for name in args.kernels:
+            kern, plain = calls[name]
+            ref = plain()
+            ref = ref if isinstance(ref, tuple) else (ref,)
+
+            def check():
+                got = kern()
+                got = got if isinstance(got, tuple) else (got,)
+                torch.cuda.synchronize()
+                # q_z / new_h / hb_new / x_new; pre_t is held by chip_smoke
+                # on the triplets the attention reads
+                return "max abs err %.2e" % max(
+                    float((g - r).abs().max())
+                    for g, r in zip(got, ref) if g.dim() < 5)
+            compare(kern, check, libs, "layer_stack",
+                    f"B={args.batch} NL={nl} {name}", args)
+        del case, calls
+        torch.cuda.empty_cache()
+
+
+def compare_triplet_pool(libs, args):
+    triplet_pool_plans(libs, args)
+    for n in args.nl:
+        case = kc.triplet_case(B=args.batch, N=n, device="cuda", seed=0)
+        a = [case[k] for k in ("a_kj", "a_ji", "q", "pos", "mask", "w_ang",
+                               "ln_scale", "ln_bias", "act", "norm",
+                               "num_ang_funcs")]
+
+        def check():
+            row = kc.check_triplet_pool(case, reps=1)
+            return f"max abs err {row['max_abs_err']:.2e} ok {row['ok']}"
+        compare(lambda: pt.triplet_pool_cuda(*a), check, libs,
+                "triplet_pool", f"B={args.batch} N={n} triplet_pool", args)
+        del case, a
+        torch.cuda.empty_cache()
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True)
+    ap.add_argument("--library", choices=sorted(_build.LIBRARIES),
+                    default="layer_stack")
     ap.add_argument("--nl", type=int, nargs="+", default=[80, 48])
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--reps", type=int, default=5)
@@ -67,50 +179,15 @@ def main():
     libs = {}
     with tempfile.TemporaryDirectory() as tmp:
         for label, src in (("other", args.other),
-                           ("this", _build.source_path("layer_stack"))):
-            libs[label], usage = build(src, os.path.join(tmp, f"{label}.so"))
+                           ("this", _build.source_path(args.library))):
+            libs[label], usage = build(src, os.path.join(tmp, f"{label}.so"),
+                                       args.library)
             for kern, u in sorted(usage.items()):
                 print(f"[{label}] {kern}: {u}")
-    plan = libs["this"].ls_launch_plan
-    plan.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
-    for nl in args.nl:
-        dims = (ctypes.c_int * 8)(args.batch, 96, nl, 32, 32, 128, 16, 32)
-        out = (ctypes.c_int * 10)()
-        if plan(dims, out):
-            raise SystemExit("ls_launch_plan refused the flagship dims")
-        print(f"[this] B={args.batch} NL={nl} source rows a pass, dynamic "
-              f"shared memory a block: " + ", ".join(
-                  f"{k} {out[2 * i]} rows {out[2 * i + 1]} B" for i, k in
-                  enumerate(("node_kernel", "trip_pre_kernel",
-                             "trip_att_kernel", "pos_kernel",
-                             "att_pos_kernel"))))
-    for nl in args.nl:
-        case = kc.flagship_case(B=args.batch, NP=96, NL=nl, device="cuda",
-                                seed=0)
-        calls = kc.stage_calls(case)
-        for name in args.kernels:
-            kern, plain = calls[name]
-            ref = plain()
-            ref = ref if isinstance(ref, tuple) else (ref,)
-            ms = {"other": [], "this": []}
-            err = {}
-            for label in ("other", "this", "this", "other"):
-                _build._libs["layer_stack"] = libs[label]
-                got = kern()
-                got = got if isinstance(got, tuple) else (got,)
-                torch.cuda.synchronize()
-                # q_z / new_h / hb_new / x_new; pre_t is held by chip_smoke
-                # on the triplets the attention reads
-                err[label] = max(float((g - r).abs().max())
-                                 for g, r in zip(got, ref) if g.dim() < 5)
-                ms[label].append(kc._time_ms(kern, args.reps))
-            o, t = min(ms["other"]), min(ms["this"])
-            print(f"B={args.batch} NL={nl} {name}: other {o:.4f} ms "
-                  f"{ms['other']}, this {t:.4f} ms {ms['this']}, "
-                  f"other/this {o / t:.3f}; max abs err vs plain other "
-                  f"{err['other']:.2e}, this {err['this']:.2e}", flush=True)
-        del case, calls
-        torch.cuda.empty_cache()
+    if args.library == "layer_stack":
+        compare_layer_stack(libs, args)
+    else:
+        compare_triplet_pool(libs, args)
 
 
 if __name__ == "__main__":

@@ -185,8 +185,15 @@ def test_dim_rules_agree_with_the_kernel_library(cuda):
 
 POOL_SHAPES = {
     "small": dict(B=2, N=8, heads=4, Wt=8),
-    "ragged_tile": dict(B=3, N=13, heads=4, Wt=16),   # N % 4 != 0
+    "ragged_tile": dict(B=3, N=13, heads=4, Wt=16),   # N % 8 != 0
     "flagship_nl32": dict(B=4, N=32),
+    "flagship_n48": dict(B=2, N=48),
+    "flagship_n80": dict(B=2, N=80),
+    # N not a multiple of the block's 8 target atoms, a second chunk of
+    # 5 sources
+    "ragged_37": dict(B=3, N=37, heads=4, Wt=16),
+    # three chunks of sources, heads not a multiple of 4
+    "tall_83": dict(B=1, N=83, heads=6, Wt=8),
 }
 
 
@@ -204,6 +211,54 @@ def test_triplet_pool_kernel_matches_plain(cuda, shape, norm):
     case["norm"] = norm
     row = kc.check_triplet_pool(case, reps=1)
     assert row["ok"], (row["max_abs_err"], row["tol"])
+
+
+def _holes(case):
+    """Masks that are not a prefix: every third slot of graph 0 and the
+    last slot of graph 1 are padding, graph 2 keeps its last slot."""
+    m = case["mask"].clone()
+    N = m.shape[1]
+    m[0, ::3] = False
+    m[1, N - 1] = False
+    m[2, N - 1] = True
+    return dict(case, mask=m)
+
+
+def _under_three(case):
+    """Graphs of 0, 1 and 2 valid atoms (the last two with padding between
+    and after them): no valid triplet."""
+    m = torch.zeros_like(case["mask"])
+    m[1, 3] = True
+    m[2, 1] = m[2, 5] = True
+    return dict(case, mask=m)
+
+
+def _degenerate(case):
+    """Exactly collinear atoms (integer points on one line, so that every
+    product is exact) and two atoms at one position, in each graph."""
+    p = case["pos"].clone()
+    for a, t in ((1, 1.0), (2, 2.0), (3, 3.0)):
+        p[:, a] = torch.tensor([t, 2 * t, -3 * t])
+    p[:, 5] = p[:, 4]
+    return dict(case, pos=p, mask=torch.ones_like(case["mask"]))
+
+
+POOL_MASKS = {"holes": _holes, "under_three": _under_three,
+              "degenerate": _degenerate}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(POOL_MASKS))
+def test_triplet_pool_kernel_edge_cases(cuda, name):
+    """Within tolerance on the unmasked pairs, exactly 0 on the others,
+    finite throughout; a graph without a valid triplet pools to exactly 0
+    everywhere."""
+    case = POOL_MASKS[name](kc.triplet_case(device=cuda, seed=6, B=3, N=37,
+                                            heads=4, Wt=16))
+    row = kc.check_triplet_pool(case, reps=1)
+    assert row["ok"], (row["max_abs_err"], row["tol"])
+    if name == "under_three":
+        assert bool((pt.triplet_pool_cuda(*_pool_args(case)) == 0).all())
 
 
 @pytest.mark.cuda
@@ -268,4 +323,10 @@ def test_triplet_pool_wrapper_rejects_bad_inputs(cuda):
         pt.triplet_pool_cuda(args[0].double(), *args[1:])
     with pytest.raises(NotImplementedError, match="activation"):
         pt.triplet_pool_cuda(*args[:8], "swish", True, 3)
+    odd = kc.triplet_case(device=cuda, seed=5, B=1, N=5, heads=2, Wt=6)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        pt.triplet_pool_cuda(*_pool_args(odd))
+    with pytest.raises(ValueError, match="aligned"):
+        q = torch.empty(args[2].numel() + 1, device=cuda)[1:]
+        pt.triplet_pool_cuda(args[0], args[1], q.view_as(args[2]), *args[3:])
     assert pt.LAUNCHES["triplet_pool"] == 0

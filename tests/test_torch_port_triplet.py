@@ -6,7 +6,13 @@ Tolerances: 2e-5 against `triplet_pool_xla` (the same float32 arithmetic
 on materialised grids; only summation order differs); 2e-4 against
 `triplet_pool_pallas(interpret=True)`, the JAX package's own tolerance for
 its kernel (polynomial atan2, Newton-refined rsqrt); gradients 1e-4
-against `jax.grad` through `triplet_pool_xla`."""
+against `jax.grad` through `triplet_pool_xla`.
+
+The masks with holes and the graphs of fewer than three atoms hold the
+semantics that the CUDA kernel's skipping must keep (it runs sources and
+targets only up to a graph's last valid atom); the work its bound is
+reckoned from (`kernel_check._triplet_work`) is pinned at the two shapes
+the card times."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,11 +29,13 @@ from phoregen_tpu_torch.ops import pallas_triplet as pt
 NAMES = ("a_kj", "a_ji", "q", "pos", "mask", "w_ang", "ln_s", "ln_b")
 
 
-def make_inputs(seed=0, B=2, N=8, Wt=8, heads=2):
+def make_inputs(seed=0, B=2, N=8, Wt=8, heads=2, mask=None):
     rng = np.random.default_rng(seed)
     f = np.float32
-    mask = np.ones((B, N), bool)
-    mask[0, -2:] = False
+    if mask is None:
+        mask = np.ones((B, N), bool)
+        mask[0, -2:] = False
+    B, N = mask.shape
     return dict(
         a_kj=rng.normal(size=(B, N, N, Wt)).astype(f),
         a_ji=rng.normal(size=(B, N, N, Wt)).astype(f),
@@ -78,6 +86,65 @@ def test_activations_match_jax(act):
     got = pt.triplet_pool_plain(*T(x), act, True).numpy()
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
     assert sorted(pt.ACTS) == sorted(JACTS)
+
+
+# masks that are not a prefix of valid slots
+MASKS = {
+    # holes inside the valid range; graph 0 ends on padding, graph 1 on an
+    # atom
+    "holes": np.array([[1, 0, 1, 1, 0, 1, 1, 0],
+                       [0, 1, 1, 0, 1, 1, 1, 1]], bool),
+    # 0, 1 and 2 valid atoms: no triplet at all, every output exactly 0
+    "under_three": np.array([[0, 0, 0, 0, 0, 0, 0, 0],
+                             [0, 0, 0, 1, 0, 0, 0, 0],
+                             [0, 1, 0, 0, 0, 1, 0, 0]], bool),
+}
+
+
+@pytest.mark.parametrize("reference", ["xla", "pallas_interpret"])
+@pytest.mark.parametrize("mask", sorted(MASKS))
+def test_plain_matches_jax_on_sparse_masks(mask, reference):
+    x = make_inputs(6, mask=MASKS[mask])
+    if reference == "xla":
+        want = triplet_pool_xla(*J(x), act=nn.relu, norm=True)
+        tol = 2e-5
+    else:
+        want = triplet_pool_pallas(*J(x), act=nn.relu, norm=True,
+                                   interpret=True)
+        tol = 2e-4
+    want = np.asarray(want)
+    got = pt.triplet_pool_plain(*T(x), "relu", True).numpy()
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+    m = x["mask"]
+    pair = m[:, :, None] & m[:, None, :] & ~np.eye(m.shape[1], dtype=bool)
+    assert (got[~pair] == 0).all()
+    if mask == "under_three":
+        assert (got == 0).all() and (want == 0).all()
+
+
+# (bytes, float32 operations) of `kernel_check.triplet_case` at B=16, 16
+# heads, Wt=32, seed 0, and how PERF.md's kernel table prints them
+TRIPLET_WORK = {48: (118978944, 2110176768, "119.0 MB", "2.11 G"),
+                80: (352157056, 12320284032, "352.2 MB", "12.32 G")}
+
+
+@pytest.mark.parametrize("n", sorted(TRIPLET_WORK))
+def test_triplet_work_of_the_bound_is_pinned(n):
+    from phoregen_tpu_torch.ops import kernel_check as kc
+    c = kc.triplet_case(B=16, N=n, device="cpu", seed=0)
+    by, fl = kc._triplet_work(c)
+    want_by, want_fl, mb, g = TRIPLET_WORK[n]
+    assert (by, fl) == (want_by, want_fl)
+    assert (f"{by / 1e6:.1f} MB", f"{fl / 1e9:.2f} G") == (mb, g)
+    # the operations count the valid triplets (k, j, i pairwise different
+    # atoms of one graph), each (2 * 13 + 8 + 4 * 16) * 32 operations
+    atoms = [int(v) for v in c["mask"].sum(-1)]
+    assert fl == sum(a * (a - 1) * (a - 2) for a in atoms) * 32 * 98
+    # the bytes: the output in full, q, a_ji and a_kj on the ordered pairs
+    # of two valid atoms, positions and mask, w_ang and LayerNorm
+    pairs = sum(a * (a - 1) for a in atoms if a >= 3)
+    assert by == 4 * (16 * n * n * 16 * 32 + pairs * (16 + 2) * 32
+                      + 16 * n * 4 + 13 * 32 + 2 * 32)
 
 
 def _degenerate(x):
