@@ -13,9 +13,16 @@ Phases (any failure exits non-zero and prints no result):
    H=128, 16 heads, Wt=32, kNN 32, K8 32) in the NL=80 bucket and in the
    NL=48 bucket that the main paths below run in, within atol = rtol = 1e-4
    (5e-4 for the triplet pre-features, whose angle arithmetic the merged
-   kernel shares), and the all-k triplet pool at B=16, 16 heads, Wt=32 for N=48 and N=80
-   with padded slots, within 5e-4 on the unmasked (j, i) pairs (masked
-   ones must be exactly 0); see ops/kernel_check.py::TOLERANCE for why;
+   kernel shares); the forms of rows 2, 3, 5 and 6 with bf16 inter-stage
+   blocks at the same shapes (stored blocks within those tolerances plus
+   one bf16 unit in the last place, and at most 1% of their elements
+   unlike the plain version's, the rest within the float32 rows'
+   tolerances); rows 1, 4, 5 and 6 on the hybrid cutoff's neighbour table
+   at NL=80 (NL + 32 = 112 sources a ligand row); and the all-k triplet
+   pool at B=16, 16 heads, Wt=32 for N=48 and N=80 and at Wt=18, 36 heads
+   (two launches), N=48, with padded slots, within 5e-4 on the unmasked
+   (j, i) pairs (masked ones must be exactly 0); see
+   ops/kernel_check.py::TOLERANCE for why;
 3. main path 1, the fused layer stack (`fused_stack='pallas'`): loads
    release/flagship_r4 with the port's own msgpack reader and samples one
    batch of 16 molecules for tests/fixtures/phores/P03211_merge.phore
@@ -55,11 +62,31 @@ Phases (any failure exits non-zero and prints no result):
    steps/s, ms/step by bucket, forward and backward ms and peak memory;
 6. main path 4, sampling with `fused_stack='pallas2'`: the recipe of path
    1 through the two merged kernels, steps x 6 launches each;
-7. check: accepted molecules are finite and written, and one forward of
+7. main path 5, bf16 sampling: the recipe of path 1 with
+   `fused_stack='pallas2'`, `fused_block_dtype='bfloat16'` and
+   `model.compute_dtype='bfloat16'`: the bf16-block forms of the two merged
+   kernels, 6000 launches each; then `fused_stack='pallas'` with bf16 blocks
+   and compute on a strided chain of 100 steps (the bf16 forms of B1 and
+   B2, 600 launches each);
+8. main path 6, bf16 training: release/flagship_r4's own `train.dtype`
+   (bfloat16, no override), two steps in each bucket (NL=48, 80) through
+   `pallas2` with bf16 blocks and through the configuration's own module
+   path (`fused_stack='none'`, kNN triplets, no kernel): finite losses,
+   float32 master parameters and EMA, leaves that moved, the bf16 merged
+   kernels launched steps x 6 times (and the float32 ones steps x 5: the
+   straight-through backward remakes the float32 layer boundaries with
+   them); and the loss and parameter gradients with kernels forward
+   against the plain stages' on the same draws and bf16 weights (the
+   kernels' path rounds its inter-stage blocks to bf16, the plain stages
+   keep them float32): loss within 1e-4 relative, gradient relative L2
+   within 5e-3, each leaf within 0.5 of its largest gradient
+   (`BF16_TOLS`). Prints steps/s, ms/step and peak memory;
+9. check: accepted molecules are finite and written, and one forward of
    the flagship network on a small input agrees between the card (kernels)
    and the CPU (plain versions), on the three sampling paths, within
    atol = rtol = 1e-3 (6 layers of float32 attention, different summation
-   order).
+   order). Every kernel of the `kernels` line must have been launched on
+   its main path.
 The second-to-last lines are the `kernels` JSON and the card's name and
 power limit; the last line is the device JSON.
 """
@@ -81,19 +108,46 @@ LOSS_TOL = 1e-4
 GRAD_TOL = 3e-3        # whole gradient, relative L2
 LEAF_GRAD_TOL = 5e-2   # each leaf, of its largest gradient
 GRAD_FLOOR = 1e-4
+BF16_TRAIN_STEPS_PER_BUCKET = 2
+# kernels forward vs plain stages, train.dtype bfloat16 on the same draws:
+# both run the network in bf16 on the same bf16 weights; the kernels' path
+# stores its inter-stage blocks in bf16 where the plain stages keep float32.
+# Loss relative, gradient relative L2, worst leaf. On flagship_r4's weights
+# (H100) these read up to 2.7e-6, 2.3e-3 and 0.34: a bf16 activation that
+# rounds the other way moves a small leaf's gradient (a phore-encoder
+# bias) by a third, so the leaf limit cannot be the float32 check's. A
+# store that gives each quad's fourth element the third's value reads
+# 4.3e-3, 0.16 and 8.1.
+BF16_TOLS = (LOSS_TOL, 5e-3, 0.5)
+# the bf16-block path with four kernels a layer runs a strided chain
+PALLAS_BF16_STEPS = 100
 PATHS = {
     "fused": dict(fused_stack="pallas"),
     "module": dict(fused_stack="none", triplet_knn=0,
                    use_pallas_triplet=True),
     "pallas2": dict(fused_stack="pallas2"),
+    "pallas2_bf16": dict(fused_stack="pallas2", fused_block_dtype="bfloat16",
+                         compute_dtype="bfloat16"),
+    "pallas_bf16": dict(fused_stack="pallas", fused_block_dtype="bfloat16",
+                        compute_dtype="bfloat16"),
 }
+# the paths whose flagship forward is held card vs CPU (float32)
+REFERENCE_PATHS = ("fused", "module", "pallas2")
 # kernels a path launches steps x layers x blocks times; every other: never
 PATH_KERNELS = {
     "fused": ("stage_node", "stage_triplet_pre", "stage_triplet_att",
               "stage_pos"),
     "module": ("triplet_pool",),
     "pallas2": ("stage_node_pre", "stage_att_pos"),
+    "pallas2_bf16": ("stage_node_pre_bf16", "stage_att_pos_bf16"),
+    "pallas_bf16": ("stage_node", "stage_triplet_pre_bf16",
+                    "stage_triplet_att_bf16", "stage_pos"),
 }
+# shapes of the kernel rows beyond the flagship's kNN table at NL = 80, 48:
+# the hybrid cutoff's table (NL + 32 sources a ligand row), and the pool
+# at widths no multiple of 4 and more heads than one launch takes
+HYBRID_NL = 80
+ODD_POOL = dict(N=48, heads=36, Wt=18)
 
 
 def fail(msg: str) -> None:
@@ -111,6 +165,7 @@ def gpu_name_power() -> str:
 
 
 def print_row(r, shape: str) -> None:
+    from phoregen_tpu_torch.ops.kernel_check import BLOCK_MISMATCH_SHARE
     print(f"[kernels] {r['name']} {shape}: max_abs_err={r['max_abs_err']:.3e} "
           f"max_rel_err={r['max_rel_err']:.3e} ms={r['ms']:.4f} "
           f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
@@ -118,38 +173,60 @@ def print_row(r, shape: str) -> None:
           f"{r['flops'] / 1e9:.2f} GFLOP on the slots the masks leave"
           + (f", {r['flops_all_slots'] / 1e9:.2f} on all slots"
              if "flops_all_slots" in r else "")
-          + f") tol={r['tol']:g} ok={r['ok']}", flush=True)
+          + ")" + (f"; share of stored block elements unlike the plain "
+                   f"version's {r['block_mismatch_share']:.3e} (at most "
+                   f"{BLOCK_MISMATCH_SHARE:g})"
+                   if r["block_mismatch_share"] is not None else "")
+          + f" tol={r['tol']:g} ok={r['ok']}", flush=True)
 
 
 def phase_kernels(kc):
-    """Rows of the six layer-stack kernels for each NL, and the triplet
-    pool's row for each N."""
+    """Rows of the six layer-stack kernels and of the four bf16-block forms
+    for each NL, of the four kNN-table kernels on the hybrid cutoff's table,
+    and the triplet pool's rows for each N and at odd widths. Returns
+    {shape label: rows} for the stack and {shape label: row} for the
+    pool."""
     import torch
     stack = {}
     for nl in STACK_NL:
         case = kc.flagship_case(B=16, NP=96, NL=nl, device="cuda", seed=0)
-        stack[nl] = kc.check_kernels(case, reps=5)
-        for r in stack[nl]:
-            print_row(r, f"B=16 NP=96 NL={nl}")
+        label = f"B=16 NP=96 NL={nl}"
+        stack[label] = kc.check_kernels(case, reps=5) + kc.check_kernels(
+            case, reps=5, kernels=kc.BF16_KERNELS)
+        for r in stack[label]:
+            print_row(r, label)
         del case
         torch.cuda.empty_cache()
+    case = kc.flagship_case(B=16, NP=96, NL=HYBRID_NL, device="cuda", seed=0,
+                            cutoff="hybrid")
+    label = f"B=16 NP=96 NL={HYBRID_NL} hybrid K={case['d'].K}"
+    stack[label] = kc.check_kernels(case, reps=5, kernels=kc.KNN_KERNELS)
+    for r in stack[label]:
+        print_row(r, label)
+    del case
+    torch.cuda.empty_cache()
     pool = {}
     for n in (48, 80):
-        pool[n] = kc.check_triplet_pool(
+        pool[f"B=16 N={n}"] = kc.check_triplet_pool(
             kc.triplet_case(B=16, N=n, device="cuda", seed=0), reps=5)
-        print_row(pool[n], f"B=16 N={n}")
-        torch.cuda.empty_cache()
-    bad = [(r["name"], shape) for shape, rs in
-           [(f"NL={nl}", stack[nl]) for nl in STACK_NL]
-           + [(f"N={n}", [pool[n]]) for n in pool] for r in rs if not r["ok"]]
+    odd = "B=16 N={N} heads={heads} Wt={Wt}".format(**ODD_POOL)
+    pool[odd] = kc.check_triplet_pool(
+        kc.triplet_case(B=16, device="cuda", seed=0, **ODD_POOL), reps=5)
+    for label, r in pool.items():
+        print_row(r, label)
+    torch.cuda.empty_cache()
+    bad = [(r["name"], label) for label, rs in stack.items() for r in rs
+           if not r["ok"]] + [(r["name"], label) for label, r in pool.items()
+                              if not r["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
     return stack, pool
 
 
-def phase_main(root, label, ls, pt):
-    """Sample one batch through the path `label`; returns (launch counts of
-    all seven kernels on that run, the NL bucket)."""
+def phase_main(root, label, ls, pt, steps=NUM_STEPS):
+    """Sample one batch through the path `label` (a chain of `steps`
+    denoiser evaluations: all 1000, or strided); returns (launch counts of
+    all the kernels on that run, the NL bucket)."""
     import numpy as np
     import torch
     from phoregen_tpu_torch.data.phore import parse_phore_file
@@ -167,7 +244,8 @@ def phase_main(root, label, ls, pt):
         pg, guidance=[GuidanceOpt(type="atom_prox", min_d=1.0, max_d=3.0),
                       GuidanceOpt(type="center_prox")],
         sample_nodes_mode="normal", normal_scale=6.0, add_edge="predicted",
-        batch_size=BATCH, seed=2024, device="cuda")
+        batch_size=BATCH, seed=2024, device="cuda",
+        sample_steps=0 if steps == NUM_STEPS else steps)
     phore = parse_phore_file(os.path.join(
         root, "tests", "fixtures", "phores", "P03211_merge.phore"))
     with tempfile.TemporaryDirectory() as out_dir:
@@ -182,10 +260,12 @@ def phase_main(root, label, ls, pt):
         launches = dict(ls.LAUNCHES, **pt.LAUNCHES)
         mol_dir = os.path.join(out_dir, res["name"])
         sdfs = [f for f in os.listdir(mol_dir) if f.endswith(".sdf")]
-    per_kernel = NUM_STEPS * dcfg.num_layers * dcfg.num_blocks
+    per_kernel = steps * dcfg.num_layers * dcfg.num_blocks
     print(f"{tag} fused_stack={dcfg.fused_stack} triplet_knn="
-          f"{dcfg.triplet_knn} use_pallas_triplet={dcfg.use_pallas_triplet}; "
-          f"{NUM_STEPS} steps, {dcfg.num_blocks} block x {dcfg.num_layers} "
+          f"{dcfg.triplet_knn} use_pallas_triplet={dcfg.use_pallas_triplet} "
+          f"fused_block_dtype={dcfg.fused_block_dtype} compute_dtype="
+          f"{pg.config.model.compute_dtype}; {steps} steps, "
+          f"{dcfg.num_blocks} block x {dcfg.num_layers} "
           f"layers, hidden {dcfg.hidden_dim}, {dcfg.n_heads} heads")
     print(f"{tag} phore {res['name']}: count interval "
           f"{res['count_interval']}")
@@ -194,7 +274,7 @@ def phase_main(root, label, ls, pt):
     print(f"{tag} molecules/s (sampled, reverse loop): "
           f"{res['n_sampled'] / pipe.sample_seconds:.4f} "
           f"(loop {pipe.sample_seconds:.3f} s, "
-          f"{1e3 * pipe.sample_seconds / NUM_STEPS:.3f} ms/step)")
+          f"{1e3 * pipe.sample_seconds / steps:.3f} ms/step)")
     print(f"{tag} molecules/s (accepted, wall incl. reconstruction): "
           f"{res['n_finished'] / wall:.4f} (wall {wall:.3f} s)")
     print(f"{tag} launches: {json.dumps(launches)} "
@@ -218,15 +298,21 @@ def phase_main(root, label, ls, pt):
     return launches, pipe.last_bucket
 
 
-def check_gradients(pg, plain, batch, nl, lig_noise_std):
+def check_gradients(pg, plain, batch, nl, lig_noise_std,
+                    compute_dtype="float32",
+                    tols=(LOSS_TOL, GRAD_TOL, LEAF_GRAD_TOL)):
     """Loss and parameter gradients of `pg` (kernels forward) against
-    `plain` (the plain stages) on one batch and the same draws."""
+    `plain` (the plain stages) on one batch and the same draws, at
+    `compute_dtype` (`train.dtype`); fails beyond `tols` (loss relative,
+    whole gradient relative L2, worst leaf of its largest gradient).
+    Returns the three readings."""
     import torch
     res = []
     for model in (pg, plain):
         model.net.zero_grad(set_to_none=True)
         gen = torch.Generator(device="cuda").manual_seed(7)
-        loss, _ = model.compute_loss(batch, gen, lig_noise_std=lig_noise_std)
+        loss, _ = model.compute_loss(batch, gen, lig_noise_std=lig_noise_std,
+                                     compute_dtype=compute_dtype)
         loss.backward()
         res.append((float(loss.detach()), {
             n: p.grad.clone() for n, p in model.net.named_parameters()}))
@@ -245,14 +331,39 @@ def check_gradients(pg, plain, batch, nl, lig_noise_std):
             float(g.abs().max()), GRAD_FLOOR * top)
         if err > worst:
             worst, worst_name = err, n
-    print(f"[check train] NL={nl} batch, kernels forward vs plain stages: "
+    tag = "[check train]" if compute_dtype == "float32" else \
+        f"[check {compute_dtype} train]"
+    print(f"{tag} NL={nl} batch, kernels forward vs plain stages: "
           f"loss {l_k:.6f} vs {l_p:.6f} (relative {rel_loss:.3e}, tol "
-          f"{LOSS_TOL}); gradient relative L2 error {rel_grad:.3e} (tol "
-          f"{GRAD_TOL}); worst leaf relative error {worst:.3e} "
-          f"({worst_name}; tol {LEAF_GRAD_TOL})", flush=True)
-    if rel_loss > LOSS_TOL or rel_grad > GRAD_TOL or worst > LEAF_GRAD_TOL:
+          f"{tols[0]}); gradient relative L2 error {rel_grad:.3e} (tol "
+          f"{tols[1]}); worst leaf relative error {worst:.3e} "
+          f"({worst_name}; tol {tols[2]})", flush=True)
+    readings = (rel_loss, rel_grad, worst)
+    if any(not r <= t for r, t in zip(readings, tols)):
         fail("loss or gradients with kernels forward disagree with the "
              "plain path")
+    return readings
+
+
+def check_bf16_train(run, batches, tols=None):
+    """At `train.dtype` bfloat16: `run`'s model (kernels with bf16 blocks
+    forward, the float32 stack's backward) against the plain stages
+    (float32 blocks) on the same bf16 weights and draws, one batch of each
+    bucket in `batches`; see `check_gradients`."""
+    import torch
+    from phoregen_tpu_torch.models.phoregen import PhoreGen
+    cfg = run.config
+    pcfg = copy.deepcopy(cfg)
+    pcfg.model.denoiser.fused_stack = "xla"
+    plain = PhoreGen(pcfg)
+    plain.net.load_state_dict(run.pg.net.state_dict())
+    plain.net.to("cuda")
+    out = [check_gradients(run.pg, plain, batches[nl][0], nl,
+                           cfg.train.lig_noise_std, cfg.train.dtype,
+                           tols or BF16_TOLS) for nl in batches]
+    del plain
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_train(root, ls, pt):
@@ -267,7 +378,11 @@ def phase_train(root, ls, pt):
     tag = "[main train]"
     prefix = os.path.join(root, "release", "flagship_r4")
     with tempfile.TemporaryDirectory() as run_dir:
-        run = flagship_trainer(prefix, "cuda", "pallas2", run_dir=run_dir)
+        # float32 asked for: the gradient check against the plain path
+        # below is reckoned in float32 ([main bf16 train] runs the
+        # configuration's own bfloat16)
+        run = flagship_trainer(prefix, "cuda", "pallas2", run_dir=run_dir,
+                               dtype="float32")
         cfg, state = run.config, run.state
         dcfg = cfg.model.denoiser
         if cfg.train.batch_size != BATCH:
@@ -347,6 +462,96 @@ def phase_train(root, ls, pt):
             check_gradients(run.pg, plain, batches[nl][0], nl,
                             cfg.train.lig_noise_std)
     return launches
+
+
+def phase_train_bf16(root, ls, pt):
+    """Main path 5: release/flagship_r4's own `train.dtype` (bfloat16, no
+    override), a few steps in each bucket, through `pallas2` with bf16
+    blocks and through the configuration's own module path. Returns the
+    launch counts of the pallas2 run."""
+    import numpy as np
+    import torch
+    from phoregen_tpu_torch.tools.profile_training import (
+        bucket_batches, flagship_trainer)
+
+    prefix = os.path.join(root, "release", "flagship_r4")
+    launches_p2 = None
+    for label, fused, bdt in (("pallas2", "pallas2", "bfloat16"),
+                              ("module", None, None)):
+        tag = f"[main bf16 train {label}]"
+        with tempfile.TemporaryDirectory() as run_dir:
+            run = flagship_trainer(prefix, "cuda", fused or "none",
+                                   run_dir=run_dir, fused_block_dtype=bdt)
+            cfg, state = run.config, run.state
+            dcfg = cfg.model.denoiser
+            if cfg.train.dtype != "bfloat16":
+                fail(f"flagship_r4 is expected to train in bfloat16, not "
+                     f"{cfg.train.dtype}")
+            batches = {nl: [b.to("cuda") for b in bucket_batches(
+                cfg, nl, BF16_TRAIN_STEPS_PER_BUCKET + 1, seed=2025)]
+                for nl in TRAIN_BUCKETS}
+            named = dict(state.net.named_parameters())
+            before = {n: p.detach().clone() for n, p in named.items()}
+            for nl in TRAIN_BUCKETS:
+                run.train_step(state, 0, batches[nl][-1])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ls.reset_launch_counts()
+            pt.reset_launch_counts()
+            ms, step, t_all = {}, 0, time.time()
+            for nl in TRAIN_BUCKETS:
+                t0 = time.time()
+                for b in batches[nl][:BF16_TRAIN_STEPS_PER_BUCKET]:
+                    m = run.train_step(state, 1 + step, b)
+                    step += 1
+                    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+                    print(f"{tag} step {step} NL={nl}: loss {loss:.4f} "
+                          f"grad_norm {gnorm:.4f}")
+                    if not (np.isfinite(loss) and np.isfinite(gnorm)):
+                        fail(f"non-finite loss or gradient norm at step "
+                             f"{step}")
+                torch.cuda.synchronize()
+                ms[nl] = (time.time() - t0) * 1e3 / BF16_TRAIN_STEPS_PER_BUCKET
+            wall = time.time() - t_all
+            launches = dict(ls.LAUNCHES, **pt.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            per_kernel = step * dcfg.num_layers * dcfg.num_blocks
+            print(f"{tag} fused_stack={dcfg.fused_stack} "
+                  f"fused_block_dtype={dcfg.fused_block_dtype} train.dtype="
+                  f"{cfg.train.dtype} triplet_knn={dcfg.triplet_knn}; {step} "
+                  f"steps of {BATCH} graphs")
+            print(f"{tag} steps/s {step / wall:.4f}; ms/step "
+                  + ", ".join(f"NL={nl}: {v:.3f}" for nl, v in ms.items()))
+            print(f"{tag} peak memory {peak / 2 ** 30:.3f} GiB "
+                  f"(torch.cuda.max_memory_allocated over the {step} steps)")
+            print(f"{tag} launches: {json.dumps(launches)}", flush=True)
+            # the bf16-block kernels forward; the straight-through
+            # backward remakes the float32 layer boundaries 1..L-1 first,
+            # through the float32 merged kernels
+            want = dict.fromkeys(launches, 0)
+            if label == "pallas2":
+                for k in PATH_KERNELS["pallas2_bf16"]:
+                    want[k] = per_kernel
+                for k in PATH_KERNELS["pallas2"]:
+                    want[k] = step * (dcfg.num_layers - 1) * dcfg.num_blocks
+            if launches != want:
+                fail(f"bf16 training through {label} must launch {want}: "
+                     f"{launches}")
+            if any(p.dtype != torch.float32 for p in named.values()) or any(
+                    v.dtype != torch.float32
+                    for v in state.ema_params.values()):
+                fail("master parameters or EMA are not float32")
+            moved = sum(not torch.equal(before[n], p.detach())
+                        for n, p in named.items())
+            print(f"{tag} leaves moved: {moved}/{len(named)}, all float32")
+            if moved < 0.9 * len(named):
+                fail("parameters did not move")
+            if label == "pallas2":
+                launches_p2 = launches
+                check_bf16_train(run, batches)
+            del run, state, batches
+            torch.cuda.empty_cache()
+    return launches_p2
 
 
 def phase_reference(root, label):
@@ -432,38 +637,63 @@ def main():
     torch.cuda.empty_cache()
     launches_p2, _ = phase_main(root, "pallas2", ls, pt)
     torch.cuda.empty_cache()
-    for label in PATHS:
+    launches_p2b, _ = phase_main(root, "pallas2_bf16", ls, pt)
+    torch.cuda.empty_cache()
+    launches_pb, _ = phase_main(root, "pallas_bf16", ls, pt,
+                                steps=PALLAS_BF16_STEPS)
+    torch.cuda.empty_cache()
+    launches_train_bf16 = phase_train_bf16(root, ls, pt)
+    torch.cuda.empty_cache()
+    for label in REFERENCE_PATHS:
         phase_reference(root, label)
 
     # the triplet pool's row at the N the module path gave it; the other N
-    # rides along under "other_shapes"
-    main_n = bucket if bucket in pool else min(pool)
+    # and the odd widths ride along under "other_shapes"
+    main_n = f"B=16 N={bucket}" if f"B=16 N={bucket}" in pool \
+        else next(iter(pool))
     shape_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                  "bytes", "flops")
-    pool_row = dict(pool[main_n], shape=f"B=16 N={main_n}", other_shapes=[
-        {"shape": f"B=16 N={n}", **{k: r[k] for k in shape_keys}}
-        for n, r in pool.items() if n != main_n])
+                  "bytes", "flops", "tol")
+    pool_row = dict(pool[main_n], shape=main_n, other_shapes=[
+        {"shape": label, **{k: r[k] for k in shape_keys}}
+        for label, r in pool.items() if label != main_n])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # launches of each kernel on the main path that runs it (by path where
+    # more than one does)
+    by_path = {
+        "stage_node": {"fused": launches, "pallas_bf16": launches_pb},
+        "stage_triplet_pre": {"fused": launches},
+        "stage_triplet_att": {"fused": launches},
+        "stage_pos": {"fused": launches, "pallas_bf16": launches_pb},
+        "stage_node_pre": {"train": launches_train, "pallas2": launches_p2},
+        "stage_att_pos": {"train": launches_train, "pallas2": launches_p2},
+        "stage_triplet_pre_bf16": {"pallas_bf16": launches_pb},
+        "stage_triplet_att_bf16": {"pallas_bf16": launches_pb},
+        "stage_node_pre_bf16": {"pallas2_bf16": launches_p2b,
+                                "train_bf16": launches_train_bf16},
+        "stage_att_pos_bf16": {"pallas2_bf16": launches_p2b,
+                               "train_bf16": launches_train_bf16},
+    }
     kernels = []
-    # the layer-stack kernels' rows are the first NL's; the others ride along
-    for i, r in enumerate(stack[STACK_NL[0]]):
+    # the layer-stack kernels' rows are the first NL's; the other NL and the
+    # hybrid table ride along
+    main_shape = f"B=16 NP=96 NL={STACK_NL[0]}"
+    for r in stack[main_shape]:
         name = r["name"]
-        extra = dict(shape=f"B=16 NP=96 NL={STACK_NL[0]}", other_shapes=[
-            {"shape": f"B=16 NP=96 NL={nl}",
-             **{k: stack[nl][i][k] for k in shape_keys}}
-            for nl in STACK_NL[1:]])
-        if name in PATH_KERNELS["fused"]:
-            kernels.append(dict({k: dict(r, launches=launches[name])[k]
-                                 for k in keys}, **extra))
-        else:   # the merged kernels: the training path's count
-            kernels.append(dict(
-                {k: dict(r, launches=launches_train[name])[k] for k in keys},
-                launches_by_path={"train": launches_train[name],
-                                  "pallas2": launches_p2[name]}, **extra))
+        counts = {path: c[name] for path, c in by_path[name].items()}
+        kernels.append(dict(
+            {k: dict(r, launches=next(iter(counts.values())))[k]
+             for k in keys}, launches_by_path=counts, shape=main_shape,
+            other_shapes=[{"shape": label, **{k: o[k] for k in shape_keys}}
+                          for label, rows in stack.items()
+                          if label != main_shape
+                          for o in rows if o["name"] == name]))
     pool_row["launches"] = launches_mod["triplet_pool"]
     kernels.append({k: pool_row[k]
                     for k in keys + ("shape", "other_shapes")})
+    if any(k["launches"] <= 0 for k in kernels):
+        fail(f"a kernel was launched no time on its main path: "
+             f"{[(k['name'], k['launches']) for k in kernels]}")
     print(f"[chip_smoke] all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(gpu_name_power())

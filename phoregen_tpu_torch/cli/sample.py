@@ -62,7 +62,12 @@ def parse_args(argv=None):
                         "layer), 'xla'/'xla2' = the fused stack's plain "
                         "PyTorch stages")
     p.add_argument("--fused_block_dtype", default="",
-                   choices=["", "float32", "bfloat16"])
+                   choices=["", "float32", "bfloat16"],
+                   help="override denoiser.fused_block_dtype: 'bfloat16' "
+                        "stores the fused stack's inter-stage blocks pre_t "
+                        "and q_z in bf16 on 'pallas*' (arithmetic float32) "
+                        "and runs the carries, packed weights and feature "
+                        "products in bf16 on 'xla2'")
     p.add_argument("--edge_mlp_apply", default="",
                    choices=["", "split", "concat"],
                    help="override denoiser.edge_mlp_apply (same parameters, "
@@ -83,7 +88,9 @@ def parse_args(argv=None):
     p.add_argument("--force", action="store_true",
                    help="allow sampling triplet_knn narrower than trained")
     p.add_argument("--seed", type=int, default=2024)
-    p.add_argument("--use_ema", action="store_true")
+    p.add_argument("--use_ema", action="store_true",
+                   help="sample a training checkpoint's EMA shadow "
+                        "(ema_params; needs train.ema true)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default: the card)")
     p.add_argument("--sample_devices", type=int, default=1,
@@ -147,9 +154,6 @@ def main(argv=None):
     if args.chunk_steps > 0:
         raise SystemExit("[E] --chunk_steps > 0: sample_chunked is not "
                          "ported yet (ROADMAP.md, 'Still to port')")
-    if args.use_ema:
-        raise SystemExit("[E] --use_ema: release checkpoints carry bare "
-                         "model weights")
     from ..config import config_from_dict, load_config
     from ..data.phore import parse_phore_file
     from ..models.phoregen import load_release_model
@@ -158,6 +162,12 @@ def main(argv=None):
 
     with open(args.ckpt + ".json") as f:
         meta = json.load(f)
+    if args.use_ema and not bool(meta.get("config", {}).get(
+            "train", {}).get("ema", False)):
+        raise SystemExit(
+            "[E] --use_ema: this checkpoint was trained with "
+            "train.ema=false, so its EMA shadow is the untrained init "
+            "copy. Re-run without --use_ema (or retrain with ema=true).")
     cfg = load_config(args.config) if args.config \
         else config_from_dict(meta["config"])
     dcfg = cfg.model.denoiser
@@ -175,9 +185,14 @@ def main(argv=None):
             args.ckpt, device=args.device, config=cfg,
             fused_stack=args.fused_stack or None,
             use_pallas_triplet=(None if args.use_pallas_triplet < 0
-                                else bool(args.use_pallas_triplet)))
+                                else bool(args.use_pallas_triplet)),
+            use_ema=args.use_ema)
     except NotImplementedError as e:
         raise SystemExit(f"[E] {e}")
+    except ValueError as e:
+        if not args.use_ema:
+            raise
+        raise SystemExit(f"[E] --use_ema: {e}")
     print(f"[I] Loaded checkpoint {args.ckpt} (step {meta.get('step')})")
     guidance = None
     if args.pos_guidance_opt:

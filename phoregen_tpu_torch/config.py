@@ -109,8 +109,10 @@ class DenoiserConfig:
     # Fused modes freeze the layer-internal kNN index sets per block and
     # require the flagship configuration.
     fused_stack: str = "none"
-    # dtype of the fused stack's inter-stage blocks; only 'float32' is
-    # ported.
+    # 'bfloat16': on 'pallas*' the fused stack's inter-stage blocks (pre_t,
+    # q_z) are stored in bf16 between the kernels, all arithmetic float32
+    # (backward straight through); on 'xla2' the carries, packed weights
+    # and feature products run in bf16. 'xla' and 'none' ignore it.
     fused_block_dtype: str = "float32"
     # How the attention layers' edge k/v MLPs are applied: same parameter
     # tree and algebra either way. 'split' applies the first linear layer
@@ -126,8 +128,9 @@ class DenoiserConfig:
     # models/layers.py::BondUpdateTriplet.
     triplet_mode: str = "factorized"
     triplet_width: int = 32
-    # bf16 only (not ported): the kNN triplet pool follows the compute
-    # dtype.
+    # Under bf16 compute the kNN triplet pool runs in bf16 (scores and
+    # softmax float32); false pins it to float32. The all-k pool is always
+    # float32.
     triplet_pool_follow_dtype: bool = True
     # Stacked per-layer parameters under `layers/layer` (leading layer
     # axis) instead of `layer_0..`; the port loops over layers either way.
@@ -155,8 +158,8 @@ class ModelConfig:
     loss_weight: List[float] = field(default_factory=lambda: [1, 100, 100])
     count_factor: float = 1
     hp_emb_with_pos: bool = True
-    # TPU-specific: denoiser compute dtype for sampling ('float32' or
-    # 'bfloat16'); posteriors/positions always accumulate in float32.
+    # denoiser compute dtype for sampling ('float32' or 'bfloat16': bf16
+    # parameters and features); posteriors and positions stay float32.
     compute_dtype: str = "float32"
     diff: DiffConfig = field(default_factory=DiffConfig)
     denoiser: DenoiserConfig = field(default_factory=DenoiserConfig)
@@ -201,7 +204,9 @@ class TrainConfig:
     # TPU-specific knobs
     data_axis: str = "data"            # mesh axis name for batch sharding
     num_devices: int = 0               # 0 = all local devices
-    dtype: str = "float32"             # compute dtype for the denoiser
+    # the network's dtype in training ('bfloat16': mixed precision, float32
+    # master parameters, optimizer state, EMA and losses)
+    dtype: str = "float32"
 
 
 @dataclass

@@ -1,4 +1,5 @@
-// Fused layer-stack stage kernels for Hopper (sm_90a), float32 throughout.
+// Fused layer-stack stage kernels for Hopper (sm_90a), float32 arithmetic
+// throughout; the inter-stage blocks pre_t and q_z may be stored in bf16.
 //
 // These replace the four Pallas TPU kernels that `layer_stack_pallas`
 // (phoregen_tpu/ops/layer_stack.py) runs per attention layer:
@@ -82,12 +83,25 @@
 //   except B1, whose pre_t write (B*NL*NL*K8*Wt*4 = 419 MB) makes it bound
 //   by bytes (3.35 TB/s). The measured times sit beside their bounds in
 //   PERF.md.
+// - bf16 blocks (`fused_block_dtype`, the JAX package's
+//   layer_stack_pallas(block_dtype=bf16)): B1 and A + B1 have a form that
+//   stores pre_t and q_z as bf16 (rounded to nearest even from the float32
+//   results), B2 and B2 + C one that reads them and widens (Blk<T>; the
+//   `_bf16` entries). B1's pre_t write, the one row bound by bytes, halves;
+//   B2's pre_t tiles are staged as bf16 (8-byte cp.async) and its q_z rows
+//   widened on load. All arithmetic stays float32.
+// - Neighbour tables wider than the flagship's kNN 32 (the hybrid cutoff:
+//   NL + k sources a ligand row, 112 at NL = 80) take the kNN edge tiles in
+//   passes of at most ECMAX rows (edge_chunk), keeping the edge values of
+//   all passes apart until the pool has read them; the bond grid's rows a
+//   pass shrink to fit (plan_rows).
 // Widths must be multiples of 4 (H, Wt: 16-byte loads); heads may be any
 // count (a value product with heads % 4 != 0 takes a scalar loop).
 // Numerics kept from the reference: LayerNorm as E[x^2]-mu^2, the masked
 // softmax with (1-mask)*-1e9 and a denominator floor of 1.0, the cross
 // product clamp at 1e-12 before the sqrt, atan2f for the triplet angle.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -166,10 +180,54 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
                "l"(src));
 }
 
-// Waits for every cp_async16 of this thread.
+// 8 bytes from device memory into shared memory, asynchronously.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+
+// Waits for every cp_async16 / cp_async8 of this thread.
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
+
+// Element type of the inter-stage blocks pre_t and q_z (B1 writes them, B2
+// reads them): float, or bf16 (`fused_block_dtype`), which halves their
+// bytes. All arithmetic stays float32: B1 rounds its float32 results to
+// nearest even when it stores them, B2 widens what it loads. Blk<T> moves 4
+// consecutive elements (16 bytes of float, 8 of bf16) at a time.
+typedef __nv_bfloat16 bf16;
+template <class T> struct Blk;
+template <> struct Blk<float> {
+  static __device__ __forceinline__ float4 ld(const float* p) { return ld4(p); }
+  static __device__ __forceinline__ void st(float* p, float4 v) { st4(p, v); }
+  static __device__ __forceinline__ float at(const float* p) { return *p; }
+  static __device__ __forceinline__ void cp(float* dst, const float* src) {
+    cp_async16(dst, src);
+  }
+};
+template <> struct Blk<bf16> {
+  static __device__ __forceinline__ float4 ld(const bf16* p) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const bf16* e = reinterpret_cast<const bf16*>(&u);
+    return make_float4(__bfloat162float(e[0]), __bfloat162float(e[1]),
+                       __bfloat162float(e[2]), __bfloat162float(e[3]));
+  }
+  static __device__ __forceinline__ void st(bf16* p, float4 v) {
+    uint2 u;
+    bf16* e = reinterpret_cast<bf16*>(&u);
+    e[0] = __float2bfloat16_rn(v.x); e[1] = __float2bfloat16_rn(v.y);
+    e[2] = __float2bfloat16_rn(v.z); e[3] = __float2bfloat16_rn(v.w);
+    *reinterpret_cast<uint2*>(p) = u;
+  }
+  static __device__ __forceinline__ float at(const bf16* p) {
+    return __bfloat162float(*p);
+  }
+  static __device__ __forceinline__ void cp(bf16* dst, const bf16* src) {
+    cp_async8(dst, src);
+  }
+};
 
 // LayerNorm (E[x^2] - mu^2 form) and optional ReLU over M rows of width Wd
 // in shared memory; one warp per row.
@@ -555,34 +613,52 @@ __host__ __device__ inline int att_head_group(const Dims& d) {
   return imax(1, imin(d.heads, 2 * NCMAX / d.Wt));
 }
 
+// Edge rows a pass of the kNN edge tiles: all of a block's KE = G * K edges
+// up to ECMAX (the flagship's 2 x 32), else evened-out chunks of at most
+// ECMAX. A hybrid neighbour table (NL + k sources a ligand row, 112 at
+// NL = 80) takes two passes of 56.
+#define ECMAX 64
+__host__ __device__ inline int edge_chunk(int KE) {
+  const int nc = (KE + ECMAX - 1) / ECMAX;
+  return nc > 1 ? (KE + nc - 1) / nc : KE;
+}
+
 // Shared memory of stages A, C and B2 (+ C), in floats from the block's
 // base. Regions that are never live together lie over one another:
 //   rows: the R source rows of the bond grid (B2's output tile) | the kNN
-//         edge features [K][FEP] (K: the edges of the block's G nodes)
-//   u1:   first-layer tile [R or K][2H+PD] | B2's q_h / pooled
+//         edge features [KC][FEP] of one pass over the edges (KC of the
+//         KE edges of the block's G nodes, see edge_chunk)
+//   u1:   first-layer tile [R or KC][2H+PD] | B2's q_h / pooled
 //         [R][HG*Wt+PD]
-//   u2:   second-layer tile (bond k [R][H+PD], edge k|v [K][2H+PD]) | B2's
-//         q_z [R][H+PD] while a head group's queries are made, then its
-//         per-warp pre_t tiles [K8*Wt]
+//   u2:   second-layer tile (bond k [R][H+PD], edge k|v [KC][2H+PD]) |
+//         B2's q_z [R][H+PD] while a head group's queries are made, then
+//         its per-warp pre_t tiles [K8*Wt]
 // then the weight ring (between B2's two products of a head group it holds
 // the warps' softmax weights [32][4]) and what lives through the whole
 // block. Stage A's bond values [NL][H] lie in `rows` (free once the first
 // layer has read them) when one pass takes all NL sources, else in vall.
+// When the edges take more than one pass, their values [KE][up4(vcols)]
+// are kept in vall until the edge attention's pool has read them (the bond
+// grid's attention comes after it); in one pass they stay in u2.
 struct Lay {
-  int R, rows, u1, u2, ring, vall, scb, sc, qt, qv, outv, rel, emask, ew,
-      dist, d3, src, wp, misc, total;
+  int R, KC, vsep, ldv, rows, u1, u2, ring, vall, scb, sc, qt, qv, outv, rel,
+      emask, ew, dist, d3, src, wp, misc, total;
 };
 
 __host__ __device__ inline Lay stage_layout(const Dims& d, int vcols, int R,
                                             bool edge, bool b2, int G = 1) {
-  // K: the edge rows of the block's G destination nodes
+  // K: the edge rows of the block's G destination nodes, KC a pass of them
   const int H = d.H, K = edge ? G * d.K : 0, PH = H + PD, PP = 2 * H + PD;
+  const int KC = edge_chunk(K);
   const int nw = NT / 32;
   Lay L;
   int o = 0;
   L.R = R;
-  const int u0 = imax(R * PH, K * FEP);
-  int u1 = edge ? imax(R, K) * PP : 0, u2 = edge ? imax(R * PH, K * PP) : 0;
+  L.KC = KC;
+  L.vsep = K > KC;
+  L.ldv = L.vsep ? up4(vcols) : PP;
+  const int u0 = imax(R * PH, KC * FEP);
+  int u1 = edge ? imax(R, KC) * PP : 0, u2 = edge ? imax(R * PH, KC * PP) : 0;
   if (b2) {
     u1 = imax(u1, R * (att_head_group(d) * d.Wt + PD));
     u2 = imax(u2, imax(R * PH, nw * d.K8 * d.Wt));
@@ -591,7 +667,9 @@ __host__ __device__ inline Lay stage_layout(const Dims& d, int vcols, int R,
   L.u1 = o; o += u1;
   L.u2 = o; o += u2;
   L.ring = o; o += RING_FLOATS;
-  L.vall = o; o += edge && !(vcols == H && R >= d.NL) ? up4(d.NL * vcols) : 0;
+  L.vall = o;
+  o += imax(edge && !(vcols == H && R >= d.NL) ? up4(d.NL * vcols) : 0,
+            L.vsep ? K * L.ldv : 0);
   L.scb = o; o += edge ? up4(d.NL * d.heads) : 0;
   L.sc = o; o += up4(K * d.heads);
   const int hk = up4(imax(G * H, K));
@@ -610,14 +688,20 @@ __host__ __device__ inline Lay stage_layout(const Dims& d, int vcols, int R,
   return L;
 }
 
+// v: the edge values [KE][ldv] (in the k|v tile when one pass takes all
+// edges); KC: edge rows a pass.
 struct EdgeSmem {
-  float *feat, *pre, *kv, *sc, *qt, *qv, *rel, *emask, *ew, *dist, *d3, *ring;
+  float *feat, *pre, *kv, *v, *sc, *qt, *qv, *rel, *emask, *ew, *dist, *d3,
+      *ring;
   int* src;
+  int KC, ldv;
 };
 
-__device__ EdgeSmem edge_smem(float* sm, const Lay& L) {
+__device__ EdgeSmem edge_smem(float* sm, const Lay& L, int H) {
   EdgeSmem s;
   s.feat = sm + L.rows; s.pre = sm + L.u1; s.kv = sm + L.u2;
+  s.v = L.vsep ? sm + L.vall : s.kv + H;
+  s.KC = L.KC; s.ldv = L.ldv;
   s.sc = sm + L.sc; s.qt = sm + L.qt; s.qv = sm + L.qv; s.rel = sm + L.rel;
   s.emask = sm + L.emask; s.ew = sm + L.ew; s.dist = sm + L.dist;
   s.d3 = sm + L.d3; s.ring = sm + L.ring;
@@ -636,8 +720,9 @@ struct EdgeMask {
 // over the weights serves G nodes): edge features, the fused first layer
 // (columns [lo, lo+2H) of e_W plus the gathered node terms), LN+ReLU, the k/v
 // second layers (v has Nv columns, scaled by e_w), the node queries and the
-// masked per-head softmax over each node's K edges. Leaves alpha in
-// sc[KE][heads], k in kv[:, :H], v in kv[:, H:H+Nv] (rows of pitch 2H+PD).
+// masked per-head softmax over each node's K edges. The tiles take KC edge
+// rows a pass (all KE in one pass up to ECMAX); the node queries come
+// first. Leaves alpha in sc[KE][heads] and v in s.v[KE][s.ldv].
 __device__ void edge_attention(
     const Dims& d, const Args& a, const EdgeSmem& s, int b, int n0, int G,
     const float* xb, const float* P, int PW, int lo, int ln_row,
@@ -678,62 +763,68 @@ __device__ void edge_attention(
   for (int idx = tid; idx < G * H; idx += nt)
     s.qt[idx] = Pn[(idx / H) * PW + qcol + idx % H] + q_b0[idx % H];
   __syncthreads();
-  // features over (edge, rbf) pairs, then the 16 closing columns of a row:
-  // edge type (4), dire (9), zero pad (3)
-  for (int idx = tid; idx < KE * NRBF; idx += nt) {
-    const int k = idx / NRBF, q = idx % NRBF;
-    const float df = s.dist[k] - c_rbf_off[q];
-    const float g = expf(RBF_COEFF * (df * df));
-    const float* et = FP(T_EDGE_TYPE) + (e0 + k) * 4;
-    float* f = s.feat + k * FEP;
-    for (int t4 = 0; t4 < 4; ++t4) f[t4 * NRBF + q] = et[t4] * g;
-  }
-  for (int idx = tid; idx < KE * 16; idx += nt) {
-    const int k = idx / 16, o = idx % 16;
-    float v = 0.f;
-    if (o < 4) {
-      v = FP(T_EDGE_TYPE)[(e0 + k) * 4 + o];
-    } else if (o < 13) {
-      const float* d3 = s.d3 + k * 3;
-      v = d3[0] * dire_W[o - 4] + d3[1] * dire_W[9 + o - 4] +
-          d3[2] * dire_W[18 + o - 4] + dire_b[o - 4];
-    }
-    s.feat[k * FEP + 80 + o] = v;
-  }
   ln_rows(s.qt, H, G, H, q_ln_s, q_ln_b, true);
   __syncthreads();
-  mm(s.feat, FEP, KE, wmat(e_W + lo, 4 * H), FE, 2 * H, e_b + lo, s.pre, PP,
-     false, s.ring);
-  for (int idx = tid; idx < KE * (H >> 1); idx += nt) {
-    const int k = idx / (H >> 1), c = (idx % (H >> 1)) * 4;
-    const float mk = s.emask[k];
-    const float4 sv = ld4(P + ((size_t)b * N + s.src[k]) * PW + 2 * H + c);
-    const float4 dv = ld4(Pn + (k / K) * PW + c);
-    float* o = s.pre + k * PP + c;
-    const float4 v = ld4(o);
-    st4(o, make_float4(v.x + (mk * sv.x + dv.x), v.y + (mk * sv.y + dv.y),
-                       v.z + (mk * sv.z + dv.z), v.w + (mk * sv.w + dv.w)));
-  }
   for (int g = 0; g < G; ++g)
     vec_mat(s.qt + g * H, q_W1, H, H, H, q_b1, s.qv + g * H, s.ring);
-  ln_rows(s.pre, PP, KE, H, e_ln_s + ln_row * H, e_ln_b + ln_row * H, true);
-  ln_rows(s.pre + H, PP, KE, H, e_ln_s + (ln_row + 1) * H,
-          e_ln_b + (ln_row + 1) * H, true);
-  __syncthreads();
-  mm(s.pre, PP, KE, wmat(k2W, H), H, H, k2b, s.kv, PP, false, s.ring);
-  mm(s.pre + H, PP, KE, wmat(v2W, Nv), H, Nv, v2b, s.kv + H, PP, false,
-     s.ring);
-  for (int idx = tid; idx < KE * NH; idx += nt) {
-    const int k = idx / NH, hh = idx % NH;
-    const float* qv = s.qv + (k / K) * H;
-    float acc = 0.f;
-    for (int c = 0; c < dh; ++c)
-      acc += s.kv[k * PP + hh * dh + c] * qv[hh * dh + c];
-    s.sc[idx] = acc / sqrtf((float)dh);
+  for (int c0 = 0; c0 < KE; c0 += s.KC) {
+    const int kc = imin(s.KC, KE - c0);
+    // features over (edge, rbf) pairs, then the 16 closing columns of a
+    // row: edge type (4), dire (9), zero pad (3)
+    for (int idx = tid; idx < kc * NRBF; idx += nt) {
+      const int k = idx / NRBF, q = idx % NRBF;
+      const float df = s.dist[c0 + k] - c_rbf_off[q];
+      const float g = expf(RBF_COEFF * (df * df));
+      const float* et = FP(T_EDGE_TYPE) + (e0 + c0 + k) * 4;
+      float* f = s.feat + k * FEP;
+      for (int t4 = 0; t4 < 4; ++t4) f[t4 * NRBF + q] = et[t4] * g;
+    }
+    for (int idx = tid; idx < kc * 16; idx += nt) {
+      const int k = idx / 16, o = idx % 16;
+      float v = 0.f;
+      if (o < 4) {
+        v = FP(T_EDGE_TYPE)[(e0 + c0 + k) * 4 + o];
+      } else if (o < 13) {
+        const float* d3 = s.d3 + (c0 + k) * 3;
+        v = d3[0] * dire_W[o - 4] + d3[1] * dire_W[9 + o - 4] +
+            d3[2] * dire_W[18 + o - 4] + dire_b[o - 4];
+      }
+      s.feat[k * FEP + 80 + o] = v;
+    }
+    __syncthreads();
+    mm(s.feat, FEP, kc, wmat(e_W + lo, 4 * H), FE, 2 * H, e_b + lo, s.pre,
+       PP, false, s.ring);
+    for (int idx = tid; idx < kc * (H >> 1); idx += nt) {
+      const int k = idx / (H >> 1), c = (idx % (H >> 1)) * 4, ke = c0 + k;
+      const float mk = s.emask[ke];
+      const float4 sv = ld4(P + ((size_t)b * N + s.src[ke]) * PW + 2 * H + c);
+      const float4 dv = ld4(Pn + (ke / K) * PW + c);
+      float* o = s.pre + k * PP + c;
+      const float4 v = ld4(o);
+      st4(o, make_float4(v.x + (mk * sv.x + dv.x), v.y + (mk * sv.y + dv.y),
+                         v.z + (mk * sv.z + dv.z), v.w + (mk * sv.w + dv.w)));
+    }
+    __syncthreads();
+    ln_rows(s.pre, PP, kc, H, e_ln_s + ln_row * H, e_ln_b + ln_row * H, true);
+    ln_rows(s.pre + H, PP, kc, H, e_ln_s + (ln_row + 1) * H,
+            e_ln_b + (ln_row + 1) * H, true);
+    __syncthreads();
+    mm(s.pre, PP, kc, wmat(k2W, H), H, H, k2b, s.kv, PP, false, s.ring);
+    mm(s.pre + H, PP, kc, wmat(v2W, Nv), H, Nv, v2b, s.v + c0 * s.ldv,
+       s.ldv, false, s.ring);
+    for (int idx = tid; idx < kc * NH; idx += nt) {
+      const int k = idx / NH, hh = idx % NH;
+      const float* qv = s.qv + ((c0 + k) / K) * H;
+      float acc = 0.f;
+      for (int c = 0; c < dh; ++c)
+        acc += s.kv[k * PP + hh * dh + c] * qv[hh * dh + c];
+      s.sc[c0 * NH + idx] = acc / sqrtf((float)dh);
+    }
+    __syncthreads();
   }
   for (int idx = tid; idx < KE * Nv; idx += nt) {
     const int k = idx / Nv, c = idx % Nv;
-    s.kv[k * PP + H + c] *= s.ew[k];
+    s.v[k * s.ldv + c] *= s.ew[k];
   }
   __syncthreads();
   for (int g = 0; g < G; ++g)
@@ -840,7 +931,7 @@ __device__ void node_body(const Dims& d, const Args& a, float* sm, int R,
   const int tid = threadIdx.x;
   const int N = d.NP + d.NL, H = d.H, NH = d.heads, dh = H / NH;
   const Lay L = stage_layout(d, H, R, true, false, G);
-  const EdgeSmem s = edge_smem(sm, L);
+  const EdgeSmem s = edge_smem(sm, L, d.H);
   const bool one_pass = R >= d.NL;
   float *rows = sm + L.rows, *scb = sm + L.scb;
   float* vall = one_pass ? rows : sm + L.vall;
@@ -856,8 +947,8 @@ __device__ void node_body(const Dims& d, const Args& a, float* sm, int R,
                  FP(NA_E_B2) + H, H, 4 * H, FP(NA_Q_B0), FP(NA_Q_LN_S),
                  FP(NA_Q_LN_B), qW1, FP(NA_Q_B1));
   for (int g = 0; g < G; ++g)
-    pool_cols(s.sc + g * d.K * NH, NH, s.kv + H + g * d.K * (2 * H + PD),
-              2 * H + PD, d.K, H, dh, outv + g * H, false, s.ring);
+    pool_cols(s.sc + g * d.K * NH, NH, s.v + g * d.K * s.ldv, s.ldv, d.K, H,
+              dh, outv + g * H, false, s.ring);
   int nsrc = -1;
   for (int g = 0; g < G; ++g) {
     const int n = n0 + g;
@@ -916,8 +1007,8 @@ __device__ void pos_body(const Dims& d, const Args& a, float* sm,
   const int lane = tid & 31, warp = tid >> 5;
   const int NP = d.NP, N = NP + d.NL, H = d.H, NH = d.heads;
   const int n = NP + dl;
-  const int PW = 10 * H, PP = 2 * H + PD;
-  const EdgeSmem s = edge_smem(sm, L);
+  const int PW = 10 * H;
+  const EdgeSmem s = edge_smem(sm, L, d.H);
   float *rows = sm + L.rows, *vall = sm + L.vall, *scb = sm + L.scb;
   float *outv = sm + L.outv, *wp = sm + L.wp, *dxe = sm + L.misc;  // [3]
   const float* xb = FP(PA_X) + (size_t)b * N * 3;
@@ -936,7 +1027,7 @@ __device__ void pos_body(const Dims& d, const Args& a, float* sm,
   if (tid < d.K) {
     float we = 0.f;
     for (int hh = 0; hh < NH; ++hh)
-      we += s.sc[tid * NH + hh] * s.kv[tid * PP + H + hh];
+      we += s.sc[tid * NH + hh] * s.v[tid * s.ldv + hh];
     outv[tid] = we / NH;
   }
   const float* Pn = P + ((size_t)b * N + n) * PW;
@@ -1034,7 +1125,8 @@ __host__ __device__ inline PreLay pre_layout(const Dims& d, int R) {
 
 // Stage B1 for ligand atom j of graph b. PB points at the graph's first
 // ligand row of the node projections h @ nodeB_W (columns [0, 2Wt+H) of
-// rows of pitch PBW).
+// rows of pitch PBW). BT: element type of pre_t and q_z (see Blk).
+template <class BT>
 __device__ void trip_pre_body(const Dims& d, const Args& a, float* sm, int R,
                               int b, int j, const float* PB, int PBW) {
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -1113,8 +1205,9 @@ __device__ void trip_pre_body(const Dims& d, const Args& a, float* sm, int R,
     __syncthreads();
     for (int idx = tid; idx < ni * H4; idx += nt) {
       const int i = idx / H4, c = (idx % H4) * 4;
-      st4(OUTP(TP_QZ) + (((size_t)b * NL + j) * NL + i0 + i) * H + c,
-          ld4(qp + i * PH + c));
+      Blk<BT>::st(reinterpret_cast<BT*>(const_cast<void*>(a.p[TP_QZ])) +
+                      (((size_t)b * NL + j) * NL + i0 + i) * H + c,
+                  ld4(qp + i * PH + c));
     }
   }
   __syncthreads();
@@ -1127,7 +1220,8 @@ __device__ void trip_pre_body(const Dims& d, const Args& a, float* sm, int R,
   const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
   const int ntask = NL * K8;
   float* stw = rows + warp * 32 * Wt;
-  float* outp = OUTP(TP_PRE_T) + ((size_t)b * NL + j) * NL * K8 * Wt;
+  BT* outp = reinterpret_cast<BT*>(const_cast<void*>(a.p[TP_PRE_T])) +
+             ((size_t)b * NL + j) * NL * K8 * Wt;
   for (int t0 = warp * 32; t0 < ntask; t0 += nw * 32) {
     const int t = t0 + lane;
     float mu = 0.f, rs = 0.f;
@@ -1185,18 +1279,20 @@ __device__ void trip_pre_body(const Dims& d, const Args& a, float* sm, int R,
         y.y = fmaxf((v.y - m_) * r_ * ls.y + lb.y, 0.f);
         y.z = fmaxf((v.z - m_) * r_ * ls.z + lb.z, 0.f);
         y.w = fmaxf((v.w - m_) * r_ * ls.w + lb.w, 0.f);
-        st4(outp + (size_t)t0 * Wt + q * 4, y);
+        Blk<BT>::st(outp + (size_t)t0 * Wt + q * 4, y);
       }
     }
     __syncwarp();
   }
 }
 
+template <class BT>
 __global__ void __launch_bounds__(NT, 1)
 trip_pre_kernel(Dims d, Args a, int R, const float* P0, int gstride, int PW) {
   extern __shared__ float sm[];
   const int b = blockIdx.y;
-  trip_pre_body(d, a, sm, R, b, blockIdx.x, P0 + (size_t)b * gstride, PW);
+  trip_pre_body<BT>(d, a, sm, R, b, blockIdx.x, P0 + (size_t)b * gstride,
+                    PW);
 }
 
 // --------------------------------------- stage B2: triplet head attention
@@ -1224,8 +1320,9 @@ __device__ AttSmem att_smem(const Dims& d, float* sm, const Lay& L) {
 // sources of j, pool, t_out_W; heads in groups of att_head_group(d). ROW:
 // the pairs are (j0, i0 + p), one row of the bond grid; else (j0 + p, i0),
 // one column. The new bond features go to TA_OUT and stay in out[p][ldo]
-// (shared memory); a block barrier ends it.
-template <bool ROW>
+// (shared memory); a block barrier ends it. BT: element type of pre_t and
+// q_z (see Blk); the warps' pre_t tiles hold it as it is stored.
+template <bool ROW, class BT>
 __device__ void trip_att_pairs(const Dims& d, const Args& a, const AttSmem& s,
                                int b, int j0, int i0, int np, float* out,
                                int ldo) {
@@ -1238,13 +1335,16 @@ __device__ void trip_att_pairs(const Dims& d, const Args& a, const AttSmem& s,
   const float* ml = FP(TA_MASK_L) + (size_t)b * NL;
   const float inv_sw = (float)(1.0 / sqrt((double)Wt));
   const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
-  float* ptw = s.pt + warp * K8 * Wt;  // the warp's tile [K8][Wt], rotated
+  const BT* qz = reinterpret_cast<const BT*>(a.p[TA_QZ]);
+  const BT* pt = reinterpret_cast<const BT*>(a.p[TA_PRE_T]);
+  // the warp's tile [K8][Wt], rotated
+  BT* ptw = reinterpret_cast<BT*>(s.pt) + warp * K8 * Wt;
   float* alw = s.alw + warp * 128;     // softmax weights [k][4 heads]
   for (int hg0 = 0; hg0 < NH; hg0 += HG) {
     const int nhg = imin(HG, NH - hg0), gw = nhg * Wt;
     for (int idx = tid; idx < np * H4; idx += nt) {
       const int p = idx / H4, c = (idx % H4) * 4;
-      st4(s.qz + p * PH + c, ld4(FP(TA_QZ) + PAIR(p) * H + c));
+      st4(s.qz + p * PH + c, Blk<BT>::ld(qz + PAIR(p) * H + c));
     }
     __syncthreads();
     // q_h = q_z @ tq_W1[h] + tq_b1[h]; column h*Wt + w of the group
@@ -1261,10 +1361,10 @@ __device__ void trip_att_pairs(const Dims& d, const Args& a, const AttSmem& s,
         for (int c = lane; c < gw; c += 32) qrow[c] = 0.f;
         continue;
       }
-      const float* src = FP(TA_PRE_T) + PAIR(p) * K8 * Wt;
+      const BT* src = pt + PAIR(p) * K8 * Wt;
       for (int q = lane; q < K8 * W4; q += 32) {
         const int k = q / W4, c4 = q % W4;
-        cp_async16(ptw + k * Wt + rot4(c4, k, W4) * 4, src + q * 4);
+        Blk<BT>::cp(ptw + k * Wt + rot4(c4, k, W4) * 4, src + q * 4);
       }
       float vf = 0.f;
       if (lane < K8) {
@@ -1279,7 +1379,7 @@ __device__ void trip_att_pairs(const Dims& d, const Args& a, const AttSmem& s,
 #pragma unroll
       for (int c4 = 0; c4 < 8; ++c4)
         trow[c4] = lane < K8 && c4 < W4
-                       ? ld4(ptw + lane * Wt + rot4(c4, lane, W4) * 4)
+                       ? Blk<BT>::ld(ptw + lane * Wt + rot4(c4, lane, W4) * 4)
                        : make_float4(0.f, 0.f, 0.f, 0.f);
       for (int h0 = 0; h0 < nhg; h0 += 4) {
         const int hc = imin(4, nhg - h0);
@@ -1335,8 +1435,8 @@ __device__ void trip_att_pairs(const Dims& d, const Args& a, const AttSmem& s,
 #pragma unroll 4
           for (int k = 0; k < K8; ++k) {
             const float4 a4 = ld4(alw + k * 4);
-            const float tv =
-                ptw[k * Wt + rot4(lane >> 2, k, W4) * 4 + (lane & 3)];
+            const float tv = Blk<BT>::at(
+                ptw + k * Wt + rot4(lane >> 2, k, W4) * 4 + (lane & 3));
             acc[0] = fmaf(a4.x, tv, acc[0]);
             acc[1] = fmaf(a4.y, tv, acc[1]);
             acc[2] = fmaf(a4.z, tv, acc[2]);
@@ -1385,6 +1485,7 @@ __device__ void trip_att_void_pairs(const Dims& d, const Args& a, int b,
   }
 }
 
+template <class BT>
 __global__ void __launch_bounds__(NT, 1)
 trip_att_kernel(Dims d, Args a, int R) {
   extern __shared__ float sm[];
@@ -1397,8 +1498,8 @@ trip_att_kernel(Dims d, Args a, int R) {
       valid_sources(ml, d.NL, reinterpret_cast<int*>(sm + L.misc + 3));
   const int nv = ml[j] != 0.f ? imax(0, imin(np, nsrc - i0)) : 0;
   if (nv > 0)
-    trip_att_pairs<true>(d, a, att_smem(d, sm, L), b, j, i0, nv, sm + L.rows,
-                         d.H + PD);
+    trip_att_pairs<true, BT>(d, a, att_smem(d, sm, L), b, j, i0, nv,
+                             sm + L.rows, d.H + PD);
   trip_att_void_pairs<true>(d, a, b, j, i0, nv, np);
 }
 
@@ -1412,15 +1513,17 @@ trip_att_kernel(Dims d, Args a, int R) {
 // C's first layer. hb_new is never read back, and no block waits for
 // another. B2's scratch lies over C's first- and second-layer tiles (they
 // are idle while the rows are made).
+template <class BT>
 struct AttRows {
   const Args* ta;
   AttSmem s;
   __device__ void operator()(const Dims& d, int b, int dl, int s0, int ns,
                              float* rows) const {
-    trip_att_pairs<false>(d, *ta, s, b, s0, dl, ns, rows, d.H + PD);
+    trip_att_pairs<false, BT>(d, *ta, s, b, s0, dl, ns, rows, d.H + PD);
   }
 };
 
+template <class BT>
 __global__ void __launch_bounds__(NT, 1)
 att_pos_kernel(Dims d, Args ap, Args ta, int R) {
   extern __shared__ float sm[];
@@ -1434,7 +1537,7 @@ att_pos_kernel(Dims d, Args ap, Args ta, int R) {
   const int nsrc = valid_sources(FP(T_MASK_L) + (size_t)b * d.NL, d.NL,
                                  reinterpret_cast<int*>(sm + L.misc + 3));
   trip_att_void_pairs<false>(d, ta, b, 0, dl, nsrc, d.NL);
-  pos_body(d, ap, sm, L, b, dl, nsrc, AttRows{&ta, att_smem(d, sm, L)});
+  pos_body(d, ap, sm, L, b, dl, nsrc, AttRows<BT>{&ta, att_smem(d, sm, L)});
 }
 
 // ------------------------------------------------------------ host entries
@@ -1529,15 +1632,16 @@ static int launch_node(const Dims& d, const Args& a, int PW,
 
 // P0: graph 0's first ligand row of the B1 node projections; gstride:
 // floats from one graph's rows to the next's; PW: row pitch.
+template <class BT>
 static int launch_trip_pre(const Dims& d, const Args& a, const float* P0,
                            int gstride, int PW, cudaStream_t st) {
   const int R = plan_rows(PLAN_TRIP_PRE, d);
   if (!R) return (int)cudaErrorInvalidValue;
   const size_t bytes = plan_bytes(PLAN_TRIP_PRE, d, R);
-  cudaFuncSetAttribute(trip_pre_kernel,
+  cudaFuncSetAttribute(trip_pre_kernel<BT>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  trip_pre_kernel<<<dim3(d.NL, d.B), NT, bytes, st>>>(d, a, R, P0, gstride,
-                                                       PW);
+  trip_pre_kernel<BT><<<dim3(d.NL, d.B), NT, bytes, st>>>(d, a, R, P0,
+                                                           gstride, PW);
   return (int)cudaGetLastError();
 }
 
@@ -1549,6 +1653,118 @@ static int copy_phore_rows(const Dims& d, const float* x, float* out,
   return (int)cudaMemcpy2DAsync(out, pitch, x, pitch,
                                 (size_t)d.NP * 3 * sizeof(float), d.B,
                                 cudaMemcpyDeviceToDevice, st);
+}
+
+// The stage entries whose blocks pre_t and q_z have element type BT. Each
+// has an entry for float blocks and one for bf16 blocks (`_bf16`), with the
+// same pointer slots and dims.
+
+// Stage B1. Pointer slots: see the TP_* enum.
+template <class BT>
+static int stage_trip_pre(const void* const* p, int np, const int* dims,
+                          void* stream) {
+  if (np != TP_COUNT) return (int)cudaErrorInvalidValue;
+  const Dims d = read_dims(dims);
+  if (!dims_ok(d)) return (int)cudaErrorInvalidValue;
+  const Args a = read_args(p, np);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int N = d.NP + d.NL, PBW = 2 * d.Wt + d.H;
+  int rc = launch_rows_gemm(FP(TP_H), d.H, d.B * d.NL, d.NL, N, d.NP, d.H,
+                            FP(TP_W), PBW, OUTP(TP_PB), st);
+  if (rc) return rc;
+  return launch_trip_pre<BT>(d, a, FP(TP_PB), d.NL * PBW, PBW, st);
+}
+
+// Stage B2. Pointer slots: see the TA_* enum.
+template <class BT>
+static int stage_trip_att(const void* const* p, int np, const int* dims,
+                          void* stream) {
+  if (np != TA_COUNT) return (int)cudaErrorInvalidValue;
+  const Dims d = read_dims(dims);
+  if (!dims_ok(d)) return (int)cudaErrorInvalidValue;
+  const Args a = read_args(p, np);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int R = plan_rows(PLAN_TRIP_ATT, d);
+  if (!R) return (int)cudaErrorInvalidValue;
+  const size_t bytes = plan_bytes(PLAN_TRIP_ATT, d, R);
+  cudaFuncSetAttribute(trip_att_kernel<BT>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  trip_att_kernel<BT><<<dim3((d.NL + R - 1) / R, d.NL, d.B), NT, bytes, st>>>(
+      d, a, R);
+  return (int)cudaGetLastError();
+}
+
+// Merged stage A + B1. Pointer slots: stage A's (NA_*, T_*; slot NA_W holds
+// [nodeA_W | nodeB_W]), then pre_t, q_z, trip_idx and stage B1's weights
+// from TP_T_WHB on. One rows_gemm gives h @ [nodeA_W | nodeB_W] for both
+// roles; then A's grid and B1's grid, each with its own shared memory (B1's
+// blocks do not run under A's footprint), reading h, x and hb a second time
+// from L2 at most.
+template <class BT>
+static int stage_node_pre(const void* const* p, int np, const int* dims,
+                          void* stream) {
+  const int extra = TP_COUNT - TP_T_WHB;
+  if (np != NA_COUNT + 3 + extra) return (int)cudaErrorInvalidValue;
+  const Dims d = read_dims(dims);
+  if (!dims_ok(d)) return (int)cudaErrorInvalidValue;
+  const Args an = read_args(p, NA_COUNT);
+  Args at = read_args(p, 0);
+  at.p[TP_H] = p[NA_H];
+  at.p[TP_X] = p[NA_X];
+  at.p[TP_HB] = p[NA_HB];
+  at.p[TP_PRE_T] = p[NA_COUNT];
+  at.p[TP_QZ] = p[NA_COUNT + 1];
+  at.p[TP_TRIP_IDX] = p[NA_COUNT + 2];
+  for (int i = 0; i < extra; ++i) at.p[TP_T_WHB + i] = p[NA_COUNT + 3 + i];
+  cudaStream_t st = (cudaStream_t)stream;
+  const int N = d.NP + d.NL, PW = 10 * d.H + 2 * d.Wt + d.H;
+  const Args& a = an;
+  int rc = launch_rows_gemm(FP(NA_H), d.H, d.B * N, d.B * N, 0, 0, d.H,
+                            FP(NA_W), PW, OUTP(NA_P), st);
+  if (rc) return rc;
+  // B1 reads columns [10H, PW) of the ligand rows
+  rc = launch_trip_pre<BT>(d, at, FP(NA_P) + (size_t)d.NP * PW + 10 * d.H,
+                           N * PW, PW, st);
+  if (rc) return rc;
+  return launch_node(d, an, PW, st);
+}
+
+// Merged stage B2 + C. Pointer slots: stage C's (PA_*, T_*; PA_HB is the
+// OLD bond grid, B2's input), then pre_t, q_z, hb_new (output), trip_idx,
+// trip_mask and stage B2's weights from TA_TQ_W1 on. Phore rows of x are
+// copied as in ls_stage_pos.
+template <class BT>
+static int stage_att_pos(const void* const* p, int np, const int* dims,
+                         void* stream) {
+  const int extra = TA_COUNT - TA_TQ_W1;
+  if (np != PA_COUNT + 5 + extra) return (int)cudaErrorInvalidValue;
+  const Dims d = read_dims(dims);
+  if (!dims_ok(d)) return (int)cudaErrorInvalidValue;
+  const Args ap = read_args(p, PA_COUNT);
+  Args ta = read_args(p, 0);
+  ta.p[TA_HB] = p[PA_HB];
+  ta.p[TA_PRE_T] = p[PA_COUNT];
+  ta.p[TA_QZ] = p[PA_COUNT + 1];
+  ta.p[TA_OUT] = p[PA_COUNT + 2];
+  ta.p[TA_TRIP_IDX] = p[PA_COUNT + 3];
+  ta.p[TA_TRIP_MASK] = p[PA_COUNT + 4];
+  ta.p[TA_MASK_L] = p[T_MASK_L];
+  for (int i = 0; i < extra; ++i) ta.p[TA_TQ_W1 + i] = p[PA_COUNT + 5 + i];
+  cudaStream_t st = (cudaStream_t)stream;
+  const int N = d.NP + d.NL;
+  const Args& a = ap;
+  int rc = copy_phore_rows(d, FP(PA_X), OUTP(PA_OUT), st);
+  if (rc) return rc;
+  rc = launch_rows_gemm(FP(PA_NEW_H), d.H, d.B * N, d.B * N, 0, 0, d.H,
+                        FP(PA_W), 10 * d.H, OUTP(PA_P), st);
+  if (rc) return rc;
+  const int R = plan_rows(PLAN_ATT_POS, d);
+  if (!R) return (int)cudaErrorInvalidValue;
+  const size_t bytes = plan_bytes(PLAN_ATT_POS, d, R);
+  cudaFuncSetAttribute(att_pos_kernel<BT>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  att_pos_kernel<BT><<<dim3(d.NL, d.B), NT, bytes, st>>>(d, ap, ta, R);
+  return (int)cudaGetLastError();
 }
 
 extern "C" {
@@ -1603,108 +1819,46 @@ int ls_stage_pos(const void* const* p, int np, const int* dims, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// Stage B1. Pointer slots: see the TP_* enum.
+// Stages B1, B2, A + B1 and B2 + C (see the templates above), with float
+// blocks and with bf16 blocks.
 int ls_stage_trip_pre(const void* const* p, int np, const int* dims,
                       void* stream) {
-  if (np != TP_COUNT) return (int)cudaErrorInvalidValue;
-  const Dims d = read_dims(dims);
-  if (!dims_ok(d)) return (int)cudaErrorInvalidValue;
-  const Args a = read_args(p, np);
-  cudaStream_t st = (cudaStream_t)stream;
-  const int N = d.NP + d.NL, PBW = 2 * d.Wt + d.H;
-  int rc = launch_rows_gemm(FP(TP_H), d.H, d.B * d.NL, d.NL, N, d.NP, d.H,
-                            FP(TP_W), PBW, OUTP(TP_PB), st);
-  if (rc) return rc;
-  return launch_trip_pre(d, a, FP(TP_PB), d.NL * PBW, PBW, st);
+  return stage_trip_pre<float>(p, np, dims, stream);
 }
 
-// Stage B2. Pointer slots: see the TA_* enum.
+int ls_stage_trip_pre_bf16(const void* const* p, int np, const int* dims,
+                           void* stream) {
+  return stage_trip_pre<bf16>(p, np, dims, stream);
+}
+
 int ls_stage_trip_att(const void* const* p, int np, const int* dims,
                       void* stream) {
-  if (np != TA_COUNT) return (int)cudaErrorInvalidValue;
-  const Dims d = read_dims(dims);
-  if (!dims_ok(d)) return (int)cudaErrorInvalidValue;
-  const Args a = read_args(p, np);
-  cudaStream_t st = (cudaStream_t)stream;
-  const int R = plan_rows(PLAN_TRIP_ATT, d);
-  if (!R) return (int)cudaErrorInvalidValue;
-  const size_t bytes = plan_bytes(PLAN_TRIP_ATT, d, R);
-  cudaFuncSetAttribute(trip_att_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  trip_att_kernel<<<dim3((d.NL + R - 1) / R, d.NL, d.B), NT, bytes, st>>>(
-      d, a, R);
-  return (int)cudaGetLastError();
+  return stage_trip_att<float>(p, np, dims, stream);
 }
 
-// Merged stage A + B1. Pointer slots: stage A's (NA_*, T_*; slot NA_W holds
-// [nodeA_W | nodeB_W]), then pre_t, q_z, trip_idx and stage B1's weights
-// from TP_T_WHB on. One rows_gemm gives h @ [nodeA_W | nodeB_W] for both
-// roles; then A's grid and B1's grid, each with its own shared memory (B1's
-// blocks do not run under A's footprint), reading h, x and hb a second time
-// from L2 at most.
+int ls_stage_trip_att_bf16(const void* const* p, int np, const int* dims,
+                           void* stream) {
+  return stage_trip_att<bf16>(p, np, dims, stream);
+}
+
 int ls_stage_node_pre(const void* const* p, int np, const int* dims,
                       void* stream) {
-  const int extra = TP_COUNT - TP_T_WHB;
-  if (np != NA_COUNT + 3 + extra) return (int)cudaErrorInvalidValue;
-  const Dims d = read_dims(dims);
-  if (!dims_ok(d)) return (int)cudaErrorInvalidValue;
-  const Args an = read_args(p, NA_COUNT);
-  Args at = read_args(p, 0);
-  at.p[TP_H] = p[NA_H];
-  at.p[TP_X] = p[NA_X];
-  at.p[TP_HB] = p[NA_HB];
-  at.p[TP_PRE_T] = p[NA_COUNT];
-  at.p[TP_QZ] = p[NA_COUNT + 1];
-  at.p[TP_TRIP_IDX] = p[NA_COUNT + 2];
-  for (int i = 0; i < extra; ++i) at.p[TP_T_WHB + i] = p[NA_COUNT + 3 + i];
-  cudaStream_t st = (cudaStream_t)stream;
-  const int N = d.NP + d.NL, PW = 10 * d.H + 2 * d.Wt + d.H;
-  const Args& a = an;
-  int rc = launch_rows_gemm(FP(NA_H), d.H, d.B * N, d.B * N, 0, 0, d.H,
-                            FP(NA_W), PW, OUTP(NA_P), st);
-  if (rc) return rc;
-  // B1 reads columns [10H, PW) of the ligand rows
-  rc = launch_trip_pre(d, at, FP(NA_P) + (size_t)d.NP * PW + 10 * d.H, N * PW,
-                       PW, st);
-  if (rc) return rc;
-  return launch_node(d, an, PW, st);
+  return stage_node_pre<float>(p, np, dims, stream);
 }
 
-// Merged stage B2 + C. Pointer slots: stage C's (PA_*, T_*; PA_HB is the
-// OLD bond grid, B2's input), then pre_t, q_z, hb_new (output), trip_idx,
-// trip_mask and stage B2's weights from TA_TQ_W1 on. Phore rows of x are
-// copied as in ls_stage_pos.
+int ls_stage_node_pre_bf16(const void* const* p, int np, const int* dims,
+                           void* stream) {
+  return stage_node_pre<bf16>(p, np, dims, stream);
+}
+
 int ls_stage_att_pos(const void* const* p, int np, const int* dims,
                      void* stream) {
-  const int extra = TA_COUNT - TA_TQ_W1;
-  if (np != PA_COUNT + 5 + extra) return (int)cudaErrorInvalidValue;
-  const Dims d = read_dims(dims);
-  if (!dims_ok(d)) return (int)cudaErrorInvalidValue;
-  const Args ap = read_args(p, PA_COUNT);
-  Args ta = read_args(p, 0);
-  ta.p[TA_HB] = p[PA_HB];
-  ta.p[TA_PRE_T] = p[PA_COUNT];
-  ta.p[TA_QZ] = p[PA_COUNT + 1];
-  ta.p[TA_OUT] = p[PA_COUNT + 2];
-  ta.p[TA_TRIP_IDX] = p[PA_COUNT + 3];
-  ta.p[TA_TRIP_MASK] = p[PA_COUNT + 4];
-  ta.p[TA_MASK_L] = p[T_MASK_L];
-  for (int i = 0; i < extra; ++i) ta.p[TA_TQ_W1 + i] = p[PA_COUNT + 5 + i];
-  cudaStream_t st = (cudaStream_t)stream;
-  const int N = d.NP + d.NL;
-  const Args& a = ap;
-  int rc = copy_phore_rows(d, FP(PA_X), OUTP(PA_OUT), st);
-  if (rc) return rc;
-  rc = launch_rows_gemm(FP(PA_NEW_H), d.H, d.B * N, d.B * N, 0, 0, d.H,
-                        FP(PA_W), 10 * d.H, OUTP(PA_P), st);
-  if (rc) return rc;
-  const int R = plan_rows(PLAN_ATT_POS, d);
-  if (!R) return (int)cudaErrorInvalidValue;
-  const size_t bytes = plan_bytes(PLAN_ATT_POS, d, R);
-  cudaFuncSetAttribute(att_pos_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  att_pos_kernel<<<dim3(d.NL, d.B), NT, bytes, st>>>(d, ap, ta, R);
-  return (int)cudaGetLastError();
+  return stage_att_pos<float>(p, np, dims, stream);
+}
+
+int ls_stage_att_pos_bf16(const void* const* p, int np, const int* dims,
+                          void* stream) {
+  return stage_att_pos<bf16>(p, np, dims, stream);
 }
 
 }  // extern "C"

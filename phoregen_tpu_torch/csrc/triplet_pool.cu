@@ -43,10 +43,20 @@
 //   inside the range the element mask still applies (a masked triplet gets
 //   weight 0), so a mask with holes gives the reference's result. Each
 //   block zeroes the rows of its own TP_WARPS slots that are no target.
-// - Widths. Wt is a multiple of 4 up to 32, heads at most 32. The
-//   flagship's Wt = 32 and 16 heads get a build with both fixed at compile
-//   time; other widths run the general build. With only the heads fixed
-//   the flagship's build spills and runs 15-18% slower, so Wt is fixed too.
+// - Widths. Wt up to 32, heads at most 32 (`ops/pallas_triplet.py` splits
+//   more heads into groups of at most 32, one launch each). The inputs'
+//   feature rows are padded to a multiple of 4 (Wp = up4(Wt), zeros past
+//   Wt in a_kj, a_ji, q, w_ang and the LayerNorm parameters; the wrapper
+//   pads them): the padded features of a pre row are 0 before the
+//   LayerNorm, which takes its mean and variance over the true Wt, and
+//   meet zero query features, so they change no score; the output's
+//   padded features are dropped by the wrapper. num_ang is any count:
+//   above 7 (more bands than the lane's registers hold) the general build
+//   takes each band's sincosf twice, once for its sine row and once for
+//   its cosine row. The flagship's Wt = 32 and 16 heads (num_ang <= 7) get
+//   a build with both fixed at compile time; other widths run the general
+//   build. With only the heads fixed the flagship's build spills and runs
+//   15-18% slower, so Wt is fixed too.
 // - Bound on the H100: the function writes the output once in full
 //   (B*N*N*heads*Wt*4 bytes) and reads q once on the pairs of two valid
 //   atoms, the bulk of its traffic, and does about (2*NENC + 8 + 4*heads)
@@ -234,7 +244,7 @@ struct TPLay {
 
 __host__ __device__ inline TPLay tp_layout(const TPDims& d) {
   TPLay L;
-  const int Wt = d.Wt, NENC = 1 + 4 * d.num_ang;
+  const int Wt = up4(d.Wt), NENC = 1 + 4 * d.num_ang;
   L.NHP = up4(d.heads);
   L.AP = odd_pitch(Wt);
   L.PP = odd_pitch(Wt);
@@ -264,7 +274,7 @@ __host__ __device__ inline TPLay tp_layout(const TPDims& d) {
 }
 
 // W4C, NHC: Wt / 4 and heads fixed at compile time (the flagship's 8 and
-// 16), or 0 for the widths of `d`.
+// 16), or 0 for the widths of `d` (rows of up4(d.Wt) features).
 template <int W4C, int NHC>
 __global__ void __launch_bounds__(TP_NT, 2)
 triplet_pool_kernel(TPDims d, const float* __restrict__ a_kj,
@@ -279,7 +289,9 @@ triplet_pool_kernel(TPDims d, const float* __restrict__ a_kj,
   const TPLay L = tp_layout(d);
   const int i0 = blockIdx.x * TP_WARPS, j = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int W4 = W4C ? W4C : d.Wt >> 2, Wt = 4 * W4;
+  const int W4 = W4C ? W4C : (d.Wt + 3) >> 2, Wt = 4 * W4;
+  // the true width: the LayerNorm's and the scores' scale
+  const float wv = W4C ? (float)Wt : (float)d.Wt;
   const int NH = NHC ? NHC : d.heads, HW = NH * Wt;
   const int N = d.N;
   const int NA = d.num_ang, NENC = 1 + 4 * NA;
@@ -390,7 +402,7 @@ triplet_pool_kernel(TPDims d, const float* __restrict__ a_kj,
   const float njsq = __fadd_rn(
       __fadd_rn(__fmul_rn(rjx, rjx), __fmul_rn(rjy, rjy)),
       __fmul_rn(rjz, rjz));
-  const float inv_sw = 1.f / sqrtf((float)Wt);
+  const float inv_sw = 1.f / sqrtf(wv);
   const int NHP = NHC ? (NHC + 3) & ~3 : L.NHP;
   const int P = 32 / NHP;  // lanes a head in the softmax
   const int ntask = (NHP >> 2) * W4;
@@ -425,34 +437,50 @@ triplet_pool_kernel(TPDims d, const float* __restrict__ a_kj,
           y[c4] = make_float4(ang * w4.x, ang * w4.y, ang * w4.z, ang * w4.w);
         }
       }
-      // band NA has frequency 1/1, as band 0: its sine and cosine are reused
-      float cs[TP_MAX_BANDS], s0 = 0.f;
+      if (W4C != 0 || 2 * NA <= TP_MAX_BANDS) {
+        // band NA has frequency 1/1, as band 0: its sine and cosine are
+        // reused
+        float cs[TP_MAX_BANDS], s0 = 0.f;
 #pragma unroll
-      for (int m = 0; m < TP_MAX_BANDS; ++m) {
-        cs[m] = 0.f;
-        if (m < 2 * NA) {
-          float s, c;
-          if (m > 0 && m == NA) {
-            s = s0;
-            c = cs[0];
-          } else {
-            sincosf(ang * fr[m], &s, &c);
+        for (int m = 0; m < TP_MAX_BANDS; ++m) {
+          cs[m] = 0.f;
+          if (m < 2 * NA) {
+            float s, c;
+            if (m > 0 && m == NA) {
+              s = s0;
+              c = cs[0];
+            } else {
+              sincosf(ang * fr[m], &s, &c);
+            }
+            if (m == 0) s0 = s;
+            cs[m] = c;
+            const float* wrow = wang + (1 + m) * Wt;
+#pragma unroll
+            for (int c4 = 0; c4 < 8; ++c4)
+              if (c4 < W4) fma4(y[c4], s, ld4(wrow + c4 * 4));
           }
-          if (m == 0) s0 = s;
-          cs[m] = c;
-          const float* wrow = wang + (1 + m) * Wt;
-#pragma unroll
-          for (int c4 = 0; c4 < 8; ++c4)
-            if (c4 < W4) fma4(y[c4], s, ld4(wrow + c4 * 4));
         }
-      }
 #pragma unroll
-      for (int m = 0; m < TP_MAX_BANDS; ++m) {
-        if (m < 2 * NA) {
-          const float* wrow = wang + (1 + 2 * NA + m) * Wt;
+        for (int m = 0; m < TP_MAX_BANDS; ++m) {
+          if (m < 2 * NA) {
+            const float* wrow = wang + (1 + 2 * NA + m) * Wt;
 #pragma unroll
-          for (int c4 = 0; c4 < 8; ++c4)
-            if (c4 < W4) fma4(y[c4], cs[m], ld4(wrow + c4 * 4));
+            for (int c4 = 0; c4 < 8; ++c4)
+              if (c4 < W4) fma4(y[c4], cs[m], ld4(wrow + c4 * 4));
+          }
+        }
+      } else {
+        // more bands than registers hold: the sines, then the cosines, in
+        // the same order, each band's sincosf taken once for each
+        for (int h = 0; h < 2; ++h) {
+          for (int m = 0; m < 2 * NA; ++m) {
+            float s, c;
+            sincosf(ang * fr[m], &s, &c);
+            const float* wrow = wang + (1 + 2 * NA * h + m) * Wt;
+#pragma unroll
+            for (int c4 = 0; c4 < 8; ++c4)
+              if (c4 < W4) fma4(y[c4], h ? c : s, ld4(wrow + c4 * 4));
+          }
         }
       }
       // + a_kj[k, j] + a_ji[j, i], then LayerNorm and the activation
@@ -468,7 +496,7 @@ triplet_pool_kernel(TPDims d, const float* __restrict__ a_kj,
         }
       }
       if (d.norm) {
-        const float mu = s1 / Wt;
+        const float mu = s1 / wv;
         float s2 = 0.f;
 #pragma unroll
         for (int c4 = 0; c4 < 8; ++c4) {
@@ -478,7 +506,10 @@ triplet_pool_kernel(TPDims d, const float* __restrict__ a_kj,
                   ((v.z - mu) * (v.z - mu) + (v.w - mu) * (v.w - mu));
           }
         }
-        const float rs = rsqrtf(s2 / Wt + LN_EPS_F);
+        // the padded features (0, past the true width) are no part of the
+        // variance
+        if (W4C == 0) s2 -= (Wt - d.Wt) * (mu * mu);
+        const float rs = rsqrtf(s2 / wv + LN_EPS_F);
 #pragma unroll
         for (int c4 = 0; c4 < 8; ++c4) {
           if (c4 < W4) {
@@ -584,17 +615,17 @@ typedef decltype(&triplet_pool_kernel<0, 0>) TPKernel;
 
 // The flagship's widths get the build with them fixed at compile time.
 static TPKernel tp_kernel(const TPDims& d) {
-  return d.Wt == 32 && d.heads == 16 ? triplet_pool_kernel<8, 16>
-                                     : triplet_pool_kernel<0, 0>;
+  return d.Wt == 32 && d.heads == 16 && 2 * d.num_ang <= TP_MAX_BANDS
+             ? triplet_pool_kernel<8, 16>
+             : triplet_pool_kernel<0, 0>;
 }
 
 static int tp_dims(const int* dims, TPDims* d) {
   d->B = dims[0]; d->N = dims[1]; d->heads = dims[2]; d->Wt = dims[3];
   d->num_ang = dims[4]; d->norm = dims[5]; d->act = dims[6];
   if (d->B < 1 || d->B > 65535 || d->N < 1 || d->N > 65535 || d->heads < 1 ||
-      d->heads > 32 ||
-      d->Wt < 4 || d->Wt > 32 || d->Wt % 4 != 0 || d->num_ang < 1 ||
-      2 * d->num_ang > TP_MAX_BANDS || d->act < 0 || d->act >= ACT_COUNT)
+      d->heads > 32 || d->Wt < 1 || d->Wt > 32 || d->num_ang < 1 ||
+      d->act < 0 || d->act >= ACT_COUNT)
     return (int)cudaErrorInvalidValue;
   const size_t bytes = (size_t)tp_layout(*d).total * sizeof(float);
   if (bytes > kTpMaxSmem) return (int)cudaErrorInvalidValue;
@@ -603,12 +634,12 @@ static int tp_dims(const int* dims, TPDims* d) {
 
 extern "C" {
 
-// Pointer slots: a_kj [B,N,N,Wt] (k, j), a_ji [B,N,N,Wt] (j, i),
-// q [B,N,N,heads,Wt] (j, i), pos [B,N,3], mask [B,N] (1 = valid),
-// w_ang [1+4*num_ang, Wt], ln_scale [Wt], ln_bias [Wt],
-// out [B,N,N,heads*Wt] (j, i); a_kj, a_ji, q and out 16-byte aligned.
-// dims: B, N, heads (at most 32), Wt (a multiple of 4, at most 32), num_ang
-// (at most 7), norm, act.
+// Pointer slots, every feature row padded to Wp = up4(Wt) with zeros:
+// a_kj [B,N,N,Wp] (k, j), a_ji [B,N,N,Wp] (j, i), q [B,N,N,heads,Wp] (j, i),
+// pos [B,N,3], mask [B,N] (1 = valid), w_ang [1+4*num_ang, Wp],
+// ln_scale [Wp], ln_bias [Wp], out [B,N,N,heads*Wp] (j, i); a_kj, a_ji, q
+// and out 16-byte aligned. dims: B, N, heads (at most 32), Wt (the true
+// width, at most 32), num_ang, norm, act.
 int tp_triplet_pool(const void* const* p, int np, const int* dims,
                     void* stream) {
   if (np != 9) return (int)cudaErrorInvalidValue;

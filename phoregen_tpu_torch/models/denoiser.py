@@ -22,7 +22,18 @@ attention layers. `fused_stack` selects how the stack runs:
 Every 'pallas*' value runs through `ops/layer_stack.make_layer_stack_grad`
 (kernels forward, plain stages recomputed layer by layer backward), so the
 fused stack trains; 'xla'/'xla2' are differentiated by autograd, layer by
-layer with `remat_layers`.
+layer with `remat_layers`. The fused stack takes and returns float32 (h
+and the bond grid are cast at its entry and back at its exit).
+`fused_block_dtype` 'bfloat16' means, as in the JAX package: on
+'pallas*' the inter-stage blocks pre_t and q_z are stored in bf16 between
+the kernels, all arithmetic float32, and the backward passes straight
+through the rounding; on 'xla2' the h / bond-grid carries, the packed
+weights and the feature products run in bf16
+(`ops/layer_stack.layer_stack_xla2_bf16`); 'xla' ignores it.
+
+Mixed precision (`compute_dtype`): the layers follow the dtype of h and of
+the parameters they are given (see models/layers.py); positions and the
+geometry stay float32.
 
 Layout: composed node axis = [phore(NP); ligand(NL)].
 """
@@ -39,7 +50,7 @@ from ..ops.masked import masked_mean
 from ..ops.rbf import gaussian_smearing, gaussian_smearing_offsets
 from .layers import (MLP, BondUpdateTriplet, NodeUpdateDense, NodeUpdateKNN,
                      ParamTree, PosUpdateDense, PosUpdateKNN, dense_shapes,
-                     gather_nodes)
+                     dtype_of, gather_nodes)
 
 # fused_stack values that run ops/layer_stack.py: None = through its plain
 # stages, else (merge_node_pre, merge_pos) of the kernel path
@@ -103,10 +114,8 @@ class UniDenoiser(nn.Module):
         self.fused_stack = dcfg.fused_stack
         if self.fused_stack != "none" and self.fused_stack not in FUSED_STACKS:
             raise ValueError(f"unknown fused_stack {self.fused_stack!r}")
-        if dcfg.fused_block_dtype != "float32":
-            raise NotImplementedError(
-                "fused_block_dtype='bfloat16' is not ported yet (ROADMAP.md, "
-                "'Still to port': bf16 blocks)")
+        self.block_dtype = dtype_of(dcfg.fused_block_dtype,
+                                    "fused_block_dtype")
         if dcfg.cutoff_mode not in ("knn", "radius", "hybrid"):
             raise NotImplementedError(
                 f"cutoff_mode {dcfg.cutoff_mode!r} (supported: knn, radius, "
@@ -138,14 +147,20 @@ class UniDenoiser(nn.Module):
         self.bond_update = BondUpdateTriplet(
             include_h_node=dcfg.h_node_in_bond_net, mode=dcfg.triplet_mode,
             width=dcfg.triplet_width, use_pallas=dcfg.use_pallas_triplet,
-            knn_k=dcfg.triplet_knn, **att)
+            knn_k=dcfg.triplet_knn,
+            pool_follow_dtype=dcfg.triplet_pool_follow_dtype, **att)
         self.pos_knn = PosUpdateKNN(**att)
         self.pos_bond = PosUpdateDense(**att)
 
     def _check_fused_config(self):
         """The packed-weight layout is written for the flagship
         configuration (edge-feature split [4x20 RBF | 4 type | 9 dire],
-        stacked layers, factorized kNN triplets, relu)."""
+        stacked layers, factorized kNN triplets); any cutoff_mode (the
+        hybrid table is NL + knn wide, within the kernels' K <= H at the
+        flagship's widths). The stages hard-code relu, as the JAX stack
+        does; the JAX package runs its fused stack under another act_fn
+        regardless (and so departs from its own module path), the port
+        refuses it."""
         dcfg = self.cfg
         required = dict(scan_layers=dcfg.scan_layers, norm=dcfg.norm,
                         direction_match=dcfg.direction_match,
@@ -156,7 +171,6 @@ class UniDenoiser(nn.Module):
                         use_global_ew=dcfg.use_global_ew,
                         num_r_gaussian_20=dcfg.num_r_gaussian == 20,
                         edge_feat_dim_4=dcfg.edge_feat_dim == 4,
-                        cutoff_knn=dcfg.cutoff_mode == "knn",
                         act_relu=dcfg.act_fn == "relu")
         missing = [k for k, v in required.items() if not v]
         if missing:
@@ -224,8 +238,10 @@ class UniDenoiser(nn.Module):
             if dcfg.use_global_ew:
                 diff = x[:, :, None, :] - gather_nodes(x, nbr_idx)
                 dist = torch.sqrt((diff * diff).sum(-1) + 1e-12)
+                # position-derived features drop to the feature dtype
                 e_w = torch.sigmoid(self.edge_pred_layer(
-                    gaussian_smearing(dist, offsets, coeff))[..., 0])
+                    gaussian_smearing(dist, offsets, coeff).to(h.dtype)
+                )[..., 0])
             if fused:
                 tables = ls.build_block_tables(x, node_mask, nbr_idx,
                                                nbr_mask, NP, dcfg.triplet_knn)
@@ -238,15 +254,23 @@ class UniDenoiser(nn.Module):
                     K8=min(dcfg.triplet_knn, NL - 1), H=H,
                     heads=dcfg.n_heads, Wt=dcfg.triplet_width)
                 merges = FUSED_STACKS[self.fused_stack]
-                args = (packed, h.contiguous(), x.contiguous(),
-                        h_bond.contiguous(), tables)
-                if merges is None:
-                    h, x, h_bond = ls.layer_stack(
+                # the stack runs on float32 carries whatever the feature
+                # dtype; its result goes back to it
+                args = (packed, h.float().contiguous(), x.float().contiguous(),
+                        h_bond.float().contiguous(), tables)
+                bdt = self.block_dtype
+                if self.fused_stack == "xla2" and bdt != torch.float32:
+                    out = ls.layer_stack_xla2_bf16(
+                        *args, dims, remat=dcfg.remat_layers)
+                elif merges is None:
+                    out = ls.layer_stack(
                         *args, dims, use_kernels=False,
                         remat=dcfg.remat_layers)
                 else:
-                    h, x, h_bond = ls.make_layer_stack_grad(
-                        dims, *merges)(*args)
+                    out = ls.make_layer_stack_grad(
+                        dims, *merges, block_dtype=bdt)(*args)
+                h, x, h_bond = (out[0].to(h.dtype), out[1].to(x.dtype),
+                                out[2].to(h_bond.dtype))
                 continue
             lig3 = trip = None
             if dcfg.block_knn_freeze:
@@ -278,7 +302,8 @@ class UniDenoiser(nn.Module):
         # knn edge features: outer(edge_type[4], rbf(d)[20]) -> 80, + type 4
         rel_x = x[:, :, None, :] - gather_nodes(x, nbr_idx)   # x[dst] - x[src]
         dist = torch.sqrt((rel_x * rel_x).sum(-1) + 1e-12)
-        dist_feat = gaussian_smearing(dist, offsets, coeff)   # [B,N,K,20]
+        # [B,N,K,20], the feature dtype (geometry stays float32)
+        dist_feat = gaussian_smearing(dist, offsets, coeff).to(h.dtype)
         outer = (edge_type[..., :, None] * dist_feat[..., None, :]).flatten(-2)
         edge_feat = torch.cat([outer, edge_type], -1)
         if self.cfg.direction_match:
@@ -290,7 +315,7 @@ class UniDenoiser(nn.Module):
             vec2 = comb_norm[:, :, None, :]
             vec3 = -rel_x                                     # x[src] - x[dst]
             dire = torch.stack([(vec1 * vec2).sum(-1), (vec1 * vec3).sum(-1),
-                                (vec2 * vec3).sum(-1)], -1)
+                                (vec2 * vec3).sum(-1)], -1).to(h.dtype)
             dire = dire @ p["dire_embedding"]["kernel"] \
                 + p["dire_embedding"]["bias"]
             edge_feat = torch.cat([edge_feat, dire], -1)

@@ -6,10 +6,16 @@ phore self-encoder over the fully connected phore graph, the composed
 denoiser (per-layer modules or the fused layer stack), the 12-way node
 head, the bond head ('lin' or 'pre_att') and the [lower, upper] atom-count
 interval.
+
+Mixed precision as in the JAX package: the compute dtype follows the
+feature inputs (`h_node_pert`); the caller hands bf16 features and bf16
+parameters (`apply_net`), positions and geometry stay float32, the time
+embedding and the position-derived features are cast at the feature
+boundary, and the atom-count head runs in float32.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -18,7 +24,45 @@ from ..ops.masked import masked_mean
 from ..ops.rbf import (gaussian_smearing, gaussian_smearing_offsets,
                        time_smearing, time_smearing_offsets)
 from .denoiser import UniDenoiser
-from .layers import Dense, NodeUpdateDense, ParamTree, shifted_softplus
+from .layers import (Dense, NodeUpdateDense, ParamTree, dtype_of,
+                     shifted_softplus)
+
+
+def cast_params(net: nn.Module, dtype: torch.dtype
+                ) -> Optional[Dict[str, torch.Tensor]]:
+    """The network's floating parameters in `dtype`, by name, for
+    `apply_net`; None at float32 (the parameters as they are). The cast is
+    differentiable: gradients through the copies land on the float32 master
+    parameters."""
+    if dtype == torch.float32:
+        return None
+    return {n: p.to(dtype) if p.is_floating_point() else p
+            for n, p in net.named_parameters()}
+
+
+class _Method(nn.Module):
+    """`net.<name>` as a module's forward, so that `functional_call` can
+    run any method of `net` on other parameters."""
+
+    def __init__(self, net: nn.Module, name: str):
+        super().__init__()
+        self.net = net
+        self.name = name
+
+    def forward(self, *args, **kwargs):
+        return getattr(self.net, self.name)(*args, **kwargs)
+
+
+def apply_net(net: nn.Module, params, *args, method: str = "forward",
+              **kwargs):
+    """`net.<method>(*args, **kwargs)` with the parameters `params`
+    (`cast_params`; None: the network's own), as `net.apply(params, ...,
+    method=...)` in flax."""
+    if params is None:
+        return getattr(net, method)(*args, **kwargs)
+    return torch.func.functional_call(
+        _Method(net, method), {"net." + k: v for k, v in params.items()},
+        args, kwargs)
 
 
 class PhoreDiffNet(nn.Module):
@@ -34,10 +78,7 @@ class PhoreDiffNet(nn.Module):
         self.node_embedder = Dense(cfg.num_atom_classes, H - td,
                                    use_bias=False)
         self.phore_embedding = Dense(cfg.phore_feat_dim, H)
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                "compute_dtype='bfloat16' is not ported yet (ROADMAP.md, "
-                "'Still to port': bf16)")
+        dtype_of(cfg.compute_dtype, "model.compute_dtype")
         if cfg.hp_emb_with_pos:
             self.phore_encoder = ParamTree(NodeUpdateDense.shapes(
                 1, H, d.norm, d.x2h_out_fc))
@@ -73,12 +114,15 @@ class PhoreDiffNet(nn.Module):
             d = phore_pos[:, :, None, :] - phore_pos[:, None, :, :]
             dist = torch.sqrt((d * d).sum(-1, keepdim=True) + 1e-12)
             pmask = phore_mask[:, :, None] & phore_mask[:, None, :]
-            h = self._phore_attention(self.phore_encoder.tree(), h, dist,
-                                      pmask)
+            h = self._phore_attention(self.phore_encoder.tree(), h,
+                                      dist.to(h.dtype), pmask)
         return h
 
     def predict_atom_count(self, h_p, raw_phore_x, phore_mask):
-        """[lower, upper] interval over the normalized atom count, [B, 1]."""
+        """[lower, upper] interval over the normalized atom count, [B, 1];
+        float32 whatever the compute dtype (bf16 parameters are widened by
+        `Dense`)."""
+        h_p = h_p.float()
         count_all = torch.sigmoid(self.atom_mlp_2(torch.relu(
             self.atom_mlp_0(h_p))))
         count_all = masked_mean(count_all, phore_mask[..., None], dim=1)
@@ -106,11 +150,15 @@ class PhoreDiffNet(nn.Module):
         B, NL, _ = h_node_pert.shape
         NP = phore_x.shape[1]
         H, td = cfg.hidden_dim, cfg.diff.time_dim
-        t_emb = self._time_embed(t)
+        # the compute dtype follows the features; geometry stays float32
+        cdt = h_node_pert.dtype
+        t_emb = self._time_embed(t).to(cdt)
         h_node = torch.cat([self.node_embedder(h_node_pert),
                             t_emb[:, None, :].expand(B, NL, td)], -1)
         if h_phore_emb is None:
             h_phore_emb = self.embed_phore(phore_x, phore_pos, phore_mask)
+        else:
+            h_phore_emb = h_phore_emb.to(cdt)
         h_edge = torch.cat([self.edge_embedder(h_edge_pert),
                             t_emb[:, None, None, :].expand(B, NL, NL, td)],
                            -1)
@@ -133,8 +181,9 @@ class PhoreDiffNet(nn.Module):
             d = final_pos[:, None, :, :] - final_pos[:, :, None, :]
             dist = torch.sqrt((d * d).sum(-1) + 1e-12)
             hij = (final_h[:, None, :, :] + final_h[:, :, None, :]) / 2
-            bond_in = torch.cat([gaussian_smearing(dist, offs, coeff), hij],
-                                -1)
+            # the feature dtype, like every position-derived feature
+            r_feat = gaussian_smearing(dist, offs, coeff).to(final_h.dtype)
+            bond_in = torch.cat([r_feat, hij], -1)
         else:
             raise ValueError(cfg.bond_net_type)
         pred_edge = self.bond_inference_2(shifted_softplus(

@@ -17,6 +17,17 @@ Notation: B batch, N = NP + NL composed nodes, NL ligand slots, K kNN
 width, H hidden. Two LayerNorm forms are kept apart as in the JAX package:
 the edge MLPs use E[x^2] - mu^2 (flax's fast variance), the triplet pools
 E[(x - mu)^2].
+
+Mixed precision (`compute_dtype` / `train.dtype` bfloat16) follows the JAX
+package: the layers compute in the dtype of the features and parameters
+they are given; geometry (positions, distances, angles) stays float32 and
+is cast to the feature dtype where it becomes a feature (the RBF grids, the
+angle encodings, the direction features); the exact all-k triplet pool is
+pinned to float32 and cast at its boundary; the kNN triplet pool follows
+the features with its scores and softmax in float32
+(`triplet_pool_follow_dtype`). Torch does not promote a bf16 tensor
+against a 0-d float32 one and refuses mixed matmuls, so every place where
+the JAX code widens by promotion widens explicitly here.
 """
 from __future__ import annotations
 
@@ -37,6 +48,16 @@ from ..ops.rbf import (angular_encoding, angular_encoding_freq_bands,
 
 _LN_EPS = 1e-6  # flax LayerNorm default
 
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def dtype_of(name: str, key: str = "compute dtype") -> torch.dtype:
+    """The torch dtype of a config value naming one (`compute_dtype`,
+    `train.dtype`, `fused_block_dtype`: `key` in the error)."""
+    if name not in DTYPES:
+        raise ValueError(f"{key} must be float32 or bfloat16, got {name!r}")
+    return DTYPES[name]
+
 
 def shifted_softplus(x: torch.Tensor) -> torch.Tensor:
     """softplus(x) - log(2)."""
@@ -56,7 +77,9 @@ def gather_nodes(h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 class Dense(nn.Module):
-    """y = x @ kernel + bias with flax's [in, out] kernel layout."""
+    """y = x @ kernel + bias with flax's [in, out] kernel layout; input and
+    kernel are promoted to a common dtype first, as flax's `nn.Dense` does
+    (a float32 input on bf16 parameters computes in float32)."""
 
     def __init__(self, in_dim: int, out_dim: int, use_bias: bool = True):
         super().__init__()
@@ -66,7 +89,11 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_dim)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.kernel
+        k = self.kernel
+        if x.dtype != k.dtype:
+            dt = torch.promote_types(x.dtype, k.dtype)
+            x, k = x.to(dt), k.to(dt)
+        y = x @ k
         return y if self.bias is None else y + self.bias
 
 
@@ -413,6 +440,10 @@ class BondUpdateTriplet(_AttentionSettings):
     width: int = 32
     use_pallas: bool = False
     knn_k: int = 0
+    # the kNN pool runs in the feature dtype (bf16 under mixed precision),
+    # scores and softmax in float32; no effect at float32 or on the all-k
+    # pool, which is always float32
+    pool_follow_dtype: bool = True
 
     @staticmethod
     def shapes(hidden, heads, norm=True, include_h_node=True, num_ang=3,
@@ -445,8 +476,9 @@ class BondUpdateTriplet(_AttentionSettings):
         the source restriction. Returns the bond update [B,NL,NL,H]."""
         rel = pos[:, :, None, :] - pos[:, None, :, :]         # rel[x,i] = x - i
         dist = torch.sqrt((rel * rel).sum(-1) + 1e-12)
+        # the distance features drop to the feature dtype (pos stays f32)
         r_feat = gaussian_smearing(
-            dist, *gaussian_smearing_offsets(fix_offset=True))
+            dist, *gaussian_smearing_offsets(fix_offset=True)).to(h.dtype)
         if self.mode == "factorized":
             return self._factorized(params, h, h_bond, r_feat, pos,
                                     node_mask, trip_frozen)
@@ -457,7 +489,8 @@ class BondUpdateTriplet(_AttentionSettings):
         act = self.act
         angle = triplet_angle(rel[:, :, None], rel[:, None])  # [B,j,k,i]
         a_feat = angular_encoding(
-            angle, angular_encoding_freq_bands(self.num_ang_funcs))
+            angle, angular_encoding_freq_bands(self.num_ang_funcs)
+        ).to(h.dtype)
         tri_mask = triplet_mask(node_mask)                    # [B,k,j,i]
         hk_exp = h[:, :, None, :].expand(B, N, N, H)          # h[src=k]
         hj_exp = h[:, None, :, :].expand(B, N, N, H)          # h[dst=j]
@@ -527,17 +560,24 @@ class BondUpdateTriplet(_AttentionSettings):
             q = q @ pq[3] + pq[4]
         q = q.reshape(B, N, N, heads, Wt)
 
+        # the all-k pool always runs float32 (its kernel is float32 only);
+        # the kNN pool may follow a bf16 feature dtype
+        f32 = lambda t: t.float().contiguous()
         if 0 < self.knn_k < N - 1:
-            pooled = self._pool_knn(a_kj, a_ji, q, pos, node_mask, w_ang,
-                                    ln_scale, ln_bias, trip_frozen)
+            cast = ((lambda t: t.to(h.dtype))
+                    if self.pool_follow_dtype and h.dtype != torch.float32
+                    else f32)
+            pooled = self._pool_knn(cast(a_kj), cast(a_ji), cast(q), pos,
+                                    node_mask, cast(w_ang), cast(ln_scale),
+                                    cast(ln_bias), trip_frozen)
         else:
             pooled = triplet_pool(
-                a_kj.contiguous(), a_ji.contiguous(), q.contiguous(),
-                pos.contiguous(), node_mask, w_ang.contiguous(),
-                ln_scale.contiguous(), ln_bias.contiguous(), self.act_fn,
+                f32(a_kj), f32(a_ji), f32(q), pos.contiguous(), node_mask,
+                f32(w_ang), f32(ln_scale), f32(ln_bias), self.act_fn,
                 self.norm, num_ang_funcs=self.num_ang_funcs,
                 use_pallas=self.use_pallas)
-        return pooled @ p["tf_out"]["kernel"] + p["tf_out"]["bias"]
+        return (pooled.to(h.dtype) @ p["tf_out"]["kernel"]
+                + p["tf_out"]["bias"])
 
     def _pool_knn(self, a_kj, a_ji, q, pos, node_mask, w_ang, ln_scale,
                   ln_bias, trip_frozen=None):
@@ -557,11 +597,15 @@ class BondUpdateTriplet(_AttentionSettings):
         rel_ji = pos[:, :, None, :] - pos[:, None, :, :]      # [B,j,i,3]
         rel_ki = pos_k[:, :, :, None, :] - pos[:, None, None, :, :]
         angle = triplet_angle(rel_ji[:, :, None], rel_ki)     # [B,j,K,i]
+        # geometry stays f32; the encoding drops to the pool dtype
         a_ang = angular_encoding(
-            angle, angular_encoding_freq_bands(self.num_ang_funcs)) @ w_ang
+            angle, angular_encoding_freq_bands(self.num_ang_funcs)
+        ).to(w_ang.dtype) @ w_ang
         pre = a_kj_j[:, :, :, None, :] + a_ji[:, :, None, :, :] + a_ang
         pre = pre_activate(pre, ln_scale, ln_bias, self.act_fn, self.norm)
-        scores = torch.einsum("bjkiw,bjihw->bjkih", pre, q) \
+        # scores and softmax in float32 whatever the pool dtype (bf16
+        # products are exact in float32, as XLA's preferred_element_type)
+        scores = torch.einsum("bjkiw,bjihw->bjkih", pre.float(), q.float()) \
             / float(np.sqrt(Wt))
         # k a valid neighbour of j; i and j valid; k != i; i != j (k != j
         # holds because a kNN row leaves out its own node)
@@ -572,5 +616,5 @@ class BondUpdateTriplet(_AttentionSettings):
         valid = (nbr_mask.to(torch.bool)[..., None] & nm[:, None, None, :]
                  & nm[:, :, None, None] & neq_ki & neq_ji)
         alpha = masked_softmax(scores, valid[..., None], dim=2)
-        pooled = torch.einsum("bjkih,bjkiw->bjihw", alpha, pre)
+        pooled = torch.einsum("bjkih,bjkiw->bjihw", alpha.to(pre.dtype), pre)
         return pooled.reshape(B, N, N, heads * Wt)

@@ -21,7 +21,8 @@ from ..diffusion.categorical import CategoricalTransition
 from ..diffusion.gaussian import GaussianTransition
 from ..ops.masked import masked_mean
 from ..ops.schedules import get_beta_schedule
-from .diffusion_model import PhoreDiffNet
+from .diffusion_model import PhoreDiffNet, apply_net, cast_params
+from .layers import dtype_of
 
 
 def qd_loss(y_true, y_l, y_u, a=0.05, s=160.0, nd=15.0, factor=1.0,
@@ -171,17 +172,29 @@ class PhoreGen:
         return masked_mean(trans.compute_v_Lt(post_true, post_pred, log_v0,
                                               t), mask)
 
-    def loss_from_perturbation(self, batch, pert, graph_mask=None
+    def loss_from_perturbation(self, batch, pert, graph_mask=None,
+                               compute_dtype: str = "float32"
                                ) -> Tuple[torch.Tensor, Dict]:
         """Network on the perturbed state, then the joint loss and the
         metrics. `graph_mask` ([B] bool) excludes graphs from every
-        reduction (the cycled duplicates of a validation tail batch)."""
+        reduction (the cycled duplicates of a validation tail batch).
+
+        `compute_dtype` 'bfloat16' runs the network in bf16 (mixed
+        precision, as the JAX package's `compute_loss`): the float32 master
+        parameters are cast by a differentiable copy (`cast_params`), so
+        their gradients come back float32; the features go in as bf16,
+        positions stay float32, and the predictions are widened to float32
+        before the losses."""
         mcfg = self.config.model
         t, lig_pos = pert["t"], pert["lig_pos"]
-        pred_node, pred_pos, pred_edge, pred_count = self.net(
-            pert["h_node_pert"], pert["pos_pert"], batch.lig_mask,
-            pert["h_edge_pert"], t, batch.phore_x, batch.phore_pos,
-            batch.phore_norm, batch.phore_mask)
+        cdt = dtype_of(compute_dtype)
+        preds = apply_net(
+            self.net, cast_params(self.net, cdt),
+            pert["h_node_pert"].to(cdt), pert["pos_pert"], batch.lig_mask,
+            pert["h_edge_pert"].to(cdt), t, batch.phore_x.to(cdt),
+            batch.phore_pos, batch.phore_norm, batch.phore_mask)
+        pred_node, pred_pos, pred_edge = (p.float() for p in preds[:3])
+        pred_count = tuple(c.float() for c in preds[3])
         lmask, emask, gw = batch.lig_mask, batch.bond_mask, None
         if graph_mask is not None:
             gm = graph_mask.to(torch.bool)
@@ -235,30 +248,34 @@ class PhoreGen:
                      compute_dtype: str = "float32", graph_mask=None,
                      **draws) -> Tuple[torch.Tensor, Dict]:
         """Joint pos/node/edge/count loss of one batch on the network's
-        current parameters; `draws` are `perturb`'s injected draws."""
-        if compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={compute_dtype!r} (train.dtype) is not "
-                f"ported yet: ROADMAP.md, 'Still to port', bf16")
+        current parameters; `draws` are `perturb`'s injected draws;
+        `compute_dtype` (`train.dtype`) the network's dtype (see
+        `loss_from_perturbation`)."""
+        dtype_of(compute_dtype)
         pert = self.perturb(batch, generator, lig_noise_std, **draws)
-        return self.loss_from_perturbation(batch, pert, graph_mask)
+        return self.loss_from_perturbation(batch, pert, graph_mask,
+                                           compute_dtype)
 
 
 def load_release_model(prefix: str, device="cuda", config=None,
                        fused_stack=None, triplet_knn=None,
-                       use_pallas_triplet=None):
+                       use_pallas_triplet=None, use_ema: bool = False,
+                       fused_block_dtype=None, compute_dtype=None):
     """Build `PhoreGen` from `<prefix>.json` (or `config`) with the weights
     of `<prefix>.msgpack`, on `device`. `fused_stack`, `triplet_knn` and
     `use_pallas_triplet` override the denoiser's configuration; None keeps
     the checkpoint's own value (the release checkpoints say fused_stack
     'none', the per-layer module path; the fused stack takes the same
-    parameters). Returns (pg, meta)."""
+    parameters); `fused_block_dtype` and `compute_dtype` likewise
+    (`denoiser.fused_block_dtype`, `model.compute_dtype`). `use_ema` takes
+    a training checkpoint's EMA shadow (`utils/checkpoint.py::load_release`).
+    Returns (pg, meta)."""
     import torch
 
     from ..config import config_from_dict
     from ..utils.checkpoint import from_jax_params, load_release
 
-    tree, meta = load_release(prefix)
+    tree, meta = load_release(prefix, use_ema=use_ema)
     cfg = config if config is not None else config_from_dict(meta["config"])
     dcfg = cfg.model.denoiser
     if fused_stack is not None:
@@ -267,6 +284,10 @@ def load_release_model(prefix: str, device="cuda", config=None,
         dcfg.triplet_knn = triplet_knn
     if use_pallas_triplet is not None:
         dcfg.use_pallas_triplet = use_pallas_triplet
+    if fused_block_dtype is not None:
+        dcfg.fused_block_dtype = fused_block_dtype
+    if compute_dtype is not None:
+        cfg.model.compute_dtype = compute_dtype
     pg = PhoreGen(cfg)
     pg.net.load_state_dict(from_jax_params(tree), strict=True)
     pg.net.to(torch.device(device)).eval()

@@ -25,7 +25,10 @@ LIBRARIES = {
     "layer_stack": ("layer_stack.cu",
                     ("ls_stage_node", "ls_stage_trip_pre",
                      "ls_stage_trip_att", "ls_stage_pos",
-                     "ls_stage_node_pre", "ls_stage_att_pos")),
+                     "ls_stage_node_pre", "ls_stage_att_pos",
+                     # the same stages with bf16 blocks pre_t and q_z
+                     "ls_stage_trip_pre_bf16", "ls_stage_trip_att_bf16",
+                     "ls_stage_node_pre_bf16", "ls_stage_att_pos_bf16")),
     "triplet_pool": ("triplet_pool.cu", ("tp_triplet_pool",)),
 }
 
@@ -84,15 +87,20 @@ def build(verbose: bool = False) -> dict:
     return paths
 
 
-def bind(path: str, name: str):
-    """Load the shared library at `path` and declare the C entries of
-    library `name` on it."""
-    lib = ctypes.CDLL(path)
-    for entry in LIBRARIES[name][1]:
+def declare(lib, entries) -> None:
+    """Declare the C signature of each of `entries` on the loaded `lib`."""
+    for entry in entries:
         fn = getattr(lib, entry)
         fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
                        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
         fn.restype = ctypes.c_int
+
+
+def bind(path: str, name: str):
+    """Load the shared library at `path` and declare the C entries of
+    library `name` on it."""
+    lib = ctypes.CDLL(path)
+    declare(lib, LIBRARIES[name][1])
     return lib
 
 

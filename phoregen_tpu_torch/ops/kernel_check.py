@@ -10,6 +10,10 @@ the same inputs, kernel and plain times (CUDA events), and the H100 bound
 from the bytes the function moves and the float32 operations it needs on
 the slots the case's masks leave (`flops`; `flops_all_slots` is the count
 if no slot were masked).
+`check_kernels(case, kernels=BF16_KERNELS)` does the same for the forms of
+rows 2, 3, 5 and 6 whose inter-stage blocks pre_t and q_z are bf16
+(`fused_block_dtype`); `flagship_case(cutoff='hybrid')` gives the kNN
+table of the hybrid cutoff (NL + K sources a ligand row).
 `stage_calls(case)` gives the kernel and plain calls alone (for a tool
 that times two builds of the kernels against each other).
 `triplet_case()` and `check_triplet_pool()` do the same for the all-k
@@ -47,6 +51,15 @@ KERNELS = (
     ("stage_att_pos",
      "phoregen_tpu/ops/layer_stack.py:1261 (_att_pos_pallas)"),
 )
+# the forms with bf16 blocks pre_t and q_z (B1 stores them rounded to
+# nearest even, B2 widens them; all arithmetic float32)
+BF16_KERNELS = tuple((name + "_bf16", replaces) for name, replaces in KERNELS
+                     if name in ("stage_triplet_pre", "stage_triplet_att",
+                                 "stage_node_pre", "stage_att_pos"))
+# the kernels that read the kNN table (the hybrid cutoff's rows)
+KNN_KERNELS = tuple((name, replaces) for name, replaces in KERNELS
+                    if name in ("stage_node", "stage_pos", "stage_node_pre",
+                                "stage_att_pos"))
 SOURCE = "phoregen_tpu_torch/csrc/layer_stack.cu"
 TRIPLET_REPLACES = ("phoregen_tpu/ops/pallas_triplet.py:214 "
                     "(triplet_pool_pallas -> _kernel:144)")
@@ -62,12 +75,38 @@ TRIPLET_SOURCE = "phoregen_tpu_torch/csrc/triplet_pool.cu"
 # carry that angle, and a softmax over k and a pool follow them.
 # stage_node_pre runs the same B1 body, so its pre_t keeps the 5e-4 (its
 # new_h and q_z are held to 1e-4).
+# The bf16-block forms keep their float32 rows' tolerances: B2 and B2 + C
+# read the same bf16 blocks as their plain versions, and a block that B1
+# stores is held to the float32 tolerance plus one bf16 unit in the last
+# place of the larger of the two values (the two float32 results may fall
+# on either side of a rounding boundary; `BLOCK_OUTPUTS`).
 TOLERANCE = {"stage_node": 1e-4, "stage_triplet_pre": 5e-4,
              "stage_triplet_att": 1e-4, "stage_pos": 1e-4,
              "stage_node_pre": 5e-4, "stage_att_pos": 1e-4,
+             "stage_triplet_pre_bf16": 5e-4, "stage_triplet_att_bf16": 1e-4,
+             "stage_node_pre_bf16": 5e-4, "stage_att_pos_bf16": 1e-4,
              "triplet_pool": 5e-4}
 # per-output override of a row's tolerance, by position in the output tuple
-OUTPUT_TOL = {"stage_node_pre": (1e-4, 5e-4, 1e-4)}
+OUTPUT_TOL = {"stage_node_pre": (1e-4, 5e-4, 1e-4),
+              "stage_node_pre_bf16": (1e-4, 5e-4, 1e-4)}
+# outputs that are bf16 blocks, by position in the output tuple
+BLOCK_OUTPUTS = {"stage_triplet_pre_bf16": (0, 1),
+                 "stage_node_pre_bf16": (1, 2)}
+# Both B1s round their float32 block to nearest even, so a stored element
+# differs from the plain version's only where the two float32 results fall
+# on either side of a rounding boundary: a float32 error of ~1e-6 of the
+# value against a bf16 unit of 2^-8 of it makes that rare. At most this
+# share of a block's elements may differ (a store that truncates differs
+# on about half of them, and stays within one unit).
+BLOCK_MISMATCH_SHARE = 1e-2
+
+
+def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """One bf16 unit in the last place at |t| (8 significant bits), 0 at
+    0."""
+    m, e = torch.frexp(t.float().abs())
+    return torch.where(m == 0, torch.zeros_like(m),
+                       torch.ldexp(torch.ones_like(m), e - 8))
 
 
 def _random_tree(spec, g: torch.Generator, device):
@@ -86,10 +125,14 @@ def _random_tree(spec, g: torch.Generator, device):
 
 def flagship_case(B=16, NP=96, NL=80, H=128, heads=16, Wt=32, K=32,
                   trip_k=32, seed=0, device="cuda",
-                  empty_first=False) -> Dict:
+                  empty_first=False, cutoff="knn") -> Dict:
     """One layer's inputs; `empty_first` leaves graph 0 without a valid
-    ligand atom (all its ligand rows are padding)."""
+    ligand atom (all its ligand rows are padding). `cutoff` 'hybrid' builds
+    the kNN table of the hybrid cutoff (`ops/knn.py::hybrid_neighbors`:
+    ligand rows take every ligand slot and their K nearest phore points,
+    NL + K columns) in place of the K nearest neighbours."""
     from ..models.denoiser import layer_param_shapes
+    from .knn import hybrid_neighbors
     g = torch.Generator().manual_seed(seed)
     N = NP + NL
     fe = 93
@@ -104,7 +147,11 @@ def flagship_case(B=16, NP=96, NL=80, H=128, heads=16, Wt=32, K=32,
     ar_l, ar_p = torch.arange(NL), torch.arange(NP)
     node_mask = torch.cat([ar_p[None] < n_ph[:, None],
                            ar_l[None] < n_lig[:, None]], 1).to(device)
-    nbr_idx, nbr_mask = knn_neighbors(x, node_mask, K)
+    if cutoff == "hybrid":
+        nbr_idx, nbr_mask = hybrid_neighbors(x, node_mask, NP, K)
+    else:
+        nbr_idx, nbr_mask = knn_neighbors(x, node_mask, K)
+    K = nbr_idx.shape[-1]
     t = ls.build_block_tables(x, node_mask, nbr_idx, nbr_mask, NP, trip_k)
     is_lig = (torch.arange(N, device=device) >= NP).long()
     et = 3 - 2 * is_lig[nbr_idx] - is_lig[None, :, None]
@@ -112,7 +159,7 @@ def flagship_case(B=16, NP=96, NL=80, H=128, heads=16, Wt=32, K=32,
     t["e_w"] = torch.rand(B, N, K, generator=g).to(device)
     pn = torch.randn(B, NP, 3, generator=g)
     t["phore_norm"] = (pn / pn.norm(dim=-1, keepdim=True)).to(device)
-    d = ls.StackDims(NP=NP, NL=NL, K=min(K, N - 1), K8=min(trip_k, NL - 1),
+    d = ls.StackDims(NP=NP, NL=NL, K=K, K8=min(trip_k, NL - 1),
                      H=H, heads=heads, Wt=Wt)
     h = torch.randn(B, N, H, generator=g).to(device)
     hb = torch.randn(B, NL, NL, H, generator=g).to(device)
@@ -157,22 +204,25 @@ def _work(name: str, c: Dict, n: Dict[str, int] = None):
     this call's masks leave (`slot_counts`, the default), so the bound is
     the work the data needs whatever the kernel does with masked slots.
     Work that no mask voids is counted in full: the node projections, new_h
-    for every row (stage A), q_z for every pair (stage B1)."""
+    for every row (stage A), q_z for every pair (stage B1). The blocks
+    pre_t and q_z count 2 bytes an element in the `_bf16` forms."""
     d, B = c["d"], c["B"]
+    bb = 2 if name.endswith("_bf16") else 4    # bytes a block element
+    sfx = "_bf16" if bb == 2 else ""
     N, NL, H, nh, Wt = d.N, d.NL, d.H, d.heads, d.Wt
     NP, K, K8 = d.NP, d.K, d.K8
     if n is None:
         n = slot_counts(c["t"])
     f4 = 4
-    if name == "stage_node_pre":
+    if name.startswith("stage_node_pre"):
         # A + B1 with h, x and hb read once (the weights of the two differ)
-        (b1, f1), (b2, f2) = (_work(k, c, n) for k in ("stage_node",
-                                                       "stage_triplet_pre"))
+        (b1, f1), (b2, f2) = (_work(k, c, n) for k in (
+            "stage_node", "stage_triplet_pre" + sfx))
         return b1 + b2 - (B * N * (H + 3) + B * NL * NL * H) * f4, f1 + f2
-    if name == "stage_att_pos":
+    if name.startswith("stage_att_pos"):
         # B2 + C with hb_new written once and not read back
-        (b1, f1), (b2, f2) = (_work(k, c, n) for k in ("stage_triplet_att",
-                                                       "stage_pos"))
+        (b1, f1), (b2, f2) = (_work(k, c, n) for k in (
+            "stage_triplet_att" + sfx, "stage_pos"))
         return b1 + b2 - B * NL * NL * H * f4, f1 + f2
     wbytes = sum(v.numel() for v in c["w"].values()) * f4
     tab = (B * N * K * (4 + 4 + 16 + 4) + B * NL * (3 + K8) * 8
@@ -191,17 +241,17 @@ def _work(name: str, c: Dict, n: Dict[str, int] = None):
         by = (B * N * H * f4 + B * N * 3 * f4 + B * NL * NL * H * f4 + tab
               + wbytes + (B * N * H * f4 if node else B * N * 3 * f4))
         return by, fl
-    if name == "stage_triplet_pre":
+    if name.startswith("stage_triplet_pre"):
         fl = (2 * B * NL * H * (2 * Wt + H) + 2 * n["trip_src"] * H * Wt
               + 2 * n["pairs"] * 20 * Wt + 2 * B * NL * NL * H * H
               + 2 * n["trips"] * 13 * Wt)
         by = (B * N * H * f4 + B * N * 3 * f4 + B * NL * NL * H * f4
               + B * NL * K8 * 4 + wbytes
-              + B * NL * NL * (K8 * Wt + H) * f4)
+              + B * NL * NL * (K8 * Wt + H) * bb)
         return by, fl
     fl = (2 * n["pairs"] * H * nh * Wt + 4 * n["trips"] * nh * Wt
           + 2 * n["pairs"] * nh * Wt * H)
-    by = (B * NL * NL * (K8 * Wt + H + 2 * H) * f4 + B * NL * K8 * 8
+    by = (B * NL * NL * ((K8 * Wt + H) * bb + 2 * H * f4) + B * NL * K8 * 8
           + B * NL * 4 + wbytes)
     return by, fl
 
@@ -224,12 +274,24 @@ def _row(name, source, replaces, ok, got, ref, kern, plain, by, fl, reps):
     both times, and the bound from `by` bytes and `fl` operations."""
     tol = TOLERANCE[name]
     tols = OUTPUT_TOL.get(name, (tol,) * len(got))
+    blocks = BLOCK_OUTPUTS.get(name, ())
+    got, ref = [a.float() for a in got], [b.float() for b in ref]
     abs_err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
     rel_err = max(float(((a - b).abs() / (b.abs() + 1e-3)).max())
                   for a, b in zip(got, ref))
+
+    def close(i, a, b, tl):
+        if i not in blocks:
+            return torch.allclose(a, b, atol=tl, rtol=tl)
+        return bool(((a - b).abs() <= tl + tl * b.abs()
+                     + bf16_ulp(torch.maximum(a.abs(), b.abs()))).all())
+    share = max((float((a != b).float().mean())
+                 for i, (a, b) in enumerate(zip(got, ref)) if i in blocks),
+                default=None)
     ok = ok and all(bool(torch.isfinite(a).all()) for a in got) and all(
-        torch.allclose(a, b, atol=tl, rtol=tl)
-        for a, b, tl in zip(got, ref, tols))
+        close(i, a, b, tl)
+        for i, (a, b, tl) in enumerate(zip(got, ref, tols))) and (
+        share is None or share <= BLOCK_MISMATCH_SHARE)
     t_bytes = by / HBM_BYTES_PER_S * 1e3
     t_ops = fl / FP32_FLOPS_PER_S * 1e3
     return {
@@ -241,6 +303,7 @@ def _row(name, source, replaces, ok, got, ref, kern, plain, by, fl, reps):
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": by, "flops": fl, "library_ms": None,
+        "block_mismatch_share": share,
     }
 
 
@@ -306,13 +369,29 @@ def check_triplet_pool(c: Dict, reps: int = 5) -> Dict:
 
 def stage_calls(c: Dict) -> Dict:
     """{kernel name: (kernel call, plain call)} of the six layer-stack
-    kernels on the inputs of `c`; B2, C and B2 + C take the plain versions'
-    outputs of the stages before them."""
+    kernels and the four bf16-block forms on the inputs of `c`; B2, C and
+    B2 + C take the plain versions' outputs of the stages before them (the
+    bf16 forms the plain bf16 blocks)."""
     w, t, d, h, x, hb = c["w"], c["t"], c["d"], c["h"], c["x"], c["hb"]
+    bf = torch.bfloat16
     pre_r, qz_r = ls.stage_triplet_pre_plain(w, h, x, hb, t, d)
+    pre_b, qz_b = ls.stage_triplet_pre_plain(w, h, x, hb, t, d, bf)
     nh_r = ls.stage_node_plain(w, h, x, hb, t, d)
     hbn_r = ls.stage_triplet_att_plain(w, hb, pre_r, qz_r, t, d)
     return {
+        "stage_triplet_pre_bf16": (
+            lambda: ls.stage_triplet_pre(w, h, x, hb, t, d, bf),
+            lambda: ls.stage_triplet_pre_plain(w, h, x, hb, t, d, bf)),
+        "stage_triplet_att_bf16": (
+            lambda: ls.stage_triplet_att(w, hb, pre_b, qz_b, t, d),
+            lambda: ls.stage_triplet_att_plain(w, hb, pre_b, qz_b, t, d)),
+        "stage_node_pre_bf16": (
+            lambda: ls.stage_node_pre(w, h, x, hb, t, d, bf),
+            lambda: ls.stage_node_pre_plain(w, h, x, hb, t, d, bf)),
+        "stage_att_pos_bf16": (
+            lambda: ls.stage_att_pos(w, hb, pre_b, qz_b, nh_r, x, t, d),
+            lambda: ls.stage_att_pos_plain(w, hb, pre_b, qz_b, nh_r, x, t,
+                                           d)),
         "stage_node": (lambda: ls.stage_node(w, h, x, hb, t, d),
                        lambda: ls.stage_node_plain(w, h, x, hb, t, d)),
         "stage_triplet_pre": (
@@ -333,26 +412,27 @@ def stage_calls(c: Dict) -> Dict:
     }
 
 
-def check_kernels(c: Dict, reps: int = 5) -> List[Dict]:
-    """Run every kernel once against its plain version on the same inputs
-    (row 'ok' says whether it agrees within TOLERANCE), then time both."""
+def check_kernels(c: Dict, reps: int = 5, kernels=KERNELS) -> List[Dict]:
+    """Run each of `kernels` ((name, replaces) pairs: KERNELS, BF16_KERNELS,
+    KNN_KERNELS) once against its plain version on the same inputs (row
+    'ok' says whether it agrees within TOLERANCE), then time both."""
     t = c["t"]
     calls = stage_calls(c)
     slots, every = slot_counts(t), all_slots(c["d"], c["B"])
     rows = []
-    for name, replaces in KERNELS:
+    for name, replaces in kernels:
         kern, plain = calls[name]
         got, ref = kern(), plain()
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         ref = ref if isinstance(ref, tuple) else (ref,)
-        if name in ("stage_triplet_pre", "stage_node_pre"):
+        if name.startswith(("stage_triplet_pre", "stage_node_pre")):
             # pre_t slots of masked triplets (source slot beyond a graph's
             # atoms, k == i, j == i) are inert downstream; a masked slot may
             # repeat j itself, an exactly collinear triple whose angle is
             # ill-conditioned. Compare the triplets the attention reads.
             valid = ls.trip_valid(t)[..., None] > 0
-            i = 0 if name == "stage_triplet_pre" else 1
+            i = 0 if name.startswith("stage_triplet_pre") else 1
             got = (*got[:i], got[i][valid.expand_as(got[i])], *got[i + 1:])
             ref = (*ref[:i], ref[i][valid.expand_as(ref[i])], *ref[i + 1:])
         by, fl = _work(name, c, slots)

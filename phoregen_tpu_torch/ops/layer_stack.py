@@ -19,6 +19,15 @@ The kernels want H and Wt to be multiples of 4 (`_check_dims`). A wrapper
 takes the plain version only for tensors on the CPU; for CUDA tensors it
 launches its kernel or raises. `LAUNCHES` counts kernel launches per stage.
 
+`block_dtype` (`fused_block_dtype`) bfloat16 stores the inter-stage blocks
+pre_t and q_z in bf16 between B1 (or A + B1) and B2 (or B2 + C), as
+`layer_stack_pallas(block_dtype=jnp.bfloat16)` does: the producer computes
+in float32 and rounds to nearest even, the consumer widens, all arithmetic
+is float32; the kernels have `_bf16` entries for it and their own launch
+counts. The backward passes straight through the rounding. The JAX
+package's other meaning of the same key, bf16 carries and products on
+'xla2', is `layer_stack_xla2_bf16`.
+
 `make_layer_stack_grad` makes the stack trainable: kernels forward,
 backward by recomputing one layer at a time through the plain stages
 (`LayerStackFn`), as the JAX package's custom VJP recomputes through
@@ -53,8 +62,12 @@ LN_EPS = 1e-6
 NEG_INF = -1e9
 CROSS_SQ_EPS = 1e-12
 
+# kernel launches by stage; the `_bf16` keys count the forms that store or
+# read bf16 blocks pre_t and q_z
 LAUNCHES = {"stage_node": 0, "stage_triplet_pre": 0, "stage_triplet_att": 0,
-            "stage_pos": 0, "stage_node_pre": 0, "stage_att_pos": 0}
+            "stage_pos": 0, "stage_node_pre": 0, "stage_att_pos": 0,
+            "stage_triplet_pre_bf16": 0, "stage_triplet_att_bf16": 0,
+            "stage_node_pre_bf16": 0, "stage_att_pos_bf16": 0}
 
 
 def reset_launch_counts() -> None:
@@ -335,8 +348,11 @@ def _pair_mask(t):
     return ml[:, :, None] * ml[:, None, :] * (1.0 - eye)
 
 
-def stage_triplet_pre_plain(w, h, x, hb, t, d: StackDims):
-    """Stage B1: head-independent triplet features.
+def stage_triplet_pre_plain(w, h, x, hb, t, d: StackDims,
+                            block_dtype=torch.float32):
+    """Stage B1: head-independent triplet features, computed in float32
+    and stored in `block_dtype` (a bf16 block is the float32 one rounded to
+    nearest even, as XLA's convert and the kernel's store round it).
     Returns (pre_t [B,j,i,K8,Wt], q_z [B,j,i,H])."""
     NP, Wt = d.NP, d.Wt
     pos_l, h_l = x[:, NP:], h[:, NP:]
@@ -364,7 +380,8 @@ def stage_triplet_pre_plain(w, h, x, hb, t, d: StackDims):
     enc = angular_encoding(torch.atan2(cross, dot),
                            angular_encoding_freq_bands(d.num_ang))
     pre = a_kj_sel[:, :, None] + a_ji[:, :, :, None] + enc @ w["t_Wang"]
-    return torch.relu(_ln(pre, w["t_ln_s"], w["t_ln_b"])), q_z
+    pre_t = torch.relu(_ln(pre, w["t_ln_s"], w["t_ln_b"]))
+    return pre_t.to(block_dtype), q_z.to(block_dtype)
 
 
 def trip_valid(t):
@@ -381,7 +398,9 @@ def trip_valid(t):
 
 def stage_triplet_att_plain(w, hb, pre_t, q_z, t, d: StackDims):
     """Stage B2: per-head softmax over the K8 triplet sources and the pool
-    -> hb + triplet update [B,NL,NL,H]."""
+    -> hb + triplet update [B,NL,NL,H]. The blocks pre_t and q_z may be
+    bf16; they are widened to float32 and all arithmetic is float32."""
+    pre_t, q_z = pre_t.float(), q_z.float()
     q = torch.einsum("bjic,hcw->bjihw", q_z, w["tq_W1"]) + w["tq_b1"]
     sc = torch.einsum("bjikw,bjihw->bjikh", pre_t, q) * (
         1.0 / float(np.sqrt(d.Wt)))
@@ -433,10 +452,11 @@ def stage_pos_plain(w, new_h, x, hb_new, t, d: StackDims):
     return x + dx * lig[..., None]
 
 
-def stage_node_pre_plain(w, h, x, hb, t, d: StackDims):
+def stage_node_pre_plain(w, h, x, hb, t, d: StackDims,
+                         block_dtype=torch.float32):
     """Merged stage A + B1 (`_stage_node_pre`): (new_h, pre_t, q_z)."""
     return (stage_node_plain(w, h, x, hb, t, d),
-            *stage_triplet_pre_plain(w, h, x, hb, t, d))
+            *stage_triplet_pre_plain(w, h, x, hb, t, d, block_dtype))
 
 
 def stage_att_pos_plain(w, hb, pre_t, q_z, new_h, x, t, d: StackDims):
@@ -485,17 +505,29 @@ def _ptr(tensor, name, dtype=torch.float32):
     return tensor.data_ptr()
 
 
-def _launch(entry: str, named, d: StackDims, B: int):
+# element type of the inter-stage blocks pre_t and q_z -> suffix of the C
+# entries that take it (`fused_block_dtype`)
+BLOCK_ENTRY = {torch.float32: "", torch.bfloat16: "_bf16"}
+_BLOCKS = ("pre_t", "q_z")
+
+
+def _launch(entry: str, named, d: StackDims, B: int,
+            block_dtype=torch.float32):
     from . import _build
+    if block_dtype not in BLOCK_ENTRY:
+        raise TypeError(f"{entry}: blocks of {block_dtype} are not built "
+                        f"(float32 or bfloat16)")
     lib = _build.load()
     ptrs = []
     for name, ten in named:
         dt = torch.int32 if name in ("nbr_idx", "lig3_idx", "trip_idx") \
-            else torch.float32
+            else block_dtype if name in _BLOCKS else torch.float32
         ptrs.append(_ptr(ten, name, dt))
     arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     dims = (ctypes.c_int * 8)(B, d.NP, d.NL, d.K, d.K8, d.H, d.heads, d.Wt)
     stream = torch.cuda.current_stream().cuda_stream
+    entry += BLOCK_ENTRY[block_dtype] if any(
+        name in _BLOCKS for name, _ in named) else ""
     rc = getattr(lib, entry)(arr, len(ptrs), dims, stream)
     if rc != 0:
         raise RuntimeError(f"{entry}: CUDA error {rc}")
@@ -557,25 +589,29 @@ def stage_node(w, h, x, hb, t, d: StackDims):
     return out
 
 
-def stage_triplet_pre(w, h, x, hb, t, d: StackDims):
-    """Stage B1; CUDA kernel for CUDA tensors, plain version on the CPU."""
+def stage_triplet_pre(w, h, x, hb, t, d: StackDims,
+                      block_dtype=torch.float32):
+    """Stage B1; CUDA kernel for CUDA tensors, plain version on the CPU.
+    The blocks pre_t and q_z are stored in `block_dtype`."""
     if not h.is_cuda:
-        return stage_triplet_pre_plain(w, h, x, hb, t, d)
+        return stage_triplet_pre_plain(w, h, x, hb, t, d, block_dtype)
     B = h.shape[0]
     _check_shapes(d, B, t, h=h, x=x, hb=hb)
-    pre_t = torch.empty(B, d.NL, d.NL, d.K8, d.Wt, device=h.device)
-    q_z = torch.empty(B, d.NL, d.NL, d.H, device=h.device)
+    pre_t = torch.empty(B, d.NL, d.NL, d.K8, d.Wt, device=h.device,
+                        dtype=block_dtype)
+    q_z = torch.empty(B, d.NL, d.NL, d.H, device=h.device, dtype=block_dtype)
     PB = torch.empty(B * d.NL, 2 * d.Wt + d.H, device=h.device)
     named = ([("h", h), ("x", x), ("hb", hb), ("pre_t", pre_t), ("q_z", q_z),
               ("PB", PB), ("trip_idx", t["trip_idx"])]
              + [(k, w[k]) for k in _TRIP_PRE_W])
-    _launch("ls_stage_trip_pre", named, d, B)
-    LAUNCHES["stage_triplet_pre"] += 1
+    _launch("ls_stage_trip_pre", named, d, B, block_dtype)
+    LAUNCHES["stage_triplet_pre" + BLOCK_ENTRY[block_dtype]] += 1
     return pre_t, q_z
 
 
 def stage_triplet_att(w, hb, pre_t, q_z, t, d: StackDims):
-    """Stage B2; CUDA kernel for CUDA tensors, plain version on the CPU."""
+    """Stage B2; CUDA kernel for CUDA tensors, plain version on the CPU.
+    Reads blocks of pre_t's element type (q_z must have it too)."""
     if not hb.is_cuda:
         return stage_triplet_att_plain(w, hb, pre_t, q_z, t, d)
     B = hb.shape[0]
@@ -584,8 +620,8 @@ def stage_triplet_att(w, hb, pre_t, q_z, t, d: StackDims):
     named = ([("hb", hb), ("pre_t", pre_t), ("q_z", q_z), ("out", out),
               ("trip_idx", t["trip_idx"]), ("trip_mask", t["trip_mask"]),
               ("mask_l", t["mask_l"])] + [(k, w[k]) for k in _TRIP_ATT_W])
-    _launch("ls_stage_trip_att", named, d, B)
-    LAUNCHES["stage_triplet_att"] += 1
+    _launch("ls_stage_trip_att", named, d, B, pre_t.dtype)
+    LAUNCHES["stage_triplet_att" + BLOCK_ENTRY[pre_t.dtype]] += 1
     return out
 
 
@@ -605,18 +641,19 @@ def stage_pos(w, new_h, x, hb_new, t, d: StackDims):
     return out
 
 
-def stage_node_pre(w, h, x, hb, t, d: StackDims):
+def stage_node_pre(w, h, x, hb, t, d: StackDims, block_dtype=torch.float32):
     """Merged stage A + B1; one C entry for CUDA tensors (one node
     projection phase for both roles, then B1's grid and A's grid, each with
-    its own shared memory), plain version on the CPU.
-    Returns (new_h, pre_t, q_z)."""
+    its own shared memory), plain version on the CPU. The blocks are
+    stored in `block_dtype`. Returns (new_h, pre_t, q_z)."""
     if not h.is_cuda:
-        return stage_node_pre_plain(w, h, x, hb, t, d)
+        return stage_node_pre_plain(w, h, x, hb, t, d, block_dtype)
     B = h.shape[0]
     _check_shapes(d, B, t, h=h, x=x, hb=hb)
     new_h = torch.empty_like(h)
-    pre_t = torch.empty(B, d.NL, d.NL, d.K8, d.Wt, device=h.device)
-    q_z = torch.empty(B, d.NL, d.NL, d.H, device=h.device)
+    pre_t = torch.empty(B, d.NL, d.NL, d.K8, d.Wt, device=h.device,
+                        dtype=block_dtype)
+    q_z = torch.empty(B, d.NL, d.NL, d.H, device=h.device, dtype=block_dtype)
     P = torch.empty(B * d.N, 11 * d.H + 2 * d.Wt, device=h.device)
     named = ([("h", h), ("x", x), ("hb", hb), ("new_h", new_h), ("P", P)]
              + [(k, t[k]) for k in _TABLE_ARGS]
@@ -624,8 +661,8 @@ def stage_node_pre(w, h, x, hb, t, d: StackDims):
              + [(k, w[k]) for k in _NODE_W[1:]]
              + [("pre_t", pre_t), ("q_z", q_z), ("trip_idx", t["trip_idx"])]
              + [(k, w[k]) for k in _TRIP_PRE_W[1:]])
-    _launch("ls_stage_node_pre", named, d, B)
-    LAUNCHES["stage_node_pre"] += 1
+    _launch("ls_stage_node_pre", named, d, B, block_dtype)
+    LAUNCHES["stage_node_pre" + BLOCK_ENTRY[block_dtype]] += 1
     return new_h, pre_t, q_z
 
 
@@ -633,7 +670,7 @@ def stage_att_pos(w, hb, pre_t, q_z, new_h, x, t, d: StackDims):
     """Merged stage B2 + C; one CUDA kernel for CUDA tensors (a block per
     (graph, destination) finishes its whole column of the new bond grid in
     one pass over the weights and feeds it to the position update), plain
-    version on the CPU.
+    version on the CPU. Reads blocks of pre_t's element type.
     Returns (hb_new, x_new)."""
     if not hb.is_cuda:
         return stage_att_pos_plain(w, hb, pre_t, q_z, new_h, x, t, d)
@@ -648,8 +685,8 @@ def stage_att_pos(w, hb, pre_t, q_z, new_h, x, t, d: StackDims):
              + [("pre_t", pre_t), ("q_z", q_z), ("hb_new", hb_new),
                 ("trip_idx", t["trip_idx"]), ("trip_mask", t["trip_mask"])]
              + [(k, w[k]) for k in _TRIP_ATT_W])
-    _launch("ls_stage_att_pos", named, d, B)
-    LAUNCHES["stage_att_pos"] += 1
+    _launch("ls_stage_att_pos", named, d, B, pre_t.dtype)
+    LAUNCHES["stage_att_pos" + BLOCK_ENTRY[pre_t.dtype]] += 1
     return hb_new, x_new
 
 
@@ -658,19 +695,20 @@ def layer_weights(packed: Dict[str, torch.Tensor], l: int):
 
 
 def _layer(w, h, x, hb, t, d: StackDims, use_kernels: bool,
-           merge_node_pre: bool, merge_pos: bool):
-    """One attention layer -> (new_h, x_new, hb_new)."""
+           merge_node_pre: bool, merge_pos: bool, block_dtype=torch.float32):
+    """One attention layer -> (new_h, x_new, hb_new); the inter-stage
+    blocks pre_t and q_z are stored in `block_dtype`."""
     if not use_kernels:
         # the merged plain versions are compositions of these four
         new_h = stage_node_plain(w, h, x, hb, t, d)
-        pre_t, q_z = stage_triplet_pre_plain(w, h, x, hb, t, d)
+        pre_t, q_z = stage_triplet_pre_plain(w, h, x, hb, t, d, block_dtype)
         hb_new = stage_triplet_att_plain(w, hb, pre_t, q_z, t, d)
         return new_h, stage_pos_plain(w, new_h, x, hb_new, t, d), hb_new
     if merge_node_pre:
-        new_h, pre_t, q_z = stage_node_pre(w, h, x, hb, t, d)
+        new_h, pre_t, q_z = stage_node_pre(w, h, x, hb, t, d, block_dtype)
     else:
         new_h = stage_node(w, h, x, hb, t, d)
-        pre_t, q_z = stage_triplet_pre(w, h, x, hb, t, d)
+        pre_t, q_z = stage_triplet_pre(w, h, x, hb, t, d, block_dtype)
     if merge_pos:
         hb_new, x_new = stage_att_pos(w, hb, pre_t, q_z, new_h, x, t, d)
     else:
@@ -682,7 +720,8 @@ def _layer(w, h, x, hb, t, d: StackDims, use_kernels: bool,
 def layer_stack(packed: Dict[str, torch.Tensor], h, x, hb,
                 tables: Dict[str, torch.Tensor], dims: StackDims,
                 use_kernels: bool = True, merge_node_pre: bool = False,
-                merge_pos: bool = False, remat: bool = False):
+                merge_pos: bool = False, remat: bool = False,
+                block_dtype=torch.float32):
     """h [B,N,H]; x [B,N,3]; hb [B,NL,NL,H]; tables from
     `build_block_tables` plus 'edge_type' [B,N,K,4], 'e_w' [B,N,K] and
     'phore_norm' [B,NP,3]. Runs the stages layer by layer, as
@@ -691,7 +730,9 @@ def layer_stack(packed: Dict[str, torch.Tensor], h, x, hb,
     With `use_kernels` false it runs the plain stages on any device (the
     counterpart of `layer_stack_xla`), differentiable by autograd; `remat`
     then recomputes each layer in the backward (`torch.utils.checkpoint`)
-    instead of keeping its O(NL^2 K8) intermediates."""
+    instead of keeping its O(NL^2 K8) intermediates. `block_dtype`
+    (`fused_block_dtype`) is the element type the inter-stage blocks pre_t
+    and q_z are stored in between B1 and B2; all arithmetic is float32."""
     L = packed["lin_b"].shape[0]
     keys = sorted(packed)
     for l in range(L):
@@ -702,13 +743,231 @@ def layer_stack(packed: Dict[str, torch.Tensor], h, x, hb,
             def run(h_, x_, hb_, e_w, pn, *ws):
                 t = dict(tables, e_w=e_w, phore_norm=pn)
                 return _layer(dict(zip(keys, ws)), h_, x_, hb_, t, dims,
-                              False, False, False)
+                              False, False, False, block_dtype)
             h, x, hb = checkpoint(run, h, x, hb, tables["e_w"],
                                   tables["phore_norm"],
                                   *[w[k] for k in keys], use_reentrant=False)
         else:
             h, x, hb = _layer(w, h, x, hb, tables, dims, use_kernels,
-                              merge_node_pre, merge_pos)
+                              merge_node_pre, merge_pos, block_dtype)
+    return h, x, hb
+
+
+# --------------------------------------------------------------------------
+# 'xla2' with fused_block_dtype bfloat16: bf16 carries and products
+# --------------------------------------------------------------------------
+
+def xla2_operands(packed: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+    """The packed weights with the merged operands of the JAX package's
+    batched driver (`pack_layer_params`'s 'xla2' keys): every product that
+    shares an input in one wide matrix (`h_mega`, `nh_mega`, `hb_mega`,
+    `r_mega`), dire_embedding folded into the edge first layer (`em_W`,
+    `em_b`), the position value heads zero-padded to H beside their keys
+    (`x_k2`, `p_k2m`), and the triplet query and output weights in the
+    head-minor layouts (`tq_W1f`, `tq_b1f`, `t_out_Wf`). Built in float32
+    from `packed` (differentiable). Folding and merging change which
+    products run, so under bf16 they are what the rounding is held to."""
+    w = dict(packed)
+    L, fe, H4 = w["e_W"].shape
+    H = H4 // 4
+    heads = w["e_xv2"].shape[-1]
+    nh, Wt = w["tq_b1"].shape[1:]
+    fb = fe - 9                          # edge-feature rows before dire
+    dire_rows = w["e_W"][:, fb:]
+    w["em_W"] = torch.cat([w["e_W"][:, :fb], torch.einsum(
+        "lde,leh->ldh", w["dire_W"], dire_rows)], 1)
+    w["em_b"] = w["e_b"] + torch.einsum("le,leh->lh", w["dire_b"],
+                                        dire_rows)
+    q_W0 = w["q_W0"]
+    w["h_mega"] = torch.cat([w["e_Wn_h"], q_W0[:, 0], q_W0[:, 1], w["b_Wn"],
+                             w["t_Wn"], w["tq_Wi"]], -1)   # [L,H,11H+2Wt]
+    w["nh_mega"] = torch.cat([w["e_Wn_nh"], q_W0[:, 2], q_W0[:, 3],
+                              w["p_Wn"]], -1)               # [L,H,10H]
+    w["hb_mega"] = torch.cat([w["b_W"], w["t_Whb"], w["tq_Whb"]], -1)
+    w["r_mega"] = torch.cat([w["t_Wr"], w["t_Wji"]], -1)
+    pad = lambda a: torch.nn.functional.pad(a, (0, H - heads))
+    w["x_k2"] = torch.stack([w["e_xk2"], pad(w["e_xv2"])], 1)
+    w["x_b2"] = torch.stack([w["e_xk2b"], pad(w["e_xv2b"])], 1)
+    w["p_k2m"] = torch.stack([w["p_xk2"], pad(w["p_xv2"])], 1)
+    w["p_b2m"] = torch.stack([w["p_xk2b"], pad(w["p_xv2b"])], 1)
+    w["tq_W1f"] = w["tq_W1"].permute(0, 2, 3, 1).reshape(L, H, Wt * nh)
+    w["tq_b1f"] = w["tq_b1"].transpose(1, 2)                # [L,Wt,heads]
+    w["t_out_Wf"] = w["t_out_W"].reshape(L, nh * Wt, H)
+    return w
+
+
+def _kv_stacked(pre, ln_s2, ln_b2, W2, b2):
+    """Paired k/v second layers: pre [..., 2H] (k half first) -> [..., 2,
+    G]."""
+    pre2 = pre.reshape(*pre.shape[:-1], 2, pre.shape[-1] // 2)
+    z = torch.relu(_ln(pre2, ln_s2, ln_b2))
+    return torch.einsum("...th,thg->...tg", z, W2) + b2
+
+
+def _q_stacked(z2, ln_s2, ln_b2, W1_2, b1_2):
+    """Paired query-MLP tails over z2 [..., 2, H] -> [..., 2, H]."""
+    z = torch.relu(_ln(z2, ln_s2, ln_b2))
+    return torch.einsum("...th,thg->...tg", z, W1_2) + b1_2
+
+
+def _layer_xla2_bf16(w, h, x, hb, t, d: StackDims):
+    """One layer of the JAX package's `_layer_math_batched` with its cast
+    points: h, hb and the weights in bf16 (`w` from `xla2_operands`), x
+    and the geometry float32, geometry-derived features cast to bf16 where
+    they meet a weight, softmaxes float32 (their masks are float32),
+    position increments float32. Gathers by index (the JAX package's exact
+    bf16 one-hot products give the same values).
+    Returns (new_h, x_new, hb_new)."""
+    B = h.shape[0]
+    N, NL, NP, K, K8 = d.N, d.NL, d.NP, d.K, d.K8
+    H, heads, Wt = d.H, d.heads, d.Wt
+    dh = H // heads
+    wdt = h.dtype
+    inv_sd = 1.0 / float(np.sqrt(dh))
+    idx, mk = t["nbr_idx"], t["nbr_mask"][..., None]      # [B,N,K(,1)]
+    mk_w = mk.to(wdt)
+    e_w = t["e_w"].to(wdt)[..., None]                      # [B,N,K,1]
+
+    # edge features, all 4H first-layer columns at once
+    rel = x[:, :, None, :] - _gather_rows(x, idx) * mk     # [B,N,K,3]
+    rbf = _rbf(torch.sqrt((rel * rel).sum(-1) + 1e-12))
+    pos_l = x[:, NP:]
+    l3 = _gather_rows(pos_l, t["lig3_idx"]) * t["lig3_mask"][..., None]
+    cnt = torch.clamp(t["lig3_mask"].sum(-1, keepdim=True), min=1.0)
+    comb = torch.cat([t["phore_norm"], l3.sum(2) / cnt - pos_l], 1)
+    v1, v2, v3 = _gather_rows(comb, idx) * mk, comb[:, :, None, :], -rel
+    dire3 = torch.stack([(v1 * v2).sum(-1), (v1 * v3).sum(-1),
+                         (v2 * v3).sum(-1)], -1)
+    et = t["edge_type"]
+    trbf = (et[..., :, None] * rbf[..., None, :]).flatten(-2)
+    feat = torch.cat([trbf, et, dire3], -1).to(wdt)        # [B,N,K,87]
+    e_pre4 = feat @ w["em_W"] + w["em_b"]                  # [B,N,K,4H]
+
+    # stage A: node update (kNN edges + bond grid)
+    hm = h @ w["h_mega"]                                   # [B,N,11H+2Wt]
+    hbm = hb @ w["hb_mega"]                                # [B,s,d,3H+Wt]
+    nproj = hm[..., :4 * H]
+    pre_kv = ((e_pre4[..., :2 * H] + _gather_rows(nproj[..., 2 * H:], idx)
+               * mk_w) + nproj[:, :, None, :2 * H])
+    kv_n = _kv_stacked(pre_kv, w["e_ln_s"][0:2], w["e_ln_b"][0:2],
+                       w["e_k2"], w["e_b2"])               # [B,N,K,2,H]
+    v_n = kv_n[..., 1, :] * e_w
+    q01 = _q_stacked(hm[..., 4 * H:6 * H].reshape(B, N, 2, H)
+                     + w["q_b0"][0:2], w["q_ln_s"][0:2], w["q_ln_b"][0:2],
+                     w["q_W1"][0:2], w["q_b1"][0:2])       # [B,N,2,H]
+    sc = (kv_n[..., 0, :].reshape(B, N, K, heads, dh)
+          * q01[:, :, 0].reshape(B, N, 1, heads, dh)).sum(-1) * inv_sd
+    al = _softmax_masked(sc, mk, 2)                        # float32
+    out_e = (al[..., None] * v_n.reshape(B, N, K, heads, dh)).sum(2
+                                                                  ).reshape(
+        B, N, H)
+    nproj_b = hm[:, NP:, 6 * H:10 * H]
+    pre_b = (hbm[..., :2 * H] + w["b_b"] + nproj_b[:, None, :, :2 * H]
+             + nproj_b[:, :, None, 2 * H:])
+    kv_b = _kv_stacked(pre_b, w["b_ln_s"], w["b_ln_b"], w["b_k2"],
+                       w["b_b2"])                          # [B,s,d,2,H]
+    sc_b = (kv_b[..., 0, :].reshape(B, NL, NL, heads, dh)
+            * q01[:, NP:, 1].reshape(B, 1, NL, heads, dh)).sum(-1) * inv_sd
+    al_b = _softmax_masked(sc_b, _pair_mask(t)[..., None], 1)
+    out_b = (al_b[..., None] * kv_b[..., 1, :].reshape(B, NL, NL, heads, dh)
+             ).sum(1).reshape(B, NL, H)
+    out_b = torch.cat([out_b.new_zeros(B, NP, H), out_b], 1)
+    new_h = h + (out_e + out_b).to(wdt) @ w["lin_W"] + w["lin_b"]
+
+    # stage B: factorized kNN triplet bond update (old h, old hb)
+    rel_l = pos_l[:, :, None, :] - pos_l[:, None, :, :]   # [B,x,i,3]
+    r_feat = _rbf(torch.sqrt((rel_l * rel_l).sum(-1) + 1e-12)).to(wdt)
+    npj = hm[:, NP:, 10 * H:10 * H + 2 * Wt]
+    rproj = r_feat @ w["r_mega"]                           # [B,x,i,2Wt]
+    a_kj = (hbm[..., 2 * H:2 * H + Wt] + rproj[..., :Wt] + w["t_b"]
+            + npj[:, :, None, :Wt] + npj[:, None, :, Wt:])  # [B,k,j,Wt]
+    q_z = torch.relu(_ln(hbm[..., 2 * H + Wt:] + hm[:, None, NP:,
+                                                    10 * H + 2 * Wt:]
+                         + w["tq_b0"], w["tq_ln_s"], w["tq_ln_b"]))
+    tidx = t["trip_idx"].long()                            # [B,j,K8]
+    bi = torch.arange(B, device=x.device)[:, None, None]
+    ji = torch.arange(NL, device=x.device)[None, :, None]
+    a_kj_sel = a_kj[bi, tidx, ji]                          # [B,j,K8,Wt]
+    rel_ki = (_gather_rows(pos_l, tidx)[:, :, None]
+              - pos_l[:, None, :, None])                   # [B,j,i,K8,3]
+    dot = (rel_l[:, :, :, None] * rel_ki).sum(-1)
+    cross = torch.sqrt(torch.clamp(
+        (rel_l * rel_l).sum(-1)[..., None] * (rel_ki * rel_ki).sum(-1)
+        - dot * dot, min=CROSS_SQ_EPS))
+    enc = angular_encoding(torch.atan2(cross, dot),
+                           angular_encoding_freq_bands(d.num_ang)).to(wdt)
+    pre_t = (a_kj_sel[:, :, None] + rproj[..., Wt:][:, :, :, None]
+             + enc @ w["t_Wang"])                          # [B,j,i,K8,Wt]
+    pre_t = torch.relu(_ln(pre_t, w["t_ln_s"], w["t_ln_b"]))
+    q_f = ((q_z @ w["tq_W1f"]).reshape(B, NL, NL, Wt, heads)
+           + w["tq_b1f"])                                  # [B,j,i,w,a]
+    sc_t = torch.einsum("bjikw,bjiwa->bjika", pre_t, q_f) * (
+        1.0 / float(np.sqrt(Wt)))
+    al_t = _softmax_masked(sc_t, trip_valid(t)[..., None], 3)
+    pooled = torch.einsum("bjika,bjikw->bjiaw", al_t, pre_t.float()
+                          ).to(wdt)
+    hb_new = hb + (pooled.reshape(B, NL, NL, heads * Wt) @ w["t_out_Wf"]
+                   + w["t_out_b"])
+
+    # stage C: position update (new h, new hb)
+    nhm = new_h @ w["nh_mega"]                             # [B,N,10H]
+    nproj_x = nhm[..., :4 * H]
+    pre_x = ((e_pre4[..., 2 * H:] + _gather_rows(nproj_x[..., 2 * H:], idx)
+              * mk_w) + nproj_x[:, :, None, :2 * H])
+    kv_x = _kv_stacked(pre_x, w["e_ln_s"][2:4], w["e_ln_b"][2:4], w["x_k2"],
+                       w["x_b2"])
+    q23 = _q_stacked(nhm[..., 4 * H:6 * H].reshape(B, N, 2, H)
+                     + w["q_b0"][2:4], w["q_ln_s"][2:4], w["q_ln_b"][2:4],
+                     w["q_W1"][2:4], w["q_b1"][2:4])
+    sc_x = (kv_x[..., 0, :].reshape(B, N, K, heads, dh)
+            * q23[:, :, 0].reshape(B, N, 1, heads, dh)).sum(-1) * inv_sd
+    al_x = _softmax_masked(sc_x, mk, 2)
+    w_e = (al_x * (kv_x[..., 1, :heads] * e_w)).sum(-1, keepdim=True) / heads
+    dx_edge = (w_e * rel).sum(2)                           # [B,N,3]
+    nproj_p = nhm[:, NP:, 6 * H:]
+    pre_p = (hb_new @ w["p_W"] + w["p_b"] + nproj_p[:, None, :, :2 * H]
+             + nproj_p[:, :, None, 2 * H:])
+    kv_p = _kv_stacked(pre_p, w["p_ln_s"], w["p_ln_b"], w["p_k2m"],
+                       w["p_b2m"])
+    sc_p = (kv_p[..., 0, :].reshape(B, NL, NL, heads, dh)
+            * q23[:, NP:, 1].reshape(B, 1, NL, heads, dh)).sum(-1) * inv_sd
+    al_p = _softmax_masked(sc_p, _pair_mask(t)[..., None], 1)
+    w_p = (al_p * kv_p[..., 1, :heads]).sum(-1, keepdim=True) / heads
+    rel_bond = pos_l[:, None, :, :] - pos_l[:, :, None, :]  # [s,d] = d - s
+    dx = dx_edge + torch.cat([dx_edge.new_zeros(B, NP, 3),
+                              (w_p * rel_bond).sum(1)], 1)
+    lig = torch.cat([t["mask_l"].new_zeros(B, NP), t["mask_l"]], 1)
+    return new_h, x + dx * lig[..., None], hb_new
+
+
+def layer_stack_xla2_bf16(packed: Dict[str, torch.Tensor], h, x, hb,
+                          tables: Dict[str, torch.Tensor], dims: StackDims,
+                          remat: bool = False):
+    """The 'xla2' stack with `fused_block_dtype` bfloat16, the counterpart
+    of `layer_stack_xla2(..., dtype=jnp.bfloat16)`: the h and bond-grid
+    carries, the packed weights (`xla2_operands`) and the feature products
+    in bf16; positions, geometry and softmaxes float32. Differentiable by
+    autograd (gradients reach `packed` through the casts); `remat`
+    recomputes each layer in the backward. Returns (h bf16, x, hb bf16)."""
+    bf = torch.bfloat16
+    merged = {k: v.to(bf) for k, v in xla2_operands(packed).items()}
+    h, hb = h.to(bf), hb.to(bf)
+    keys = sorted(merged)
+    for l in range(merged["lin_b"].shape[0]):
+        w = layer_weights(merged, l)
+        if remat and torch.is_grad_enabled():
+            from torch.utils.checkpoint import checkpoint
+
+            def run(h_, x_, hb_, e_w, pn, *ws):
+                t = dict(tables, e_w=e_w, phore_norm=pn)
+                return _layer_xla2_bf16(dict(zip(keys, ws)), h_, x_, hb_, t,
+                                        dims)
+            h, x, hb = checkpoint(run, h, x, hb, tables["e_w"],
+                                  tables["phore_norm"],
+                                  *[w[k] for k in keys], use_reentrant=False)
+        else:
+            h, x, hb = _layer_xla2_bf16(w, h, x, hb, tables, dims)
     return h, x, hb
 
 
@@ -731,15 +990,21 @@ class LayerStackFn(torch.autograd.Function):
     backward kernel, as in the JAX package, whose custom VJP recomputes
     `layer_stack_xla`; one layer at a time keeps the recomputed
     [B,NL,NL,K8,Wt] and per-head intermediates of a single layer live
-    instead of the whole stack's. The straight-through treatment of bf16
-    inter-stage blocks (`fused_block_dtype`) is not ported yet.
+    instead of the whole stack's. With bf16 inter-stage blocks
+    (`block_dtype`, `fused_block_dtype`) the forward rounds pre_t and q_z to
+    bf16 while the backward is that of the float32 stack on the same
+    inputs: it first remakes the float32 layer boundaries (kernels with
+    float32 blocks, no grad), then recomputes layer by layer as above. The
+    rounding is passed straight through, as the JAX package's custom VJP
+    does (its backward recomputes `layer_stack_xla` from the inputs, with
+    no block dtype).
 
-    Arguments: (dims, merge_node_pre, merge_pos, tables, keys, h, x, hb,
-    e_w, phore_norm, *packed values in the order of `keys`)."""
+    Arguments: (dims, merge_node_pre, merge_pos, block_dtype, tables, keys,
+    h, x, hb, e_w, phore_norm, *packed values in the order of `keys`)."""
 
     @staticmethod
-    def forward(ctx, dims, merge_node_pre, merge_pos, tables, keys, h, x, hb,
-                e_w, phore_norm, *values):
+    def forward(ctx, dims, merge_node_pre, merge_pos, block_dtype, tables,
+                keys, h, x, hb, e_w, phore_norm, *values):
         packed = dict(zip(keys, values))
         t = dict(tables, e_w=e_w, phore_norm=phore_norm)
         L = packed["lin_b"].shape[0]
@@ -747,15 +1012,28 @@ class LayerStackFn(torch.autograd.Function):
         for l in range(L):
             bounds.append((h, x, hb))
             h, x, hb = _layer(layer_weights(packed, l), h, x, hb, t, dims,
-                              True, merge_node_pre, merge_pos)
+                              True, merge_node_pre, merge_pos, block_dtype)
         ctx.dims, ctx.tables, ctx.keys = dims, t, keys
         ctx.bounds, ctx.values = bounds, values
+        ctx.merges = (merge_node_pre, merge_pos)
+        ctx.block_dtype = block_dtype
         return h, x, hb
 
     @staticmethod
     def backward(ctx, g_h, g_x, g_hb):
         dims, t, keys = ctx.dims, ctx.tables, ctx.keys
         L = len(ctx.bounds)
+        if ctx.block_dtype != torch.float32:
+            # straight through the block rounding: the layer boundaries
+            # the backward starts from are those of the float32 stack on
+            # the same inputs, not those of the rounded forward
+            packed = dict(zip(keys, ctx.values))
+            h, x, hb = ctx.bounds[0]
+            with torch.no_grad():
+                for l in range(1, L):
+                    h, x, hb = _layer(layer_weights(packed, l - 1), h, x, hb,
+                                      t, dims, True, *ctx.merges)
+                    ctx.bounds[l] = (h, x, hb)
         g_vals = [torch.zeros_like(v) for v in ctx.values]
         g_tab = [torch.zeros_like(t[k]) for k in _DIFF_TABLES]
         zero = lambda g, like: torch.zeros_like(like) if g is None else g
@@ -781,21 +1059,24 @@ class LayerStackFn(torch.autograd.Function):
                 if g is not None:
                     acc[l] = g
         ctx.bounds = None
-        return (None, None, None, None, None, g_h, g_x, g_hb, *g_tab,
+        return (None, None, None, None, None, None, g_h, g_x, g_hb, *g_tab,
                 *g_vals)
 
 
 def make_layer_stack_grad(dims: StackDims, merge_node_pre: bool = False,
-                          merge_pos: bool = False):
+                          merge_pos: bool = False, block_dtype=torch.float32):
     """The fused stack usable under autograd: f(packed, h, x, hb, tables)
-    -> (h, x, hb), kernels forward, `LayerStackFn`'s backward. Without
-    grad mode (sampling) it is `layer_stack` itself."""
+    -> (h, x, hb), kernels forward, `LayerStackFn`'s backward (float32,
+    straight through bf16 blocks). Without grad mode (sampling) it is
+    `layer_stack` itself."""
     def f(packed, h, x, hb, tables):
         if not torch.is_grad_enabled():
             return layer_stack(packed, h, x, hb, tables, dims, True,
-                               merge_node_pre, merge_pos)
+                               merge_node_pre, merge_pos,
+                               block_dtype=block_dtype)
         keys = tuple(sorted(packed))
         return LayerStackFn.apply(
-            dims, merge_node_pre, merge_pos, tables, keys, h, x, hb,
-            tables["e_w"], tables["phore_norm"], *[packed[k] for k in keys])
+            dims, merge_node_pre, merge_pos, block_dtype, tables, keys, h, x,
+            hb, tables["e_w"], tables["phore_norm"],
+            *[packed[k] for k in keys])
     return f

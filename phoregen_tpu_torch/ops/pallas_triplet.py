@@ -136,11 +136,27 @@ def _ptr(tensor, name, shape):
     return tensor.data_ptr()
 
 
+# the most heads one launch takes (a lane per head in the kernel's
+# softmax); more are split into groups, one launch each
+MAX_HEADS = 32
+
+
+def _pad_last(t, width: int):
+    """`t` with its last axis zero-padded to `width` (a new contiguous
+    tensor), or `t` itself where it is that wide already."""
+    pad = width - t.shape[-1]
+    return F.pad(t, (0, pad)).contiguous() if pad else t
+
+
 def triplet_pool_cuda(a_kj, a_ji, q, pos, mask, w_ang, ln_scale, ln_bias,
                       act: str, norm: bool, num_ang_funcs: int = 3):
     """Same signature and result as `triplet_pool_plain`; CUDA kernel for
     CUDA tensors, plain version on the CPU. No gradient flows through the
-    kernel (see `triplet_pool`)."""
+    kernel (see `triplet_pool`). The kernel takes feature rows of a
+    multiple of 4: a Wt that is none is zero-padded here (the kernel takes
+    the LayerNorm and the score scale over the true Wt) and the padding
+    cut from the result; more than MAX_HEADS heads go in groups of at most
+    MAX_HEADS, one launch each."""
     if not a_kj.is_cuda:
         return triplet_pool_plain(a_kj, a_ji, q, pos, mask, w_ang, ln_scale,
                                   ln_bias, act, norm, num_ang_funcs)
@@ -151,29 +167,49 @@ def triplet_pool_cuda(a_kj, a_ji, q, pos, mask, w_ang, ln_scale, ln_bias,
     if act not in ACT_CODES:
         raise NotImplementedError(f"activation {act!r} is not built into "
                                   f"the triplet-pool kernel")
-    if Wt > 32 or Wt % 4 or heads > 32 or enc > 32:
-        raise ValueError(f"the triplet-pool kernel takes Wt a multiple of 4 "
-                         f"up to 32, heads <= 32 and num_ang_funcs <= 7 (got "
-                         f"Wt={Wt}, heads={heads}, num_ang_funcs="
-                         f"{num_ang_funcs})")
+    if Wt > 32:
+        raise ValueError(f"the triplet-pool kernel takes Wt up to 32 (got "
+                         f"Wt={Wt})")
+    for name, t, shape in (("a_ji", a_ji, (B, N, N, Wt)),
+                           ("q", q, (B, N, N, heads, Wt)),
+                           ("w_ang", w_ang, (enc, Wt)),
+                           ("ln_scale", ln_scale, (Wt,)),
+                           ("ln_bias", ln_bias, (Wt,))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                             f"{shape}")
+    Wp = (Wt + 3) // 4 * 4
+    a_kj, a_ji, w_ang, ln_scale, ln_bias = (
+        _pad_last(t, Wp) for t in (a_kj, a_ji, w_ang, ln_scale, ln_bias))
     maskf = mask.to(torch.float32).contiguous()
-    out = torch.empty(B, N, N, heads * Wt, device=a_kj.device,
-                      dtype=torch.float32)
-    named = (("a_kj", a_kj, (B, N, N, Wt)), ("a_ji", a_ji, (B, N, N, Wt)),
-             ("q", q, (B, N, N, heads, Wt)), ("pos", pos, (B, N, 3)),
-             ("mask", maskf, (B, N)), ("w_ang", w_ang, (enc, Wt)),
-             ("ln_scale", ln_scale, (Wt,)), ("ln_bias", ln_bias, (Wt,)),
-             ("out", out, (B, N, N, heads * Wt)))
-    ptrs = [_ptr(t, name, shape) for name, t, shape in named]
-    arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    dims = (ctypes.c_int * 7)(B, N, heads, Wt, num_ang_funcs, int(norm),
-                              ACT_CODES[act])
-    rc = _build.load("triplet_pool").tp_triplet_pool(
-        arr, len(ptrs), dims, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"tp_triplet_pool: CUDA error {rc}")
-    LAUNCHES["triplet_pool"] += 1
-    return out
+    lib = _build.load("triplet_pool")
+    ngroups = -(-heads // MAX_HEADS)
+    bounds = [heads * g // ngroups for g in range(ngroups + 1)]
+    outs = []
+    for h0, h1 in zip(bounds[:-1], bounds[1:]):
+        hg = h1 - h0
+        qg = _pad_last(q if ngroups == 1 else
+                       q[..., h0:h1, :].contiguous(), Wp)
+        out = torch.empty(B, N, N, hg * Wp, device=a_kj.device,
+                          dtype=torch.float32)
+        named = (("a_kj", a_kj, (B, N, N, Wp)), ("a_ji", a_ji, (B, N, N, Wp)),
+                 ("q", qg, (B, N, N, hg, Wp)), ("pos", pos, (B, N, 3)),
+                 ("mask", maskf, (B, N)), ("w_ang", w_ang, (enc, Wp)),
+                 ("ln_scale", ln_scale, (Wp,)), ("ln_bias", ln_bias, (Wp,)),
+                 ("out", out, (B, N, N, hg * Wp)))
+        ptrs = [_ptr(t, name, shape) for name, t, shape in named]
+        arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
+        dims = (ctypes.c_int * 7)(B, N, hg, Wt, num_ang_funcs, int(norm),
+                                  ACT_CODES[act])
+        rc = lib.tp_triplet_pool(arr, len(ptrs), dims,
+                                 torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"tp_triplet_pool: CUDA error {rc}")
+        LAUNCHES["triplet_pool"] += 1
+        outs.append(out if Wp == Wt else
+                    out.view(B, N, N, hg, Wp)[..., :Wt].reshape(
+                        B, N, N, hg * Wt))
+    return outs[0] if ngroups == 1 else torch.cat(outs, -1)
 
 
 class _TripletPoolFn(torch.autograd.Function):

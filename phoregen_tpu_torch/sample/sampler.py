@@ -21,6 +21,8 @@ from ..constants import MAX_ATOMS, MIN_ATOMS
 from ..data.batching import PhoreGraphBatch
 from ..diffusion.categorical import build_strided_tables
 from ..diffusion.gaussian import GaussianTransition, build_gaussian_strided
+from ..models.diffusion_model import apply_net, cast_params
+from ..models.layers import dtype_of
 from ..ops.masked import log_sample_categorical, masked_mean
 
 
@@ -153,16 +155,22 @@ class Sampler:
 
     # ----- the reverse loop -----
     def prepare(self, batch: PhoreGraphBatch) -> Dict:
-        """Loop invariants: phore embedding, packed weights of a fused
-        stack (None on the per-layer module path), the non-EX phore
-        centroid for center_prox."""
+        """Loop invariants: the network's parameters in the compute dtype
+        (`model.compute_dtype`; cast once a run, None at float32), the
+        phore embedding and the packed weights of a fused stack (None on
+        the per-layer module path), both made from those parameters, and
+        the non-EX phore centroid for center_prox."""
         pg = self.pg
+        cdt = dtype_of(pg.config.model.compute_dtype)
         p_mask = (batch.phore_x[..., pg.ex_col] != 1) & batch.phore_mask
         with torch.no_grad():
-            h_phore = pg.net.embed_phore(batch.phore_x, batch.phore_pos,
-                                         batch.phore_mask)
-            packed = pg.net.pack_fused()
-        return {"h_phore": h_phore, "packed": packed,
+            params = cast_params(pg.net, cdt)
+            h_phore = apply_net(pg.net, params, batch.phore_x.to(cdt),
+                                batch.phore_pos, batch.phore_mask,
+                                method="embed_phore")
+            packed = apply_net(pg.net, params, method="pack_fused")
+        return {"params": params, "dtype": cdt, "h_phore": h_phore,
+                "packed": packed,
                 "phore_center": masked_mean(batch.phore_pos,
                                             p_mask[..., None], dim=1)}
 
@@ -212,14 +220,18 @@ class Sampler:
         t = torch.full((B,), int(ts[i]), dtype=torch.int64,
                        device=batch.lig_mask.device)
         oh = torch.nn.functional.one_hot
+        cdt = inv["dtype"]
         with torch.no_grad():
-            pred_node, pred_pos, pred_edge, _ = pg.net(
-                oh(state["node"].long(), mcfg.num_atom_classes).float(),
+            preds = apply_net(
+                pg.net, inv["params"],
+                oh(state["node"].long(), mcfg.num_atom_classes).to(cdt),
                 state["pos"], batch.lig_mask,
-                oh(state["edge"].long(), mcfg.num_bond_classes).float(), t,
-                batch.phore_x, batch.phore_pos, batch.phore_norm,
+                oh(state["edge"].long(), mcfg.num_bond_classes).to(cdt), t,
+                batch.phore_x.to(cdt), batch.phore_pos, batch.phore_norm,
                 batch.phore_mask, h_phore_emb=inv["h_phore"],
                 compute_count=False, fused_packed=inv["packed"])
+        # posteriors, positions and sampling in float32
+        pred_node, pred_pos, pred_edge = (p.float() for p in preds[:3])
         ti = min(i, node_tT.shape[0] - 1)
         log_node = pg.node_transition.q_v_posterior_mats(
             torch.log_softmax(pred_node, -1), state["log_node"],

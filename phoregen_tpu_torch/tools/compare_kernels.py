@@ -19,7 +19,10 @@ builds meet the same card, clocks and neighbours. Times of two separate
 runs differ by several percent; these do not.
 
 `layer_stack`: the six layer-stack kernels at the flagship widths (B graphs,
-NP=96, NL in `--nl`; `kernel_check.flagship_case`). `triplet_pool`: the
+NP=96, NL in `--nl`; `kernel_check.flagship_case`), and on request
+(`--kernels`) the bf16-block forms of rows 2, 3, 5 and 6
+(`stage_triplet_pre_bf16`, ...; a build without their entries stops
+the run with AttributeError). `triplet_pool`: the
 all-k triplet pool at B graphs of N = each of `--nl` slots, 16 heads,
 Wt=32 (`kernel_check.triplet_case`), held by `check_triplet_pool` (5e-4 on
 the unmasked pairs, exact zeros on the masked ones).
@@ -49,21 +52,35 @@ def build(source: str, out: str, library: str):
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source}:\n{res.stderr}")
-    usage, name = {}, None
+    # ptxas prints, per entry: "Compiling entry function 'E'", "Function
+    # properties for E", E's stack / spill line, "Used N registers"; the
+    # properties of the non-inlined functions it calls follow with their
+    # own stack lines, which are not E's
+    usage, name, props = {}, None, None
     for line in res.stderr.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = re.sub(r"^_Z\d+", "", m.group(1))
+            entry = m.group(1)
+            name = re.sub(r"^_Z\d+", "", entry)
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            props = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             usage.setdefault(name, {})["registers"] = int(m.group(1))
             m = re.search(r"(\d+) bytes smem", line)
             usage[name]["static_smem"] = int(m.group(1)) if m else 0
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
-        if m and name:
+        if m and name and props == entry:
             usage.setdefault(name, {}).update(stack=int(m.group(1)),
                                               spill=int(m.group(2)))
-    return _build.bind(out, library), usage
+    # another version of the source may lack entries of this one (an older
+    # source has no bf16-block entries): declare those it exports; timing
+    # one it lacks raises AttributeError
+    lib = ctypes.CDLL(out)
+    _build.declare(lib, [e for e in _build.LIBRARIES[library][1]
+                         if hasattr(lib, e)])
+    return lib, usage
 
 
 def layer_stack_plans(lib, args):
@@ -135,7 +152,7 @@ def compare_layer_stack(libs, args):
                 # q_z / new_h / hb_new / x_new; pre_t is held by chip_smoke
                 # on the triplets the attention reads
                 return "max abs err %.2e" % max(
-                    float((g - r).abs().max())
+                    float((g.float() - r.float()).abs().max())
                     for g, r in zip(got, ref) if g.dim() < 5)
             compare(kern, check, libs, "layer_stack",
                     f"B={args.batch} NL={nl} {name}", args)
@@ -169,7 +186,8 @@ def main():
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--kernels", nargs="+",
-                    default=[k for k, _ in kc.KERNELS])
+                    default=[k for k, _ in kc.KERNELS],
+                    choices=[k for k, _ in kc.KERNELS + kc.BF16_KERNELS])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs the card")

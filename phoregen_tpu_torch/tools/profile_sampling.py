@@ -3,6 +3,9 @@
     python -m phoregen_tpu_torch.tools.profile_sampling --batch 16 --nl 48
     python -m phoregen_tpu_torch.tools.profile_sampling --nl 48 \
         --fused_stack none --triplet_knn 0 --use_pallas_triplet 1
+    python -m phoregen_tpu_torch.tools.profile_sampling --nl 48 \
+        --fused_stack pallas2 --fused_block_dtype bfloat16 \
+        --compute_dtype bfloat16
 
 Loads release/flagship_r4, builds a sampling batch of `--batch` graphs for
 one pharmacophore in the `--nl` ligand bucket, and runs reverse steps of
@@ -10,7 +13,9 @@ the port's sampler: `--fused_stack pallas` (the default here: the fused
 stack's four CUDA kernels), `pallas3` / `pallas2` (its merged kernels,
 three / two a layer) or `none` (the per-layer module path, with
 `--triplet_knn` and `--use_pallas_triplet` as in the sampling CLI; -1 keeps
-the checkpoint's value). `--warmup` steps, then
+the checkpoint's value; `--fused_block_dtype` and `--compute_dtype`
+override `denoiser.fused_block_dtype` and `model.compute_dtype`, '' keeps
+the checkpoint's). `--warmup` steps, then
 `--steps` timed steps (host clock around work that ends in a synchronize),
 then `--steps` steps under torch.profiler. Prints ms/step, the device's busy
 time per step (sum of kernel times), its idle share, and the kernels by
@@ -86,6 +91,10 @@ def main(argv=None):
     ap.add_argument("--triplet_knn", type=int, default=-1)
     ap.add_argument("--use_pallas_triplet", type=int, default=-1,
                     choices=[-1, 0, 1])
+    ap.add_argument("--fused_block_dtype", default="",
+                    choices=["", "float32", "bfloat16"])
+    ap.add_argument("--compute_dtype", default="",
+                    choices=["", "float32", "bfloat16"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("[E] needs a CUDA device")
@@ -102,7 +111,9 @@ def main(argv=None):
         args.ckpt, device="cuda", fused_stack=args.fused_stack,
         triplet_knn=None if args.triplet_knn < 0 else args.triplet_knn,
         use_pallas_triplet=(None if args.use_pallas_triplet < 0
-                            else bool(args.use_pallas_triplet)))
+                            else bool(args.use_pallas_triplet)),
+        fused_block_dtype=args.fused_block_dtype or None,
+        compute_dtype=args.compute_dtype or None)
     dcfg = pg.config.model.denoiser
     pipe = GenerationPipeline(
         pg, guidance=[GuidanceOpt(type="atom_prox"),
@@ -144,7 +155,9 @@ def main(argv=None):
     print(f"[profile] {gpu}; batch {args.batch}, NL {args.nl}, "
           f"NP {batch.phore_x.shape[1]}; fused_stack {dcfg.fused_stack}, "
           f"triplet_knn {dcfg.triplet_knn}, use_pallas_triplet "
-          f"{dcfg.use_pallas_triplet}")
+          f"{dcfg.use_pallas_triplet}, fused_block_dtype "
+          f"{dcfg.fused_block_dtype}, compute_dtype "
+          f"{pg.config.model.compute_dtype}")
     print(f"[profile] ms/step {ms_step:.3f} (under the profiler "
           f"{prof_ms_step:.3f}); device busy {busy:.3f} ms/step; idle share "
           f"{1 - busy / prof_ms_step:.3f} of the profiled step, "
@@ -157,6 +170,8 @@ def main(argv=None):
                       "fused_stack": dcfg.fused_stack,
                       "triplet_knn": dcfg.triplet_knn,
                       "use_pallas_triplet": dcfg.use_pallas_triplet,
+                      "fused_block_dtype": dcfg.fused_block_dtype,
+                      "compute_dtype": pg.config.model.compute_dtype,
                       "ms_per_step": ms_step,
                       "profiled_ms_per_step": prof_ms_step,
                       "device_busy_ms_per_step": busy,

@@ -3,10 +3,14 @@
     python -m phoregen_tpu_torch.tools.profile_training --nl 80
     python -m phoregen_tpu_torch.tools.profile_training --nl 48 \
         --fused_stack none
+    python -m phoregen_tpu_torch.tools.profile_training --nl 80 \
+        --dtype float32 --fused_block_dtype bfloat16
 
 Builds the flagship trainer (`flagship_trainer`: release/flagship_r4's
-configuration and weights, `train.dtype` float32, the given `fused_stack`,
-default `pallas2`: kernels forward, plain stages recomputed backward),
+configuration and weights, its own `train.dtype` (bfloat16 for the release
+configs) unless `--dtype` asks for another, `--fused_block_dtype` likewise,
+the given `fused_stack`, default `pallas2`: kernels forward, plain stages
+recomputed backward),
 makes batches of `--batch` graphs of the hermetic `mixed` corpus in the
 `--nl` ligand bucket from a seed, and runs `Run`'s own train step:
 `--warmup` steps, `--steps` timed steps (host clock around work that ends
@@ -30,11 +34,13 @@ import torch
 
 
 def flagship_trainer(ckpt: str, device="cuda", fused_stack: str = "pallas2",
-                     run_dir: str = None, seed: int = None):
+                     run_dir: str = None, seed: int = None,
+                     dtype: str = None, fused_block_dtype: str = None):
     """A `Run` at the width of the checkpoint `ckpt` with its weights (and
-    the EMA shadow equal to them), training in float32 through
-    `fused_stack`; the fused stacks get `block_knn_freeze`, as they
-    require."""
+    the EMA shadow equal to them), training through `fused_stack`; the
+    fused stacks get `block_knn_freeze`, as they require. `dtype`
+    (`train.dtype`) and `fused_block_dtype`: None keeps the checkpoint's
+    own."""
     from ..config import config_from_dict
     from ..train.checkpoint import load_params_only
     from ..train.loop import Run
@@ -45,7 +51,10 @@ def flagship_trainer(ckpt: str, device="cuda", fused_stack: str = "pallas2",
     dcfg.fused_stack = fused_stack
     if fused_stack != "none":
         dcfg.block_knn_freeze = True
-    cfg.train.dtype = "float32"
+    if dtype is not None:
+        cfg.train.dtype = dtype
+    if fused_block_dtype is not None:
+        dcfg.fused_block_dtype = fused_block_dtype
     cfg.train.num_devices = 0
     cfg.logger.tensorboard = False
     if seed is not None:
@@ -96,7 +105,7 @@ def forward_backward_ms(run, batch, seed: int = 0):
     t0 = time.time()
     loss, _ = run.pg.compute_loss(
         batch, gen, lig_noise_std=tcfg.lig_noise_std if tcfg.add_lig_noise
-        else 0.0)
+        else 0.0, compute_dtype=tcfg.dtype)
     torch.cuda.synchronize()
     t1 = time.time()
     loss.backward()
@@ -127,7 +136,8 @@ def gradient_sensitivity(run, batch, eps: float, seed: int = 7):
         gen = torch.Generator(device=dev).manual_seed(seed)
         pert = pg.perturb(batch, gen, run.config.train.lig_noise_std)
         pert["pos_pert"] = pert["pos_pert"] + shift * noise
-        loss, _ = pg.loss_from_perturbation(batch, pert)
+        loss, _ = pg.loss_from_perturbation(batch, pert,
+                                            compute_dtype=cfg.train.dtype)
         loss.backward()
         grads.append({n: p.grad.clone()
                       for n, p in pg.net.named_parameters()})
@@ -151,6 +161,13 @@ def main(argv=None):
     ap.add_argument("--fused_stack", default="pallas2",
                     choices=["none", "xla", "xla2", "pallas", "pallas3",
                              "pallas2"])
+    ap.add_argument("--dtype", default="", choices=["", "float32",
+                                                    "bfloat16"],
+                    help="train.dtype ('' = the checkpoint's own)")
+    ap.add_argument("--fused_block_dtype", default="",
+                    choices=["", "float32", "bfloat16"],
+                    help="denoiser.fused_block_dtype ('' = the checkpoint's "
+                         "own)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("[E] needs a CUDA device")
@@ -158,7 +175,9 @@ def main(argv=None):
     from ..ops import pallas_triplet as pt
     from .profile_sampling import kernel_rows, stage_label, stage_times
 
-    run = flagship_trainer(args.ckpt, "cuda", args.fused_stack)
+    run = flagship_trainer(args.ckpt, "cuda", args.fused_stack,
+                           dtype=args.dtype or None,
+                           fused_block_dtype=args.fused_block_dtype or None)
     cfg = run.config
     batches = [b.to("cuda") for b in bucket_batches(
         cfg, args.nl, args.warmup + args.steps)]
@@ -195,7 +214,9 @@ def main(argv=None):
     dcfg = cfg.model.denoiser
     print(f"[profile] {gpu}; train step, batch {cfg.train.batch_size}, NL "
           f"{args.nl}, NP {cfg.dataset.max_phore}; fused_stack "
-          f"{dcfg.fused_stack}; loss {float(m['loss']):.3f}")
+          f"{dcfg.fused_stack}; train.dtype {cfg.train.dtype}; "
+          f"fused_block_dtype {dcfg.fused_block_dtype}; loss "
+          f"{float(m['loss']):.3f}")
     print(f"[profile] ms/step {ms_step:.3f} (under the profiler "
           f"{prof_ms_step:.3f}); forward {fwd_ms:.3f} ms, backward "
           f"{bwd_ms:.3f} ms; device busy {busy:.3f} ms/step; idle share "
@@ -213,7 +234,8 @@ def main(argv=None):
               f"worst leaf {sens[1]:.3e}")
     print(json.dumps({
         "gpu": gpu, "gradient_sensitivity": sens, "batch": cfg.train.batch_size, "nl": args.nl,
-        "fused_stack": dcfg.fused_stack, "ms_per_step": ms_step,
+        "fused_stack": dcfg.fused_stack, "dtype": cfg.train.dtype,
+        "fused_block_dtype": dcfg.fused_block_dtype, "ms_per_step": ms_step,
         "profiled_ms_per_step": prof_ms_step, "forward_ms": fwd_ms,
         "backward_ms": bwd_ms, "device_busy_ms_per_step": busy,
         "idle_share": 1 - busy / prof_ms_step,

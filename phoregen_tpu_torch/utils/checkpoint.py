@@ -198,17 +198,27 @@ def msgpack_restore(raw: bytes) -> Dict[str, Any]:
     return _unchunk(tree)
 
 
-def load_release(prefix: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+def load_release(prefix: str, use_ema: bool = False
+                 ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """`<prefix>.msgpack` + `<prefix>.json` -> (numpy param tree, meta).
 
     The param tree is the flax `params` collection of the model (the
     checkpoint's `{"params": {"params": ...}}` wrappers removed); of a full
     training checkpoint (`last_model`, `best_model`) it is the `params`
-    entry, the optimizer state and the rest are left aside."""
+    entry, or with `use_ema` its `ema_params` entry (the EMA shadow), the
+    optimizer state and the rest left aside. `use_ema` on a checkpoint
+    without `ema_params` (a release checkpoint: bare model weights) raises
+    ValueError."""
     with open(prefix + ".msgpack", "rb") as f:
         tree = msgpack_restore(f.read())
     with open(prefix + ".json") as f:
         meta = json.load(f)
+    if use_ema:
+        if not isinstance(tree, dict) or "ema_params" not in tree:
+            raise ValueError(f"{prefix}: no ema_params in the checkpoint "
+                             f"(release checkpoints carry bare model "
+                             f"weights)")
+        return strip_collections(tree["ema_params"]), meta
     return strip_collections(tree.get("params", tree)), meta
 
 

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (the four layer-stack stages, the two merged
-stages and the all-k triplet pool) against their plain PyTorch versions, on the card. Imports neither JAX nor the JAX package, so it also runs where
+stages, the forms of four of them with bf16 inter-stage blocks, and the
+all-k triplet pool) against their plain PyTorch versions, on the card. Imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
@@ -45,6 +46,40 @@ def test_kernels_match_plain(cuda, shape):
     assert not bad, bad
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["small", "ragged", "flagship_nl48",
+                                   "flagship_nl80", "empty_graph", "tall"])
+def test_bf16_block_kernels_match_plain(cuda, shape):
+    """The forms of rows 2, 3, 5 and 6 with bf16 blocks pre_t and q_z:
+    stored blocks within the float32 tolerance plus one bf16 unit in the
+    last place, everything downstream at the float32 rows' tolerances."""
+    case = kc.flagship_case(device=cuda, seed=1, **SHAPES[shape])
+    rows = kc.check_kernels(case, reps=1, kernels=kc.BF16_KERNELS)
+    bad = [(r["name"], r["max_abs_err"]) for r in rows if not r["ok"]]
+    assert not bad, bad
+
+
+HYBRID_SHAPES = {
+    # NL + K sources a ligand row: 112 at the flagship's NL = 80, two
+    # passes over the edge tiles
+    "flagship_nl80": dict(B=2, NP=96, NL=80, trip_k=32),
+    "flagship_nl48": dict(B=2, NP=96, NL=48, trip_k=32),
+    "small": dict(B=2, NP=6, NL=8, H=16, heads=2, Wt=8, K=4, trip_k=3),
+    "ragged": dict(B=3, NP=10, NL=37, H=64, heads=4, Wt=16, K=7, trip_k=5),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(HYBRID_SHAPES))
+def test_kernels_match_plain_on_hybrid_tables(cuda, shape):
+    """Rows 1, 4, 5 and 6 on the hybrid cutoff's neighbour table."""
+    case = kc.flagship_case(device=cuda, seed=4, cutoff="hybrid",
+                            **HYBRID_SHAPES[shape])
+    rows = kc.check_kernels(case, reps=1, kernels=kc.KNN_KERNELS)
+    bad = [(r["name"], r["max_abs_err"]) for r in rows if not r["ok"]]
+    assert not bad, bad
+
+
 MERGES = {
     "pallas": (False, False, ("stage_node", "stage_triplet_pre",
                               "stage_triplet_att", "stage_pos")),
@@ -73,14 +108,52 @@ def test_wrappers_count_launches(cuda, setting):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
 
 
+# the stages that store or read the blocks pre_t and q_z have a bf16 form
+BF16_FORMS = ("stage_triplet_pre", "stage_triplet_att", "stage_node_pre",
+              "stage_att_pos")
+
+
+def launched(names, block_dtype):
+    """The kernels a setting launches with blocks of `block_dtype`."""
+    if block_dtype == torch.float32:
+        return names
+    return tuple(n + "_bf16" if n in BF16_FORMS else n for n in names)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("setting", sorted(MERGES))
-def test_layer_stack_fn_gradients(cuda, setting):
-    """`LayerStackFn` (kernels forward, one plain layer at a time backward)
-    gives the gradients of autograd through the whole plain stack, for the
-    packed weights, h, x, hb, e_w and phore_norm (1e-4 of each leaf's
-    largest gradient)."""
+def test_bf16_block_wrappers_count_launches(cuda, setting):
+    """With bf16 blocks each setting launches the bf16 forms of the stages
+    that store or read the blocks (and the float32 stages A and C), once a
+    layer; the stack agrees with the plain stack with bf16 blocks (1e-3:
+    the two float32 B1 results may round to neighbouring bf16 values)."""
     merge_node_pre, merge_pos, names = MERGES[setting]
+    names = launched(names, torch.bfloat16)
+    case = kc.flagship_case(device=cuda, seed=2, **SHAPES["small"])
+    ls.reset_launch_counts()
+    packed = {k: torch.stack([v, v]) for k, v in case["w"].items()}
+    args = (packed, case["h"], case["x"], case["hb"], case["t"], case["d"])
+    got = ls.layer_stack(*args, merge_node_pre=merge_node_pre,
+                         merge_pos=merge_pos, block_dtype=torch.bfloat16)
+    assert ls.LAUNCHES == {k: 2 * (k in names) for k in ls.LAUNCHES}
+    ref = ls.layer_stack(*args, use_kernels=False,
+                         block_dtype=torch.bfloat16)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32_blocks", "bf16_blocks"])
+@pytest.mark.parametrize("setting", sorted(MERGES))
+def test_layer_stack_fn_gradients(cuda, setting, block_dtype):
+    """`LayerStackFn` (kernels forward, one plain layer at a time backward)
+    gives the gradients of autograd through the whole plain float32 stack,
+    for the packed weights, h, x, hb, e_w and phore_norm (1e-4 of each
+    leaf's largest gradient). With bf16 blocks the backward is
+    straight-through: it recomputes in float32, so the same bound holds."""
+    merge_node_pre, merge_pos, names = MERGES[setting]
+    names = launched(names, block_dtype)
     case = kc.flagship_case(device=cuda, seed=5, **SHAPES["small"])
     g = torch.Generator().manual_seed(0)
     grads = []
@@ -93,8 +166,9 @@ def test_layer_stack_fn_gradients(cuda, setting):
             t[k] = t[k].clone().requires_grad_(True)
         ls.reset_launch_counts()
         if fused:
-            out = ls.make_layer_stack_grad(case["d"], merge_node_pre,
-                                           merge_pos)(packed, *ins, t)
+            out = ls.make_layer_stack_grad(
+                case["d"], merge_node_pre, merge_pos,
+                block_dtype=block_dtype)(packed, *ins, t)
             assert ls.LAUNCHES == {k: 2 * (k in names) for k in ls.LAUNCHES}
         else:
             out = ls.layer_stack(packed, *ins, t, case["d"],
@@ -194,6 +268,13 @@ POOL_SHAPES = {
     "ragged_37": dict(B=3, N=37, heads=4, Wt=16),
     # three chunks of sources, heads not a multiple of 4
     "tall_83": dict(B=1, N=83, heads=6, Wt=8),
+    # widths the kernel takes through the wrapper: Wt no multiple of 4
+    # (zero-padded), more than 32 heads (two launches), more bands than a
+    # lane's registers hold
+    "odd_wt6": dict(B=2, N=13, heads=4, Wt=6),
+    "heads40": dict(B=2, N=11, heads=40, Wt=8),
+    "num_ang8": dict(B=2, N=13, heads=4, Wt=8, num_ang=8),
+    "odd_wt18_heads36": dict(B=2, N=48, heads=36, Wt=18),
 }
 
 
@@ -323,9 +404,9 @@ def test_triplet_pool_wrapper_rejects_bad_inputs(cuda):
         pt.triplet_pool_cuda(args[0].double(), *args[1:])
     with pytest.raises(NotImplementedError, match="activation"):
         pt.triplet_pool_cuda(*args[:8], "swish", True, 3)
-    odd = kc.triplet_case(device=cuda, seed=5, B=1, N=5, heads=2, Wt=6)
-    with pytest.raises(ValueError, match="multiple of 4"):
-        pt.triplet_pool_cuda(*_pool_args(odd))
+    wide = kc.triplet_case(device=cuda, seed=5, B=1, N=5, heads=2, Wt=36)
+    with pytest.raises(ValueError, match="up to 32"):
+        pt.triplet_pool_cuda(*_pool_args(wide))
     with pytest.raises(ValueError, match="aligned"):
         q = torch.empty(args[2].numel() + 1, device=cuda)[1:]
         pt.triplet_pool_cuda(args[0], args[1], q.view_as(args[2]), *args[3:])

@@ -256,6 +256,29 @@ def test_loss_parameter_gradients_match_jax(loss_case):
 
 
 def test_bf16_compute_dtype_raises_and_names_the_roadmap():
-    pg = ppgm.PhoreGen(port_config(small_config("xla"), "none"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pg.compute_loss(None, None, compute_dtype="bfloat16")
+    """`compute_dtype` bfloat16 used to raise; now it runs the network in
+    bf16 and its loss stays within 5% of the float32 loss on the same
+    draws (tests/test_train.py holds the JAX package to the same bound;
+    the JAX comparison is tests/test_torch_port_bf16_model.py). An unknown
+    dtype raises."""
+    jcfg = small_config("none")
+    batch = next(iter(PhoreDataLoader(synthetic_dataset(0, 3, max_atoms=12),
+                                      jcfg, 3, shuffle=False)))
+    jpg = jpgm.PhoreGen(jcfg)
+    pg = ppgm.PhoreGen(port_config(jcfg, "none"))
+    pg.net.load_state_dict(from_jax_params(jpg.init_params(
+        jax.random.PRNGKey(0), batch)), strict=True)
+    tb = PhoreGraphBatch(**{k: np.asarray(v) for k, v in
+                            vars(batch).items()}).to("cpu")
+    draws = _jax_draws(jax.random.PRNGKey(21), batch, 0.1, jpg)
+    with torch.no_grad():
+        loss = {dt: pg.compute_loss(tb, None, lig_noise_std=0.1,
+                                    compute_dtype=dt, **draws)[0]
+                for dt in ("float32", "bfloat16")}
+    assert loss["bfloat16"].dtype == torch.float32
+    assert torch.isfinite(loss["bfloat16"])
+    assert float(loss["bfloat16"]) == pytest.approx(float(loss["float32"]),
+                                                    rel=0.05)
+    assert float(loss["bfloat16"]) != float(loss["float32"])
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        pg.compute_loss(tb, None, compute_dtype="float16", **draws)

@@ -120,13 +120,15 @@ def test_count_interval_matches_jax(models):
                                    "pallas2"])
 def test_unported_fused_stacks_raise(fused):
     """No `fused_stack` value is left unported: 'pallas3' / 'pallas2' (the
-    merged stage kernels) build like 'none', 'xla' and 'xla2'; an unknown
-    value and the bf16 inter-stage blocks still raise, naming ROADMAP.md
-    where the work is listed."""
+    merged stage kernels) build like 'none', 'xla' and 'xla2', each with
+    float32 or bf16 inter-stage blocks (these used to raise); an unknown
+    value of either still raises."""
     cfg = port_config(small_config("xla"), fused)
     assert PhoreGen(cfg).net.denoiser.fused_stack == fused
     cfg.model.denoiser.fused_block_dtype = "bfloat16"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert PhoreGen(cfg).net.denoiser.block_dtype == torch.bfloat16
+    cfg.model.denoiser.fused_block_dtype = "float16"
+    with pytest.raises(ValueError, match="fused_block_dtype"):
         PhoreGen(cfg)
     cfg.model.denoiser.fused_block_dtype = "float32"
     cfg.model.denoiser.fused_stack = fused + "_"

@@ -342,7 +342,8 @@ def test_cli_follows_the_checkpoint_and_guards_narrowing(tmp_path):
     # the missing pharmacophore file
     with pytest.raises(FileNotFoundError, match="none.phore"):
         cli.main(base + ["--fused_stack", "pallas2"])
-    with pytest.raises(SystemExit, match="ROADMAP"):
+    # so are bf16 blocks (they used to be refused)
+    with pytest.raises(FileNotFoundError, match="none.phore"):
         cli.main(base + ["--fused_block_dtype", "bfloat16"])
     with pytest.raises(SystemExit, match="ROADMAP"):
         cli.main(base + ["--sample_devices", "2"])
