@@ -81,7 +81,31 @@ Phases (any failure exits non-zero and prints no result):
    keep them float32): loss within 1e-4 relative, gradient relative L2
    within 5e-3, each leaf within 0.5 of its largest gradient
    (`BF16_TOLS`). Prints steps/s, ms/step and peak memory;
-9. check: accepted molecules are finite and written, and one forward of
+9. [cli]: `python -m phoregen_tpu_torch.cli.sample` in-process as a user
+   runs it: release/flagship_r4 on its own configuration (the module path
+   with kNN triplets, no kernel), the recipe above over the full 1000
+   steps for one batch of 30, `--save_pool --recon_workers 2`; the pool
+   file must have the JAX key layout, the workers must accept what an
+   in-process reconstruction of the same pool accepts, and the native
+   host library (which must have built) must perceive the same bonds as
+   the Python loop on every molecule. Prints ms/step, the bucket and the
+   idle share (device busy time from 20 profiled steps of the same
+   sampler on the same batch);
+10. [pt]: a reference-format `.pt` of configs/train_lig-phore.yml's
+   widths (H 128, 16 heads, 6 layers, kNN 32) with `triplet_mode: dense`,
+   seeded weights under the upstream names and an EasyDict pickled
+   beside them, written with torch.save, imported exactly and sampled
+   through the CLI (100 steps, batch 16); ms/step and peak memory;
+11. [continuous], [no-bond]: flagship_r4's configuration with
+   `categorical_space: continuous` (through `pallas2`) or `bond_diffusion:
+   false` (through `pallas`) and seeded random weights: a 100-step chain
+   (kernels 5, 6 or 1-4 launched 100 x 6 times each; no pred_edge without
+   bonds), the loss and gradients of one batch of 8 at NL=48 against the
+   plain stages on the CPU (the float32 training check's limits), one
+   train step;
+12. [chunked]: a 50-step `pallas2` chain whole and with `chunk_steps` 7,
+   equal bit for bit;
+13. check: accepted molecules are finite and written, and one forward of
    the flagship network on a small input agrees between the card (kernels)
    and the CPU (plain versions), on the three sampling paths, within
    atol = rtol = 1e-3 (6 layers of float32 attention, different summation
@@ -142,12 +166,40 @@ PATH_KERNELS = {
     "pallas2_bf16": ("stage_node_pre_bf16", "stage_att_pos_bf16"),
     "pallas_bf16": ("stage_node", "stage_triplet_pre_bf16",
                     "stage_triplet_att_bf16", "stage_pos"),
+    "continuous": ("stage_node_pre", "stage_att_pos"),
+    "no-bond": ("stage_node", "stage_triplet_pre", "stage_triplet_att",
+                "stage_pos"),
+    "chunked": ("stage_node_pre", "stage_att_pos"),
+    # flagship_r4 as it is (kNN triplets, module path) and the dense
+    # reference form: no kernel
+    "cli": (),
+    "pt": (),
 }
 # shapes of the kernel rows beyond the flagship's kNN table at NL = 80, 48:
 # the hybrid cutoff's table (NL + 32 sources a ligand row), and the pool
 # at widths no multiple of 4 and more heads than one launch takes
 HYBRID_NL = 80
 ODD_POOL = dict(N=48, heads=36, Wt=18)
+# [cli]: the sample.sh recipe through `python -m phoregen_tpu_torch.cli.sample`
+CLI_BATCH = 30
+CLI_GUIDANCE = [{"type": "atom_prox", "min_d": 1.0, "max_d": 3.0},
+                {"type": "center_prox"}]
+CLI_PROFILE_STEPS = 20
+# [pt]: a reference-format checkpoint of configs/train_lig-phore.yml's
+# widths with dense triplets, sampled through the CLI
+PT_STEPS = 100
+PT_CONFIG = os.path.join("configs", "train_lig-phore.yml")
+# [continuous], [no-bond]: flagship_r4's configuration with one option
+# changed, seeded random weights, a strided chain, one train step
+OPTION_STEPS = 100
+OPTION_NL = 48
+OPTION_TRAIN_BATCH = 8
+OPTIONS = {
+    "continuous": dict(categorical_space="continuous", fused_stack="pallas2"),
+    "no-bond": dict(bond_diffusion=False, fused_stack="pallas"),
+}
+# [chunked]: one pallas2 chain whole and in chunks, bit for bit
+CHUNK_STEPS, CHUNK = 50, 7
 
 
 def fail(msg: str) -> None:
@@ -554,6 +606,533 @@ def phase_train_bf16(root, ls, pt):
     return launches_p2
 
 
+def _launches(ls, pt):
+    return dict(ls.LAUNCHES, **pt.LAUNCHES)
+
+
+def _want_only(label, launches, per_kernel):
+    want = {k: per_kernel * (k in PATH_KERNELS[label]) for k in launches}
+    if launches != want:
+        fail(f"the {label} path must launch {PATH_KERNELS[label]} "
+             f"{per_kernel} times each and no other kernel: {launches}")
+
+
+def _phore_batch(pg, root, n, nl, dev, seed=0):
+    """A sampling batch of `n` graphs for P03211_merge in the bucket `nl`:
+    atom counts in [nl/2, nl], the first at nl."""
+    import numpy as np
+    from phoregen_tpu_torch.data.batching import replicate_phore
+    from phoregen_tpu_torch.data.phore import parse_phore_file
+    from phoregen_tpu_torch.sample.pipeline import GenerationPipeline
+    sample = GenerationPipeline(pg, device=dev).prepare_phore(
+        parse_phore_file(os.path.join(root, "tests", "fixtures", "phores",
+                                      "P03211_merge.phore")))
+    counts = np.random.default_rng(seed).integers(nl // 2, nl + 1, n)
+    counts[0] = nl
+    return replicate_phore(sample, n, counts, nl).to(dev)
+
+
+def phase_cli(root, ls, pt, dev="cuda", steps=0, batch=CLI_BATCH,
+              profile_steps=CLI_PROFILE_STEPS):
+    """[cli]: `python -m phoregen_tpu_torch.cli.sample` as a user runs it,
+    in-process: release/flagship_r4 on its own configuration (module path,
+    kNN triplets, no kernel), the sample.sh recipe, one batch of `batch`
+    for P03211_merge over the full schedule (`steps` 0), `--save_pool
+    --recon_workers 2`. Checks the pool file's JAX key layout, that the
+    workers accepted what an in-process reconstruction of the same pool
+    accepts, that the native and the Python bond perception agree on
+    every molecule of the pool, and that the native library was used.
+    Then times `profile_steps` steps of the same sampler on the same batch
+    under torch.profiler for the device's busy time: idle share = 1 -
+    busy / the CLI's ms/step. Returns the launch counts of the CLI run."""
+    import numpy as np
+    import torch
+    from phoregen_tpu_torch import native
+    from phoregen_tpu_torch.cli import sample as cli
+    from phoregen_tpu_torch.data.batching import replicate_phore
+    from phoregen_tpu_torch.data.phore import parse_phore_file
+    from phoregen_tpu_torch.sample.decode import decode_batch
+    from phoregen_tpu_torch.sample.predict_bonds import predict_bonds_python
+    from phoregen_tpu_torch.sample.reconstruct import recon_task
+    from phoregen_tpu_torch.tools.profile_sampling import kernel_rows
+
+    tag = "[cli]"
+    if not native.available():
+        fail(f"the native host library did not load: {native.load_error()}")
+    phore_path = os.path.join(root, "tests", "fixtures", "phores",
+                              "P03211_merge.phore")
+    with tempfile.TemporaryDirectory() as out_dir:
+        argv = ["--ckpt", os.path.join(root, "release", "flagship_r4"),
+                "--phore", phore_path, "--result_path", out_dir,
+                "--num_samples", str(batch), "--batch_size", str(batch),
+                "--max_batches", "1", "--sample_nodes_mode", "normal",
+                "--normal_scale", "6.0", "--add_edge", "predicted",
+                "--pos_guidance_opt", json.dumps(CLI_GUIDANCE),
+                "--sample_steps", str(steps), "--save_pool",
+                "--recon_workers", "2", "--device", dev, "--seed", "2024"]
+        print(f"{tag} python -m phoregen_tpu_torch.cli.sample "
+              + " ".join(argv), flush=True)
+        ls.reset_launch_counts()
+        pt.reset_launch_counts()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.time()
+        out = cli.main(argv)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = _launches(ls, pt)
+        pipe, res = out["pipeline"], out["results"][0]
+        name = res["name"]
+        npz = os.path.join(out_dir, name, f"{name}_samples_all.npz")
+        if not os.path.exists(npz):
+            fail(f"{npz} was not written")
+        with np.load(npz) as f:
+            pool = {k: f[k] for k in f.files}
+        sdfs = [f for f in os.listdir(os.path.join(out_dir, name))
+                if f.endswith(".sdf")]
+    keys = sorted(f"{k}_0" for k in ("pred_node", "pred_pos", "pred_edge",
+                                     "lig_mask"))
+    if sorted(pool) != keys:
+        fail(f"pool file keys {sorted(pool)}, expected {keys}")
+    dcfg = pipe.cfg.model.denoiser
+    S = len(pipe.sampler.schedule()[0])
+    ms_step = 1e3 * pipe.sample_seconds / S
+    if res["n_sampled"] != batch or len(sdfs) != res["n_finished"]:
+        fail(f"sampled {res['n_sampled']} (expected {batch}), "
+             f"{len(sdfs)} SDF files for {res['n_finished']} accepted")
+    _want_only("cli", launches, 0)
+
+    # the workers' verdicts against an in-process reconstruction
+    decoded = decode_batch(pool["pred_node_0"], pool["pred_pos_0"],
+                           pool["pred_edge_0"], pool["lig_mask_0"],
+                           include_bond=True)
+    serial = [r[1][1] for r in (recon_task(d, "predicted") for d in decoded)
+              if r[0]]
+    if serial != res["smiles"]:
+        fail(f"recon workers accepted {res['smiles']}, in-process "
+             f"reconstruction {serial}")
+    # native against Python bond perception on every molecule
+    n_bonds = 0
+    for i, d in enumerate(decoded):
+        got = native.predict_bonds_native(d["element"], d["atom_pos"])
+        want = predict_bonds_python(d["element"], d["atom_pos"])
+        if got[0] != want[0] or got[1] != want[1]:
+            fail(f"native and Python bond perception differ on molecule {i}")
+        n_bonds += len(got[1]) // 2
+    print(f"{tag} fused_stack={dcfg.fused_stack} triplet_knn="
+          f"{dcfg.triplet_knn} use_pallas_triplet={dcfg.use_pallas_triplet}"
+          f"; {S} steps, batch {batch}; native library "
+          f"{os.path.basename(native.library_path())}")
+    print(f"{tag} accepted {res['n_finished']}/{res['n_sampled']} (failed "
+          f"{res['n_failed']}); recon workers = in-process on all "
+          f"{len(decoded)}; native = Python bond perception on all "
+          f"{len(decoded)} ({n_bonds} bonds); pool keys {keys}")
+
+    # device busy time: the same sampler on the same batch, profiled
+    counts = pool["lig_mask_0"].sum(1)
+    bucket = pool["lig_mask_0"].shape[1]
+    sp = pipe.sampler
+    sample = pipe.prepare_phore(parse_phore_file(phore_path))
+    b = replicate_phore(sample, batch, counts, bucket).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    inv = sp.prepare(b)
+    state = sp.init_state(b, gen)
+    n_prof = min(profile_steps, S - 1)
+    for i in range(min(3, S - 1)):
+        state, _ = sp.step(state, i, b, inv, False, gen)
+    busy = float("nan")
+    if dev == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(n_prof):
+                state, _ = sp.step(state, i, b, inv, False, gen)
+            torch.cuda.synchronize()
+        rows = kernel_rows(prof, n_prof)
+        busy = sum(r[0] for r in rows)
+        for ms, calls, key in rows[:6]:
+            print(f"{tag} kernel {ms:8.3f} ms/step {calls:6.1f} calls/step "
+                  f"{key[:90]}")
+    print(f"{tag} ms/step {ms_step:.3f}, bucket NL={bucket}, idle share "
+          f"{1 - busy / ms_step:.3f} (device busy {busy:.3f} ms/step over "
+          f"{n_prof} profiled steps of the same batch)")
+    print(f"{tag} molecules/s (sampled, reverse loop) "
+          f"{res['n_sampled'] / pipe.sample_seconds:.4f}; accepted per "
+          f"batch {res['n_finished']}/{batch}; accepted molecules/s (wall "
+          f"incl. reconstruction and start-up) {res['n_finished'] / wall:.4f}"
+          f" (wall {wall:.3f} s, loop {pipe.sample_seconds:.3f} s)",
+          flush=True)
+    return launches
+
+
+class EasyDict(dict):
+    """A dict with attribute access, as the upstream project's
+    `easydict.EasyDict` configs are pickled into its checkpoints."""
+
+    def __init__(self, d=None):
+        super().__init__(d or {})
+        for k, v in self.items():
+            setattr(self, k, v)
+
+
+def reference_state(tree):
+    """The port's flax-layout parameter tree (one `layer_<i>` a layer,
+    dense triplets) -> the upstream project's `PhoreDiff.state_dict()`
+    names and layouts (the inverse of `utils/torch_import.py`)."""
+    import numpy as np
+    import torch
+    dst = {}
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+
+    def lin(prefix, t):
+        dst[f"{prefix}.weight"] = T(t["kernel"].T)
+        if "bias" in t:
+            dst[f"{prefix}.bias"] = T(t["bias"])
+
+    def mlp(prefix, t):
+        lin(f"{prefix}.net.0", t["Dense_0"])
+        dst[f"{prefix}.net.1.weight"] = T(t["LayerNorm_0"]["scale"])
+        dst[f"{prefix}.net.1.bias"] = T(t["LayerNorm_0"]["bias"])
+        lin(f"{prefix}.net.3", t["Dense_1"])
+
+    def node(prefix, t):
+        for ours in ("hk", "hv", "hq"):
+            mlp(f"{prefix}.{ours}_func", t[ours])
+        if "node_output" in t:
+            mlp(f"{prefix}.node_output", t["node_output"])
+
+    for name in ("node_embedder", "edge_embedder", "phore_embedding"):
+        lin(name, tree[name])
+    for name in ("v_inference", "atom_mlp", "atom_mlp_1", "bond_inference"):
+        lin(f"{name}.0", tree[f"{name}_0"])
+        lin(f"{name}.2", tree[f"{name}_2"])
+    node("phore_encoder", tree["phore_encoder"])
+    den = tree["denoiser"]
+    i = 0
+    while f"layer_{i}" in den:
+        lt, pre = den[f"layer_{i}"], f"denoiser.base_block.{i}"
+        lin(f"{pre}.lin_node", lt["lin_node"])
+        node(f"{pre}.node_layer_with_edge", lt["node_layer_with_edge"])
+        node(f"{pre}.node_layer_with_bond", lt["node_layer_with_bond"])
+        bt, H = lt["bond_layer"], lt["lin_node"]["kernel"].shape[0]
+        for ours in ("hk", "hv"):
+            kj = bt[f"{ours}_kj"]["kernel"]
+            w = np.concatenate([kj[:H + 20], bt[f"{ours}_ji"]["kernel"],
+                                bt[f"{ours}_ang"]["kernel"], kj[H + 20:]])
+            p = f"{pre}.bond_layer.{ours}_func"
+            dst[f"{p}.net.0.weight"] = T(w.T)
+            dst[f"{p}.net.0.bias"] = T(bt[f"{ours}_kj"]["bias"])
+            dst[f"{p}.net.1.weight"] = T(bt[f"{ours}_ln"]["scale"])
+            dst[f"{p}.net.1.bias"] = T(bt[f"{ours}_ln"]["bias"])
+            lin(f"{p}.net.3", bt[f"{ours}_out"])
+        mlp(f"{pre}.bond_layer.hq_func", bt["hq"])
+        for side in ("pos_layer_with_edge", "pos_layer_with_bond"):
+            for ours in ("xk", "xv", "xq"):
+                mlp(f"{pre}.{side}.{ours}_func", lt[side][ours])
+        if "dire_embedding" in lt:
+            lin(f"{pre}.dire_embedding", lt["dire_embedding"])
+        i += 1
+    if "edge_pred_layer" in den:
+        mlp("denoiser.edge_pred_layer", den["edge_pred_layer"])
+    return dst
+
+
+def phase_pt(root, ls, pt, dev="cuda", steps=PT_STEPS, batch=BATCH,
+             config=None):
+    """[pt]: a reference-format `.pt` (seeded random weights under the
+    upstream project's names, an EasyDict config pickled beside `model`,
+    written with torch.save) of configs/train_lig-phore.yml at its own
+    widths with `triplet_mode: dense`, sampled through the CLI with
+    `--sample_steps steps --batch_size batch --max_batches 1`. The
+    port's import must equal the tree the weights were made from, leaf by
+    leaf. The count head is set to a narrow interval ([0.25, 0.5] of the
+    normalised count: 22-41 atoms) so that the batch lands in the NL=48
+    bucket. Returns the launch counts."""
+    import numpy as np
+    import torch
+    import yaml
+    from phoregen_tpu_torch.cli import sample as cli
+    from phoregen_tpu_torch.config import load_config
+    from phoregen_tpu_torch.models.phoregen import PhoreGen, init_params
+    from phoregen_tpu_torch.utils.checkpoint import (flatten_tree,
+                                                     to_jax_params)
+    from phoregen_tpu_torch.utils.torch_import import \
+        load_reference_checkpoint
+
+    tag = "[pt]"
+    cfg = config or load_config(os.path.join(root, PT_CONFIG))
+    m, dcfg = cfg.model, cfg.model.denoiser
+    dcfg.triplet_mode = "dense"
+    # the weights are made one layer a tree (the reference's layout)
+    dcfg.scan_layers = False
+    pg = PhoreGen(cfg)
+    init_params(pg.net, seed=11)
+    with torch.no_grad():
+        for name, bias in (("atom_mlp_1_2", -1.0986123), ("atom_mlp_2", 0.0)):
+            getattr(pg.net, name).kernel.zero_()
+            getattr(pg.net, name).bias.fill_(bias)
+    tree = to_jax_params(pg.net.state_dict())
+    state = reference_state(tree)
+    dcfg.scan_layers = True
+    with tempfile.TemporaryDirectory() as tmp:
+        pt_path = os.path.join(tmp, "reference.pt")
+        torch.save({"model": state, "epoch": 7, "config": EasyDict(
+            {"model": {"hidden_dim": m.hidden_dim}, "seed": 11})}, pt_path)
+        cfg_path = os.path.join(tmp, "dense.yml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(cfg.to_dict(), f)
+        # the import against the tree the weights came from (stacked, as
+        # the config's scan_layers asks), every tensor consumed
+        imported, meta = load_reference_checkpoint(pt_path, cfg)
+        got = flatten_tree(imported["params"])
+        want = {}
+        for k, v in flatten_tree(tree).items():
+            if k.startswith("denoiser.layer_"):
+                i, rest = k[len("denoiser.layer_"):].split(".", 1)
+                want.setdefault(f"denoiser.layers.layer.{rest}", {})[
+                    int(i)] = v
+            else:
+                want[k] = v
+        want = {k: np.stack([v[i] for i in sorted(v)])
+                if isinstance(v, dict) else v for k, v in want.items()}
+        bad = sorted(set(got) ^ set(want)) + [
+            k for k in want if k in got and not np.array_equal(got[k],
+                                                               want[k])]
+        if bad or meta.get("epoch") != 7:
+            fail(f"the .pt import differs from the tree it was made from: "
+                 f"{bad[:5]} (epoch {meta.get('epoch')})")
+        print(f"{tag} import of {len(state)} reference tensors: "
+              f"{len(got)} leaves equal to the source tree, epoch "
+              f"{meta['epoch']}")
+        argv = ["--ckpt", pt_path, "--config", cfg_path, "--phore",
+                os.path.join(root, "tests", "fixtures", "phores",
+                             "P03211_merge.phore"),
+                "--result_path", os.path.join(tmp, "out"),
+                "--num_samples", str(batch), "--batch_size", str(batch),
+                "--max_batches", "1", "--sample_steps", str(steps),
+                "--device", dev]
+        ls.reset_launch_counts()
+        pt.reset_launch_counts()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        out = cli.main(argv)
+        peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+    launches = _launches(ls, pt)
+    pipe, res = out["pipeline"], out["results"][0]
+    _want_only("pt", launches, 0)
+    if res["n_sampled"] != batch:
+        fail(f"[pt] sampled {res['n_sampled']}, expected {batch}")
+    print(f"{tag} triplet_mode=dense, hidden {m.hidden_dim}, "
+          f"{dcfg.n_heads} heads, {dcfg.num_layers} layers, knn {dcfg.knn};"
+          f" {steps} steps, batch {batch}, bucket NL={pipe.last_bucket}")
+    print(f"{tag} ms/step {1e3 * pipe.sample_seconds / steps:.3f}; peak "
+          f"memory {peak / 2 ** 30:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated); accepted "
+          f"{res['n_finished']}/{res['n_sampled']}", flush=True)
+    return launches
+
+
+def option_model(root, label, dev="cuda", seed=5):
+    """flagship_r4's configuration with the option `label` of OPTIONS and
+    seeded random weights (the release weights are of the other form)."""
+    from phoregen_tpu_torch.config import config_from_dict
+    from phoregen_tpu_torch.models.phoregen import PhoreGen, init_params
+    with open(os.path.join(root, "release", "flagship_r4.json")) as f:
+        cfg = config_from_dict(json.load(f)["config"])
+    opts = dict(OPTIONS[label])
+    cfg.model.denoiser.fused_stack = opts.pop("fused_stack")
+    cfg.model.denoiser.block_knn_freeze = True
+    if "categorical_space" in opts:
+        cfg.model.diff.categorical_space = opts.pop("categorical_space")
+    for k, v in opts.items():
+        setattr(cfg.model, k, v)
+    cfg.train.dtype = "float32"
+    pg = PhoreGen(cfg)
+    init_params(pg.net, seed)
+    pg.net.to(dev).eval()
+    return pg
+
+
+def check_cpu_gradients(pg, batch, draws, tag, dev="cuda"):
+    """Loss and parameter gradients of `pg` on `dev` (kernels forward)
+    against the plain stages (`fused_stack='xla'`) on the CPU, same
+    weights, batch and injected draws; the float32 training check's
+    limits."""
+    import torch
+    from phoregen_tpu_torch.models.phoregen import PhoreGen
+    pcfg = copy.deepcopy(pg.config)
+    pcfg.model.denoiser.fused_stack = "xla"
+    plain = PhoreGen(pcfg)
+    plain.net.load_state_dict({k: v.cpu() for k, v in
+                               pg.net.state_dict().items()})
+    res = []
+    for model, d in ((pg, dev), (plain, "cpu")):
+        model.net.zero_grad(set_to_none=True)
+        loss, _ = model.compute_loss(
+            batch.to(d), None, lig_noise_std=pg.config.train.lig_noise_std,
+            **{k: torch.as_tensor(v, device=d) for k, v in draws.items()})
+        loss.backward()
+        res.append((float(loss.detach()), {
+            n: p.grad.detach().cpu() for n, p in model.net.named_parameters()
+            if p.grad is not None}))
+        model.net.zero_grad(set_to_none=True)
+    (l_k, g_k), (l_p, g_p) = res
+    if set(g_k) != set(g_p):
+        fail(f"{tag} gradients of different leaves")
+    rel_loss = abs(l_k - l_p) / abs(l_p)
+    top = max(float(g.abs().max()) for g in g_p.values())
+    diff2 = sum(float(((g_k[n] - g) ** 2).sum()) for n, g in g_p.items())
+    rel_grad = (diff2 / sum(float((g ** 2).sum())
+                            for g in g_p.values())) ** 0.5
+    worst, worst_name = 0.0, ""
+    for n, g in g_p.items():
+        if not torch.isfinite(g_k[n]).all():
+            fail(f"{tag} non-finite gradient of {n}")
+        err = float((g_k[n] - g).abs().max()) / max(
+            float(g.abs().max()), GRAD_FLOOR * top)
+        if err > worst:
+            worst, worst_name = err, n
+    print(f"{tag} train check, card kernels vs CPU plain stages: loss "
+          f"{l_k:.6f} vs {l_p:.6f} (relative {rel_loss:.3e}, tol "
+          f"{LOSS_TOL}); gradient relative L2 {rel_grad:.3e} (tol "
+          f"{GRAD_TOL}); worst leaf {worst:.3e} ({worst_name}; tol "
+          f"{LEAF_GRAD_TOL})", flush=True)
+    if not (rel_loss <= LOSS_TOL and rel_grad <= GRAD_TOL
+            and worst <= LEAF_GRAD_TOL):
+        fail(f"{tag} loss or gradients on the card disagree with the CPU")
+
+
+def phase_option(root, label, ls, pt, dev="cuda", steps=OPTION_STEPS,
+                 nl=OPTION_NL, batch=BATCH, train_batch=OPTION_TRAIN_BATCH):
+    """[continuous] / [no-bond]: a strided chain of `steps` through the
+    option's fused stack (kernels 5 and 6 for continuous, 1-4 for
+    no-bond), steps x layers launches each; then the loss and gradients of
+    one batch at `nl` held against the CPU plain path, and one train step
+    on the card. Returns the chain's launch counts."""
+    import numpy as np
+    import torch
+    from phoregen_tpu_torch.data.batching import PhoreGraphBatch
+    from phoregen_tpu_torch.sample.sampler import GuidanceOpt, Sampler
+    from phoregen_tpu_torch.tools.profile_training import bucket_batches
+    from phoregen_tpu_torch.train.state import create_train_state
+    from phoregen_tpu_torch.train.step import make_train_step
+
+    tag = f"[{label}]"
+    pg = option_model(root, label, dev)
+    cfg = pg.config
+    mcfg, dcfg = cfg.model, cfg.model.denoiser
+    sp = Sampler(pg, [GuidanceOpt(**g) for g in CLI_GUIDANCE],
+                 sample_steps=steps)
+    b = _phore_batch(pg, root, batch, nl, dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ls.reset_launch_counts()
+    pt.reset_launch_counts()
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.time()
+    out = sp.sample(b, gen)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3 / steps
+    launches = _launches(ls, pt)
+    _want_only(label, launches, steps * dcfg.num_layers * dcfg.num_blocks)
+    fin = out["final_state"]
+    continuous = mcfg.diff.categorical_space == "continuous"
+    B = b.lig_mask.shape[0]
+    if (out["pred_edge"] is None) != (not mcfg.bond_diffusion):
+        fail(f"{tag} pred_edge is {type(out['pred_edge']).__name__}")
+    if continuous and tuple(fin["node"].shape) != (B, nl, 12):
+        fail(f"{tag} relaxed one-hots of shape {tuple(fin['node'].shape)}")
+    for k in ("pred_node", "pred_pos"):
+        if not torch.isfinite(out[k]).all():
+            fail(f"{tag} non-finite {k}")
+    if not mcfg.bond_diffusion and not torch.equal(
+            fin["edge"], sp.init_state(b, torch.Generator(
+                device=dev).manual_seed(3))["edge"]):
+        fail(f"{tag} the bond state moved without bond diffusion")
+    print(f"{tag} categorical_space={mcfg.diff.categorical_space} "
+          f"bond_diffusion={mcfg.bond_diffusion} fused_stack="
+          f"{dcfg.fused_stack}; {steps} steps, batch {B}, NL={nl}: "
+          f"{ms:.3f} ms/step; pred_edge "
+          f"{'None' if out['pred_edge'] is None else 'present'}; "
+          f"launches {json.dumps(launches)}", flush=True)
+
+    tb = bucket_batches(cfg, nl, 1, seed=2026)[0]
+    tb = PhoreGraphBatch(**{k: np.asarray(v)[:train_batch]
+                            for k, v in vars(tb).items()})
+    rng = np.random.default_rng(9)
+    f32 = lambda *s: rng.normal(size=s).astype(np.float32)
+    Bt, NLt = tb.lig_mask.shape
+    draws = dict(t=rng.integers(0, mcfg.diff.num_timesteps, Bt),
+                 jitter=f32(Bt, NLt, 3), pos_noise=f32(Bt, NLt, 3))
+    if continuous:
+        draws.update(node_noise=f32(Bt, NLt, 12),
+                     edge_noise=f32(Bt, NLt, NLt, 6))
+    else:
+        draws.update(node_uniform=rng.uniform(size=(Bt, NLt, 12)).astype(
+            np.float32), edge_uniform=rng.uniform(size=(Bt, NLt, NLt, 6)
+                                                  ).astype(np.float32))
+    check_cpu_gradients(pg, tb, draws, tag, dev)
+    pg.net.train()
+    state = create_train_state(cfg.train, pg.net)
+    before = {n: p.detach().clone() for n, p in pg.net.named_parameters()}
+    metrics = make_train_step(pg, cfg)(state, 1, tb.to(dev))
+    loss = float(metrics["loss"])
+    moved = sum(not torch.equal(before[n], p.detach())
+                for n, p in pg.net.named_parameters())
+    print(f"{tag} one train step on the card: loss {loss:.4f}, grad_norm "
+          f"{float(metrics['grad_norm']):.4f}, leaves moved {moved}/"
+          f"{len(before)}; metrics {sorted(metrics)}", flush=True)
+    if not np.isfinite(loss) or moved < 0.5 * len(before):
+        fail(f"{tag} the train step did not train")
+    return launches
+
+
+def phase_chunked(root, ls, pt, dev="cuda", steps=CHUNK_STEPS, chunk=CHUNK,
+                  batch=BATCH, nl=OPTION_NL):
+    """[chunked]: one `pallas2` chain of flagship_r4 with `steps` strided
+    steps, whole and with `chunk_steps` = chunk (the host waits for the
+    card at every chunk boundary): every output and the generator's state
+    must be equal bit for bit. Returns the chunked run's launch counts."""
+    import torch
+    from phoregen_tpu_torch.models.phoregen import load_release_model
+    from phoregen_tpu_torch.sample.sampler import GuidanceOpt, Sampler
+
+    pg, _ = load_release_model(os.path.join(root, "release", "flagship_r4"),
+                               device=dev, fused_stack="pallas2")
+    b = _phore_batch(pg, root, batch, nl, dev)
+    outs, gens = [], []
+    for c in (0, chunk):
+        sp = Sampler(pg, [GuidanceOpt(**g) for g in CLI_GUIDANCE],
+                     sample_steps=steps)
+        gen = torch.Generator(device=dev).manual_seed(17)
+        ls.reset_launch_counts()
+        pt.reset_launch_counts()
+        outs.append(sp.sample(b, gen, chunk_steps=c))
+        gens.append(gen.get_state())
+    launches = _launches(ls, pt)
+    dcfg = pg.config.model.denoiser
+    _want_only("chunked", launches,
+               steps * dcfg.num_layers * dcfg.num_blocks)
+    a, c = outs
+    diff = [k for k in ("pred_node", "pred_pos", "pred_edge")
+            if not torch.equal(a[k], c[k])]
+    diff += [f"final_state.{k}" for k in a["final_state"]
+             if not torch.equal(a["final_state"][k], c["final_state"][k])]
+    if not torch.equal(gens[0], gens[1]):
+        diff.append("generator state")
+    print(f"[chunked] pallas2, {steps} steps, batch {batch}, NL={nl}: "
+          f"chunk_steps {chunk} vs one pass: "
+          f"{'bit for bit equal' if not diff else f'differ in {diff}'}",
+          flush=True)
+    if diff:
+        fail(f"chunked sampling differs from one pass: {diff}")
+    return launches
+
+
 def phase_reference(root, label):
     """Flagship forward on a small input through the path `label`: kernels
     (card) vs plain versions (CPU)."""
@@ -644,6 +1223,16 @@ def main():
     torch.cuda.empty_cache()
     launches_train_bf16 = phase_train_bf16(root, ls, pt)
     torch.cuda.empty_cache()
+    phase_cli(root, ls, pt)
+    torch.cuda.empty_cache()
+    phase_pt(root, ls, pt)
+    torch.cuda.empty_cache()
+    launches_cont = phase_option(root, "continuous", ls, pt)
+    torch.cuda.empty_cache()
+    launches_nb = phase_option(root, "no-bond", ls, pt)
+    torch.cuda.empty_cache()
+    launches_chunked = phase_chunked(root, ls, pt)
+    torch.cuda.empty_cache()
     for label in REFERENCE_PATHS:
         phase_reference(root, label)
 
@@ -661,12 +1250,18 @@ def main():
     # launches of each kernel on the main path that runs it (by path where
     # more than one does)
     by_path = {
-        "stage_node": {"fused": launches, "pallas_bf16": launches_pb},
-        "stage_triplet_pre": {"fused": launches},
-        "stage_triplet_att": {"fused": launches},
-        "stage_pos": {"fused": launches, "pallas_bf16": launches_pb},
-        "stage_node_pre": {"train": launches_train, "pallas2": launches_p2},
-        "stage_att_pos": {"train": launches_train, "pallas2": launches_p2},
+        "stage_node": {"fused": launches, "pallas_bf16": launches_pb,
+                       "no-bond": launches_nb},
+        "stage_triplet_pre": {"fused": launches, "no-bond": launches_nb},
+        "stage_triplet_att": {"fused": launches, "no-bond": launches_nb},
+        "stage_pos": {"fused": launches, "pallas_bf16": launches_pb,
+                      "no-bond": launches_nb},
+        "stage_node_pre": {"train": launches_train, "pallas2": launches_p2,
+                           "continuous": launches_cont,
+                           "chunked": launches_chunked},
+        "stage_att_pos": {"train": launches_train, "pallas2": launches_p2,
+                          "continuous": launches_cont,
+                          "chunked": launches_chunked},
         "stage_triplet_pre_bf16": {"pallas_bf16": launches_pb},
         "stage_triplet_att_bf16": {"pallas_bf16": launches_pb},
         "stage_node_pre_bf16": {"pallas2_bf16": launches_p2b,

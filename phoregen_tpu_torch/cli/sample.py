@@ -1,8 +1,12 @@
 """Sampling CLI: `python -m phoregen_tpu_torch.cli.sample --ckpt ... --phore ...`.
 
-Counterpart of `phoregen_tpu/cli/sample.py` for the PyTorch port: the same
-flags where the port supports them, and flax msgpack release checkpoints
-read without flax. The denoiser's path follows the checkpoint's own
+Counterpart of `phoregen_tpu/cli/sample.py` for the PyTorch port, with its
+flags on one device: flax msgpack release checkpoints read without flax,
+and reference PhoreGen `.pt` checkpoints (`--ckpt x.pt --config <yml>`,
+`denoiser.triplet_mode: dense`) read through a restricted unpickler.
+`--device` stands for the JAX CLI's `--platform`; its `--unroll` (XLA's
+scan unrolling) has no counterpart, since the reverse loop here is a Python
+loop; `--sample_devices > 1` is not ported yet (ROADMAP.md). The denoiser's path follows the checkpoint's own
 configuration (the release checkpoints: the per-layer module path,
 `fused_stack: none`) unless overridden: `--fused_stack pallas` selects the
 fused layer stack (four CUDA kernels per layer; `pallas3` three, `pallas2`
@@ -19,12 +23,17 @@ import os
 
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(description="PhoreGen sampling (PyTorch port)")
+    p = argparse.ArgumentParser(
+        description="PhoreGen sampling (PyTorch port)",
+        epilog="The JAX CLI's --unroll (XLA's scan unrolling) has no "
+               "counterpart here: the reverse loop is a Python loop. "
+               "--device takes the place of --platform.")
     p.add_argument("--config", type=str, default="",
                    help="YAML config; defaults to the one in the checkpoint")
     p.add_argument("--ckpt", "--check_point", dest="ckpt", type=str,
                    required=True,
-                   help="checkpoint prefix (expects <ckpt>.msgpack/.json)")
+                   help="checkpoint prefix (expects <ckpt>.msgpack/.json), "
+                        "or a reference PhoreGen .pt file (needs --config)")
     p.add_argument("--phore", "--phore_file_list", dest="phore", type=str,
                    nargs="+", required=True,
                    help=".phore files, a directory, or a file_index.json")
@@ -47,10 +56,13 @@ def parse_args(argv=None):
     p.add_argument("--save_traj_prob", type=float, default=0.0,
                    help="save each accepted molecule's trajectory with this "
                         "probability (implies trajectory capture when > 0)")
+    p.add_argument("--save_pool", action="store_true",
+                   help="dump raw sampled pools as <name>_samples_all.npz")
     p.add_argument("--chunk_steps", type=int, default=0,
-                   help="split the reverse loop into several device calls "
-                        "(not ported: the port's loop is a Python loop of "
-                        "steps already; only 0 is accepted)")
+                   help="wait for the card after every this many reverse "
+                        "steps, where the JAX package splits its scan into "
+                        "device calls (the same steps and outputs bit for "
+                        "bit; 0 = no waits)")
     p.add_argument("--fused_stack", default="",
                    choices=["", "none", "xla", "xla2", "pallas", "pallas3",
                             "pallas2"],
@@ -93,9 +105,12 @@ def parse_args(argv=None):
                         "(ema_params; needs train.ema true)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default: the card)")
+    p.add_argument("--recon_workers", type=int, default=0,
+                   help="reconstruct and check sampled molecules in this "
+                        "many spawned worker processes (0 = in-process)")
     p.add_argument("--sample_devices", type=int, default=1,
                    help="devices to shard sampling pools over (the port "
-                        "samples on one device)")
+                        "samples on one device; > 1 is not ported yet)")
     return p.parse_args(argv)
 
 
@@ -140,25 +155,45 @@ def _check_knn_narrowing(args, trained_knn: int, source: str):
           f"triplet_knn={trained_knn}: 0 (exact) or K >= trained is safe")
 
 
-def main(argv=None):
-    args = parse_args(argv)
-    if args.ckpt.endswith(".pt"):
-        raise SystemExit("[E] the PyTorch port reads flax msgpack release "
-                         "checkpoints (<prefix>.msgpack + <prefix>.json); "
-                         "reference .pt checkpoints are not ported yet "
-                         "(ROADMAP.md, 'Still to port')")
-    if args.sample_devices > 1:
-        raise SystemExit("[E] --sample_devices > 1: multi-GPU sampling "
-                         "pools are not ported yet (ROADMAP.md, 'Still to "
-                         "port'); the port samples on one device")
-    if args.chunk_steps > 0:
-        raise SystemExit("[E] --chunk_steps > 0: sample_chunked is not "
-                         "ported yet (ROADMAP.md, 'Still to port')")
+def _override(args, dcfg):
+    """The denoiser overrides of the command line, on the config."""
+    if args.fused_stack:
+        dcfg.fused_stack = args.fused_stack
+    if args.fused_block_dtype:
+        dcfg.fused_block_dtype = args.fused_block_dtype
+    if args.edge_mlp_apply:
+        dcfg.edge_mlp_apply = args.edge_mlp_apply
+    if args.use_pallas_triplet >= 0:
+        dcfg.use_pallas_triplet = bool(args.use_pallas_triplet)
+
+
+def load_model(args):
+    """(pg, meta) of the checkpoint `args.ckpt` on `args.device`, with the
+    command line's overrides."""
     from ..config import config_from_dict, load_config
-    from ..data.phore import parse_phore_file
-    from ..models.phoregen import load_release_model
-    from ..sample.pipeline import GenerationPipeline
-    from ..sample.sampler import GuidanceOpt
+    from ..models.phoregen import load_reference_model, load_release_model
+
+    if args.ckpt.endswith(".pt"):
+        # a reference PhoreGen checkpoint: bare model weights, read with
+        # the restricted unpickler and mapped onto a dense-triplet config
+        if not args.config:
+            raise SystemExit(
+                "[E] loading a reference .pt checkpoint requires --config "
+                "(a YAML matching the reference architecture, with "
+                "model.denoiser.triplet_mode: dense)")
+        if args.use_ema:
+            raise SystemExit("[E] --use_ema: reference .pt checkpoints "
+                             "are imported as bare model weights")
+        cfg = load_config(args.config)
+        dcfg = cfg.model.denoiser
+        if args.triplet_knn >= 0:
+            _check_knn_narrowing(args, dcfg.triplet_knn, "config")
+            dcfg.triplet_knn = args.triplet_knn
+        _override(args, dcfg)
+        pg, meta = load_reference_model(args.ckpt, cfg, device=args.device)
+        print(f"[I] Imported reference checkpoint {args.ckpt} "
+              f"(epoch {meta.get('epoch', '?')})")
+        return pg, meta
 
     with open(args.ckpt + ".json") as f:
         meta = json.load(f)
@@ -176,52 +211,71 @@ def main(argv=None):
             meta["config"]["model"]["denoiser"].get("triplet_knn", 0)),
             "trained")
         dcfg.triplet_knn = args.triplet_knn
-    if args.fused_block_dtype:
-        dcfg.fused_block_dtype = args.fused_block_dtype
-    if args.edge_mlp_apply:
-        dcfg.edge_mlp_apply = args.edge_mlp_apply
+    _override(args, dcfg)
     try:
-        pg, meta = load_release_model(
-            args.ckpt, device=args.device, config=cfg,
-            fused_stack=args.fused_stack or None,
-            use_pallas_triplet=(None if args.use_pallas_triplet < 0
-                                else bool(args.use_pallas_triplet)),
-            use_ema=args.use_ema)
-    except NotImplementedError as e:
-        raise SystemExit(f"[E] {e}")
+        pg, meta = load_release_model(args.ckpt, device=args.device,
+                                      config=cfg, use_ema=args.use_ema)
     except ValueError as e:
         if not args.use_ema:
             raise
         raise SystemExit(f"[E] --use_ema: {e}")
     print(f"[I] Loaded checkpoint {args.ckpt} (step {meta.get('step')})")
+    return pg, meta
+
+
+def main(argv=None):
+    """Sample every phore of `--phore`; returns {"pipeline": the closed
+    GenerationPipeline (its timing and bucket fields), "results": one
+    `generate` result per phore}."""
+    args = parse_args(argv)
+    if args.sample_devices > 1:
+        raise SystemExit("[E] --sample_devices > 1: multi-GPU sampling "
+                         "pools are not ported yet (ROADMAP.md, Queue 1); "
+                         "the port samples on one device")
+    from .. import native
+    from ..data.phore import parse_phore_file
+    from ..sample.pipeline import GenerationPipeline
+    from ..sample.sampler import GuidanceOpt
+
+    try:
+        pg, _ = load_model(args)
+    except NotImplementedError as e:
+        raise SystemExit(f"[E] {e}")
+    print("[I] host bond perception: " + (
+        f"native library {native.library_path()}" if native.available()
+        else f"Python loop ({native.load_error()})"))
     guidance = None
     if args.pos_guidance_opt:
         guidance = [GuidanceOpt(**g) for g in
                     json.loads(args.pos_guidance_opt)]
-    pipeline = GenerationPipeline(
-        pg, guidance=guidance, sample_nodes_mode=args.sample_nodes_mode,
-        normal_scale=args.normal_scale, add_edge=args.add_edge,
-        batch_size=args.batch_size,
-        keep_traj=args.save_traj or args.save_traj_prob > 0, seed=args.seed,
-        sample_steps=args.sample_steps, device=args.device)
     os.makedirs(args.result_path, exist_ok=True)
     n_ok = n_fail = 0
-    for path in resolve_phore_paths(args.phore):
-        res = pipeline.generate(parse_phore_file(path), args.num_samples,
-                                out_dir=args.result_path,
-                                traj_prob=(args.save_traj_prob
-                                           if args.save_traj_prob > 0
-                                           else 1.0),
-                                time_budget=args.time_budget,
-                                max_batches=args.max_batches)
-        n_ok += res["n_finished"]
-        n_fail += res["n_failed"]
-        print(f"[I] {res['name']}: {res['n_finished']}/{args.num_samples} "
-              f"in {res['seconds']:.1f}s (sampled {res['n_sampled']}, "
-              f"failed {res['n_failed']}, "
-              f"count interval {res['count_interval']})"
-              + (" [ABANDONED]" if res["abandoned"] else ""))
+    results = []
+    with GenerationPipeline(
+            pg, guidance=guidance, sample_nodes_mode=args.sample_nodes_mode,
+            normal_scale=args.normal_scale, add_edge=args.add_edge,
+            batch_size=args.batch_size,
+            keep_traj=args.save_traj or args.save_traj_prob > 0,
+            seed=args.seed, sample_steps=args.sample_steps,
+            device=args.device, chunk_steps=args.chunk_steps,
+            recon_workers=args.recon_workers) as pipeline:
+        for path in resolve_phore_paths(args.phore):
+            res = pipeline.generate(
+                parse_phore_file(path), args.num_samples,
+                out_dir=args.result_path, save_pool=args.save_pool,
+                traj_prob=(args.save_traj_prob if args.save_traj_prob > 0
+                           else 1.0),
+                time_budget=args.time_budget, max_batches=args.max_batches)
+            results.append(res)
+            n_ok += res["n_finished"]
+            n_fail += res["n_failed"]
+            print(f"[I] {res['name']}: {res['n_finished']}/"
+                  f"{args.num_samples} in {res['seconds']:.1f}s (sampled "
+                  f"{res['n_sampled']}, failed {res['n_failed']}, count "
+                  f"interval {res['count_interval']})"
+                  + (" [ABANDONED]" if res["abandoned"] else ""))
     print(f"[I] Total generated: {n_ok}, failed reconstructions: {n_fail}")
+    return {"pipeline": pipeline, "results": results}
 
 
 if __name__ == "__main__":

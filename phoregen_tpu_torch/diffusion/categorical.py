@@ -7,7 +7,8 @@ t == 0 override and the KL / decoder-NLL loss split; for sampling prior
 draws, the posterior with explicit (possibly multi-step) [K, K] tables,
 and the strided table builder. Tables are built on the host in float64 and
 used as float32. Every draw takes a `torch.Generator` or the uniform
-numbers themselves.
+numbers themselves. `UniformCategoricalTransition` is the reference's
+legacy uniform-prior class.
 """
 from __future__ import annotations
 
@@ -188,3 +189,91 @@ def build_strided_tables(betas: np.ndarray, num_classes: int, init_prob,
         return empty, empty
     return (np.stack(trans_T).astype(np.float32),
             np.stack(cum_prev).astype(np.float32))
+
+
+def _log1m_exp(log_a: np.ndarray) -> np.ndarray:
+    """log(1 - exp(log_a)), stable (host-side float64)."""
+    return np.log1p(-np.exp(log_a) + 1e-40)
+
+
+def _texp(x: torch.Tensor, ndim: int) -> torch.Tensor:
+    """[B] -> [B, 1, ..., 1] with `ndim` dims."""
+    return x.reshape(x.shape + (1,) * (ndim - 1))
+
+
+class UniformCategoricalTransition:
+    """Log-space uniform-prior categorical diffusion, the reference's
+    legacy class (counterpart of the JAX package's class of that name;
+    no shipped configuration selects it). Closed-form alpha-bar mixing
+    with the uniform distribution instead of per-step matrices:
+    q(v_t | v_0) = alpha-bar_t v_0 + (1 - alpha-bar_t) / K."""
+
+    def __init__(self, betas: np.ndarray, num_classes: int):
+        betas = np.asarray(betas, np.float64)
+        log_alphas = np.log(1.0 - betas)
+        log_alphas_bar = np.cumsum(log_alphas)
+        f32 = lambda a: np.asarray(a, np.float32)
+        self.log_alphas = f32(log_alphas)
+        self.log_1m_alphas = f32(_log1m_exp(log_alphas))
+        self.log_alphas_bar = f32(log_alphas_bar)
+        self.log_1m_alphas_bar = f32(_log1m_exp(log_alphas_bar))
+        self.num_classes = num_classes
+
+    def _mix(self, log_v, t, log_a, log_1m_a):
+        la = _texp(torch.as_tensor(log_a, device=log_v.device)[t.long()],
+                   log_v.dim())
+        l1a = _texp(torch.as_tensor(log_1m_a, device=log_v.device)[t.long()],
+                    log_v.dim())
+        return torch.logaddexp(log_v + la,
+                               l1a - float(np.log(self.num_classes)))
+
+    def q_vt_pred(self, log_v0: torch.Tensor, t: torch.Tensor
+                  ) -> torch.Tensor:
+        return self._mix(log_v0, t, self.log_alphas_bar,
+                         self.log_1m_alphas_bar)
+
+    def q_v_pred_one_timestep(self, log_vt: torch.Tensor, t: torch.Tensor
+                              ) -> torch.Tensor:
+        return self._mix(log_vt, t, self.log_alphas, self.log_1m_alphas)
+
+    def add_noise(self, v: torch.Tensor, t: torch.Tensor,
+                  generator: Optional[torch.Generator] = None,
+                  uniform: Optional[torch.Tensor] = None):
+        """v: [B, ...] class ids -> (one-hot v_t, log v_t, log v_0)."""
+        log_v0 = index_to_log_onehot(v, self.num_classes)
+        v_pert = log_sample_categorical(self.q_vt_pred(log_v0, t), generator,
+                                        uniform)
+        return (self.onehot_encode(v_pert),
+                index_to_log_onehot(v_pert, self.num_classes), log_v0)
+
+    def onehot_encode(self, v: torch.Tensor) -> torch.Tensor:
+        return torch.nn.functional.one_hot(v.long(), self.num_classes).to(
+            torch.float32)
+
+    def q_v_posterior(self, log_v0: torch.Tensor, log_vt: torch.Tensor,
+                      t: torch.Tensor, v0_prob: bool = True) -> torch.Tensor:
+        """log q(v_{t-1} | v_t, v_0); v0_prob=False hardens log_v0 to its
+        argmax one-hot first; t == 0 mixes from log_v0 itself."""
+        if not v0_prob:
+            log_v0 = clamped_log(self.onehot_encode(log_v0.argmax(-1)))
+        t = t.long()
+        log_qvtmin = self.q_vt_pred(log_v0, torch.clamp(t - 1, min=0))
+        log_qvtmin = torch.where(_texp(t == 0, log_v0.dim()), log_v0,
+                                 log_qvtmin)
+        unnormed = log_qvtmin + self.q_v_pred_one_timestep(log_vt, t)
+        return unnormed - torch.logsumexp(unnormed, dim=-1, keepdim=True)
+
+    def compute_v_Lt(self, log_post_true, log_post_pred, log_v0, t):
+        kl_v = categorical_kl(log_post_true, log_post_pred)
+        decoder_nll = -log_categorical(log_v0, log_post_pred)
+        mask = _texp((t == 0).to(kl_v.dtype), kl_v.dim())
+        return mask * decoder_nll + (1.0 - mask) * kl_v
+
+    def sample_init(self, shape, generator: Optional[torch.Generator],
+                    device, uniform: Optional[torch.Tensor] = None):
+        """v_T uniform over the classes -> (ids, one-hot, log one-hot)."""
+        logits = torch.zeros(tuple(shape) + (self.num_classes,),
+                             device=device)
+        init_types = log_sample_categorical(logits, generator, uniform)
+        return (init_types, self.onehot_encode(init_types),
+                index_to_log_onehot(init_types, self.num_classes))

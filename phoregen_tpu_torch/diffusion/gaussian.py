@@ -1,7 +1,9 @@
-"""Gaussian (DDPM) transition for positions.
+"""Gaussian (DDPM) transition for positions, and for the one-hot-relaxed
+atom and bond types of `categorical_space: continuous`.
 
 Counterpart of `phoregen_tpu/diffusion/gaussian.py`: the forward noising
-`q(x_t | x_0)` of training, prior draws and the reverse step
+`q(x_t | x_0)` of training (of class ids: their one-hots over `scaling`),
+prior draws and the reverse step
 `mu = coef_x0 * x_recon + coef_xt * x_t - energy_grad`, whose final (t = 0)
 step returns the mean. Coefficients are built on the host in float64 and
 used as float32, as in the JAX package. Every draw takes a
@@ -21,7 +23,23 @@ class GaussianTransition:
         self.betas = np.asarray(betas, np.float64)
         self.num_classes = num_classes
         self.scaling = scaling
-        self.alphas_bar = np.cumprod(1.0 - self.betas).astype(np.float32)
+        alphas = 1.0 - self.betas
+        ab = np.cumprod(alphas)
+        ab_prev = np.concatenate([[1.0], ab[:-1]])
+        self.alphas_bar = ab.astype(np.float32)
+        # one-step posterior coefficients per t, [T] float32
+        self.coef_x0 = (np.sqrt(ab_prev) * self.betas / (1 - ab)).astype(
+            np.float32)
+        self.coef_xt = (np.sqrt(alphas) * (1 - ab_prev) / (1 - ab)).astype(
+            np.float32)
+        self.std = np.sqrt((1 - ab_prev) * self.betas / (1 - ab)).astype(
+            np.float32)
+
+    @classmethod
+    def create(cls, betas: np.ndarray, num_classes: Optional[int] = None,
+               scaling: float = 1.0) -> "GaussianTransition":
+        """The constructor under the JAX package's name."""
+        return cls(betas, num_classes, scaling)
 
     @property
     def num_timesteps(self) -> int:
@@ -44,6 +62,25 @@ class GaussianTransition:
                                 dtype=x.dtype)
         pert = torch.sqrt(a_bar) * x + torch.sqrt(1.0 - a_bar) * noise
         return pert if self.num_classes is None else (pert, x)
+
+    def get_prev_from_recon(self, x_t: torch.Tensor, x_recon: torch.Tensor,
+                            t: torch.Tensor, energy_grad=0.0,
+                            generator: Optional[torch.Generator] = None,
+                            noise: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+        """One reverse step x_{t-1} ~ q(x_{t-1} | x_t, x_0 = x_recon) with
+        per-graph t [B] (the one-step coefficients); `energy_grad` is
+        subtracted from the mean, and graphs at t == 0 get the mean."""
+        def coef(table):
+            c = torch.as_tensor(table, device=x_t.device)[t.long()]
+            return c.reshape(c.shape + (1,) * (x_t.dim() - 1))
+        mu = coef(self.coef_x0) * x_recon + coef(self.coef_xt) * x_t \
+            - energy_grad
+        if noise is None:
+            noise = torch.randn(mu.shape, generator=generator,
+                                device=mu.device, dtype=mu.dtype)
+        time_zero = (t == 0).reshape(t.shape + (1,) * (x_t.dim() - 1))
+        return torch.where(time_zero, mu, mu + coef(self.std) * noise)
 
     def sample_init(self, shape, generator: Optional[torch.Generator],
                     device) -> torch.Tensor:

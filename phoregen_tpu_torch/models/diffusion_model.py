@@ -1,7 +1,9 @@
 """Top-level denoising network: embedders, denoiser, prediction heads.
 
 Counterpart of `phoregen_tpu/models/diffusion_model.py::PhoreDiffNet`:
-node/edge embeddings concatenated with the linear-grid time embedding, the
+node/edge embeddings (or, without `bond_diffusion`, an embedding of the
+pair distance in place of the edge types) concatenated with the
+linear-grid time embedding, the
 phore self-encoder over the fully connected phore graph, the composed
 denoiser (per-layer modules or the fused layer stack), the 12-way node
 head, the bond head ('lin' or 'pre_att') and the [lower, upper] atom-count
@@ -72,9 +74,6 @@ class PhoreDiffNet(nn.Module):
         self.ex_col = ex_col
         cfg = config
         H, td, d = cfg.hidden_dim, cfg.diff.time_dim, cfg.denoiser
-        if not cfg.bond_diffusion:
-            raise NotImplementedError(
-                "bond_diffusion=False (distance embedding) is not ported yet")
         self.node_embedder = Dense(cfg.num_atom_classes, H - td,
                                    use_bias=False)
         self.phore_embedding = Dense(cfg.phore_feat_dim, H)
@@ -86,11 +85,16 @@ class PhoreDiffNet(nn.Module):
                 hidden_dim=H, n_heads=d.n_heads, norm=d.norm,
                 act_fn=d.act_fn, out_fc=d.x2h_out_fc,
                 apply_style=d.edge_mlp_apply)
-        self.edge_embedder = Dense(cfg.num_bond_classes, H - td,
-                                   use_bias=False)
-        bond_in = H if cfg.bond_net_type == "lin" else d.num_r_gaussian + H
-        self.bond_inference_0 = Dense(bond_in, H)
-        self.bond_inference_2 = Dense(H, cfg.num_bond_classes)
+        if cfg.bond_diffusion:
+            self.edge_embedder = Dense(cfg.num_bond_classes, H - td,
+                                       use_bias=False)
+            bond_in = H if cfg.bond_net_type == "lin" \
+                else d.num_r_gaussian + H
+            self.bond_inference_0 = Dense(bond_in, H)
+            self.bond_inference_2 = Dense(H, cfg.num_bond_classes)
+        else:
+            # bond features from the pair distance; no bond head
+            self.distance_embedding = Dense(1, H - td)
         self.denoiser = UniDenoiser(d)
         self.v_inference_0 = Dense(H, H)
         self.v_inference_2 = Dense(H, cfg.num_atom_classes)
@@ -145,7 +149,9 @@ class PhoreDiffNet(nn.Module):
                 h_phore_emb: Optional[torch.Tensor] = None,
                 compute_count: bool = True, fused_packed=None):
         """Returns (pred_node [B,NL,Ka], pred_pos [B,NL,3],
-        pred_edge [B,NL,NL,Kb], (count_lower, count_upper) or (None, None))."""
+        pred_edge [B,NL,NL,Kb] (None without `bond_diffusion`, where the
+        bond features come from the pair distances and `h_edge_pert` is
+        unused), (count_lower, count_upper) or (None, None))."""
         cfg = self.config
         B, NL, _ = h_node_pert.shape
         NP = phore_x.shape[1]
@@ -159,9 +165,18 @@ class PhoreDiffNet(nn.Module):
             h_phore_emb = self.embed_phore(phore_x, phore_pos, phore_mask)
         else:
             h_phore_emb = h_phore_emb.to(cdt)
-        h_edge = torch.cat([self.edge_embedder(h_edge_pert),
-                            t_emb[:, None, None, :].expand(B, NL, NL, td)],
-                           -1)
+        if cfg.bond_diffusion:
+            e_emb = self.edge_embedder(h_edge_pert)
+        else:
+            d = pos_pert[:, None, :, :] - pos_pert[:, :, None, :]
+            # embedded in float32 like the positions, then cast to the
+            # compute dtype at the feature boundary (under bf16 the JAX
+            # package lets this one feature promote the bond path to
+            # float32 instead)
+            e_emb = self.distance_embedding(
+                torch.sqrt((d * d).sum(-1, keepdim=True) + 1e-12)).to(cdt)
+        h_edge = torch.cat([e_emb, t_emb[:, None, None, :].expand(
+            B, NL, NL, td)], -1)
         h_all = torch.cat([h_phore_emb, h_node], 1)
         pos_all = torch.cat([phore_pos, pos_pert], 1)
         node_mask = torch.cat([phore_mask, lig_mask], 1)
@@ -172,6 +187,11 @@ class PhoreDiffNet(nn.Module):
         final_h = h_out[:, NP:]
         pred_node = self.v_inference_2(shifted_softplus(
             self.v_inference_0(final_h)))
+        pred_count = (self.predict_atom_count(h_phore_emb, phore_x,
+                                              phore_mask)
+                      if compute_count else (None, None))
+        if not cfg.bond_diffusion:
+            return pred_node, final_pos, None, pred_count
         if cfg.bond_net_type == "lin":
             bond_in = hb_out
         elif cfg.bond_net_type == "pre_att":
@@ -188,7 +208,4 @@ class PhoreDiffNet(nn.Module):
             raise ValueError(cfg.bond_net_type)
         pred_edge = self.bond_inference_2(shifted_softplus(
             self.bond_inference_0(bond_in)))
-        pred_count = (self.predict_atom_count(h_phore_emb, phore_x,
-                                              phore_mask)
-                      if compute_count else (None, None))
         return pred_node, final_pos, pred_edge, pred_count

@@ -1,9 +1,11 @@
 """PhoreGen model orchestrator: schedules, transitions, network, loss.
 
 Counterpart of `phoregen_tpu/models/phoregen.py::PhoreGen`: the three beta
-schedules, the position Gaussian transition, the node/edge categorical
-transitions, the network, and the training loss (`compute_loss`: the joint
-position / node / edge / atom-count loss, masked over padded slots). The
+schedules, the position Gaussian transition, the node/edge transitions
+(categorical, or with `categorical_space: continuous` Gaussian over the
+one-hots scaled by `diff.scaling[1:3]`), the network, and the training
+loss (`compute_loss`: the joint position / node / edge / atom-count loss,
+masked over padded slots; without `bond_diffusion` no edge term). The
 loss is split in two so that a test can inject the perturbation:
 `perturb` draws t, the coordinate jitter and the forward noise (from a
 `torch.Generator`, or takes them as given), `loss_from_perturbation` runs
@@ -103,9 +105,9 @@ class PhoreGen:
         T = diff.num_timesteps
         self.num_timesteps = T
         self.categorical_space = diff.categorical_space
-        if self.categorical_space != "discrete":
-            raise NotImplementedError(
-                "categorical_space='continuous' is not ported yet")
+        if self.categorical_space not in ("discrete", "continuous"):
+            raise ValueError(f"categorical_space must be discrete or "
+                             f"continuous, got {self.categorical_space!r}")
         self.pos_betas = np.asarray(get_beta_schedule(
             diff.diff_pos.beta_schedule, T, **diff.diff_pos.schedule_kwargs()))
         self.node_betas = np.asarray(get_beta_schedule(
@@ -115,10 +117,18 @@ class PhoreGen:
             diff.diff_bond.beta_schedule, T,
             **diff.diff_bond.schedule_kwargs()))
         self.pos_transition = GaussianTransition(self.pos_betas)
-        self.node_transition = CategoricalTransition(
-            self.node_betas, mcfg.num_atom_classes, diff.diff_atom.init_prob)
-        self.edge_transition = CategoricalTransition(
-            self.edge_betas, mcfg.num_bond_classes, diff.diff_bond.init_prob)
+        if self.categorical_space == "discrete":
+            self.node_transition = CategoricalTransition(
+                self.node_betas, mcfg.num_atom_classes,
+                diff.diff_atom.init_prob)
+            self.edge_transition = CategoricalTransition(
+                self.edge_betas, mcfg.num_bond_classes,
+                diff.diff_bond.init_prob)
+        else:
+            self.node_transition = GaussianTransition(
+                self.node_betas, mcfg.num_atom_classes, diff.scaling[1])
+            self.edge_transition = GaussianTransition(
+                self.edge_betas, mcfg.num_bond_classes, diff.scaling[2])
         self.ex_col = phore_ex_column(config.dataset.data_name)
         self.net = PhoreDiffNet(mcfg, self.ex_col)
         self.loss_weight = tuple(mcfg.loss_weight)
@@ -136,14 +146,18 @@ class PhoreGen:
     # ----- training loss -----
     def perturb(self, batch, generator: Optional[torch.Generator] = None,
                 lig_noise_std: float = 0.0, *, t=None, jitter=None,
-                pos_noise=None, node_uniform=None, edge_uniform=None
+                pos_noise=None, node_uniform=None, edge_uniform=None,
+                node_noise=None, edge_noise=None
                 ) -> Dict[str, torch.Tensor]:
         """The random half of a training step: timestep per graph,
         coordinate jitter (`lig_noise_std` > 0) and the forward noise of
         positions, atom types and bond types. Each draw comes from
         `generator` unless given: `t` [B] int, `jitter` and `pos_noise`
-        [B,NL,3] standard normal, `node_uniform` [B,NL,Ka] and
-        `edge_uniform` [B,NL,NL,Kb] in [0,1)."""
+        [B,NL,3] standard normal; discrete types: `node_uniform` [B,NL,Ka]
+        and `edge_uniform` [B,NL,NL,Kb] in [0,1); continuous types:
+        `node_noise` and `edge_noise`, standard normal of those shapes.
+        The continuous form holds the scaled one-hots `h_node_0`,
+        `h_edge_0` in place of the log-probabilities."""
         dev = batch.lig_pos.device
         lig_pos = batch.lig_pos
         if lig_noise_std > 0:
@@ -154,16 +168,24 @@ class PhoreGen:
         if t is None:
             t = self.sample_time(batch.num_graphs, generator, dev)
         t = t.long()
-        h_node, log_node_t, log_node_0 = self.node_transition.add_noise(
+        out = dict(t=t, lig_pos=lig_pos,
+                   pos_pert=self.pos_transition.add_noise(
+                       lig_pos, t, generator, pos_noise))
+        if self.categorical_space == "continuous":
+            out["h_node_pert"], out["h_node_0"] = \
+                self.node_transition.add_noise(batch.lig_type, t, generator,
+                                               node_noise)
+            out["h_edge_pert"], out["h_edge_0"] = \
+                self.edge_transition.add_noise(batch.bond_type, t,
+                                               generator, edge_noise)
+            return out
+        (out["h_node_pert"], out["log_node_t"],
+         out["log_node_0"]) = self.node_transition.add_noise(
             batch.lig_type, t, generator, node_uniform)
-        h_edge, log_edge_t, log_edge_0 = self.edge_transition.add_noise(
+        (out["h_edge_pert"], out["log_edge_t"],
+         out["log_edge_0"]) = self.edge_transition.add_noise(
             batch.bond_type, t, generator, edge_uniform)
-        return dict(
-            t=t, lig_pos=lig_pos,
-            pos_pert=self.pos_transition.add_noise(lig_pos, t, generator,
-                                                   pos_noise),
-            h_node_pert=h_node, log_node_t=log_node_t, log_node_0=log_node_0,
-            h_edge_pert=h_edge, log_edge_t=log_edge_t, log_edge_0=log_edge_0)
+        return out
 
     def _categorical_loss(self, trans, pred_logits, log_v0, log_vt, t, mask):
         log_recon = torch.log_softmax(pred_logits, dim=-1)
@@ -193,7 +215,8 @@ class PhoreGen:
             pert["h_node_pert"].to(cdt), pert["pos_pert"], batch.lig_mask,
             pert["h_edge_pert"].to(cdt), t, batch.phore_x.to(cdt),
             batch.phore_pos, batch.phore_norm, batch.phore_mask)
-        pred_node, pred_pos, pred_edge = (p.float() for p in preds[:3])
+        pred_node, pred_pos, pred_edge = (
+            None if p is None else p.float() for p in preds[:3])
         pred_count = tuple(c.float() for c in preds[3])
         lmask, emask, gw = batch.lig_mask, batch.bond_mask, None
         if graph_mask is not None:
@@ -205,12 +228,22 @@ class PhoreGen:
         # position MSE over valid atoms (summed over xyz, per valid atom)
         loss_pos = masked_mean((pred_pos - lig_pos) ** 2,
                                lmask[..., None]) * self.loss_weight[0]
-        loss_node = self._categorical_loss(
-            self.node_transition, pred_node, pert["log_node_0"],
-            pert["log_node_t"], t, lmask) * self.loss_weight[1]
-        loss_edge = self._categorical_loss(
-            self.edge_transition, pred_edge, pert["log_edge_0"],
-            pert["log_edge_t"], t, emask) * self.loss_weight[2]
+        loss_edge = 0.0
+        if self.categorical_space == "discrete":
+            loss_node = self._categorical_loss(
+                self.node_transition, pred_node, pert["log_node_0"],
+                pert["log_node_t"], t, lmask) * self.loss_weight[1]
+            if mcfg.bond_diffusion:
+                loss_edge = self._categorical_loss(
+                    self.edge_transition, pred_edge, pert["log_edge_0"],
+                    pert["log_edge_t"], t, emask) * self.loss_weight[2]
+        else:
+            # the relaxed one-hots: MSE against the scaled one-hots x 30
+            loss_node = masked_mean((pred_node - pert["h_node_0"]) ** 2,
+                                    lmask[..., None]) * 30.0
+            if mcfg.bond_diffusion:
+                loss_edge = masked_mean((pred_edge - pert["h_edge_0"]) ** 2,
+                                        emask[..., None]) * 30.0
         loss_len = 0.0
         if mcfg.bond_len_loss:  # over true bonds
             bmask = emask & (batch.bond_type > 0)
@@ -235,12 +268,14 @@ class PhoreGen:
             node_acc=exact_match_accuracy(batch.lig_type, pred_node, lmask,
                                           gw),
             node_elem_acc=element_accuracy(batch.lig_type, pred_node, lmask,
-                                           gw),
-            loss_edge=loss_edge,
-            edge_acc=exact_match_accuracy(batch.bond_type, pred_edge, emask,
-                                          gw),
-            edge_elem_acc=element_accuracy(batch.bond_type, pred_edge, emask,
                                            gw))
+        if mcfg.bond_diffusion:
+            out.update(
+                loss_edge=loss_edge,
+                edge_acc=exact_match_accuracy(batch.bond_type, pred_edge,
+                                              emask, gw),
+                edge_elem_acc=element_accuracy(batch.bond_type, pred_edge,
+                                               emask, gw))
         return loss, out
 
     def compute_loss(self, batch, generator: Optional[torch.Generator] = None,
@@ -270,8 +305,6 @@ def load_release_model(prefix: str, device="cuda", config=None,
     (`denoiser.fused_block_dtype`, `model.compute_dtype`). `use_ema` takes
     a training checkpoint's EMA shadow (`utils/checkpoint.py::load_release`).
     Returns (pg, meta)."""
-    import torch
-
     from ..config import config_from_dict
     from ..utils.checkpoint import from_jax_params, load_release
 
@@ -288,7 +321,25 @@ def load_release_model(prefix: str, device="cuda", config=None,
         dcfg.fused_block_dtype = fused_block_dtype
     if compute_dtype is not None:
         cfg.model.compute_dtype = compute_dtype
-    pg = PhoreGen(cfg)
-    pg.net.load_state_dict(from_jax_params(tree), strict=True)
+    return model_from_state(cfg, from_jax_params(tree), device), meta
+
+
+def model_from_state(config, state_dict, device="cuda") -> PhoreGen:
+    """`PhoreGen(config)` with the weights `state_dict` (the port's names,
+    e.g. `from_jax_params` of a flax-layout tree; every parameter must be
+    given and used), in eval mode on `device`."""
+    pg = PhoreGen(config)
+    pg.net.load_state_dict(state_dict, strict=True)
     pg.net.to(torch.device(device)).eval()
-    return pg, meta
+    return pg
+
+
+def load_reference_model(path: str, config, device="cuda"):
+    """`PhoreGen(config)` with the weights of a reference `.pt` checkpoint
+    (`utils/torch_import.py`; `config` must say `denoiser.triplet_mode:
+    dense`). Returns (pg, meta) with the checkpoint's `epoch`."""
+    from ..utils.checkpoint import from_jax_params
+    from ..utils.torch_import import load_reference_checkpoint
+
+    tree, meta = load_reference_checkpoint(path, config)
+    return model_from_state(config, from_jax_params(tree), device), meta

@@ -1,11 +1,17 @@
 """Per-pharmacophore generation pool with a retry budget and outputs.
 
-Counterpart of `phoregen_tpu/sample/pipeline.py::GenerationPipeline`
-(single device, in-process reconstruction): for one pharmacophore, sample
-batches of at most `batch_size` graphs until `num_samples` molecules pass
-reconstruction (valence check and a connected molecule), or the failure
-budget (3 x num_samples) is spent; write per-molecule SDF, the SMILES list
-and a timing row.
+Counterpart of `phoregen_tpu/sample/pipeline.py::GenerationPipeline` on
+one device: for one pharmacophore, sample batches of at most `batch_size`
+graphs until `num_samples` molecules pass reconstruction (valence check
+and a connected molecule), or the failure budget (3 x num_samples) is
+spent; write per-molecule SDF, the SMILES list, a timing row and, with
+`save_pool`, the raw sampled pools (`<name>_samples_all.npz`).
+
+A batch that runs the card out of memory (`torch.cuda.OutOfMemoryError`,
+and nothing else) is charged to the failure budget whole and retried at
+half the size. With `recon_workers` > 0 reconstruction runs in a pool of
+that many `spawn` processes (`reconstruct.recon_task`; the workers import
+no torch), shut down by `close()`.
 """
 from __future__ import annotations
 
@@ -31,10 +37,19 @@ class GenerationPipeline:
                  sample_nodes_mode: str = "uniform", normal_scale: float = 4.0,
                  add_edge: str = "predicted", batch_size: int = 30,
                  keep_traj: bool = False, seed: int = 2024,
-                 sample_steps: int = 0, device="cuda"):
+                 sample_steps: int = 0, device="cuda", chunk_steps: int = 0,
+                 recon_workers: int = 0):
         self.pg = pg
         self.cfg = pg.config
         self.device = torch.device(device)
+        self.chunk_steps = chunk_steps
+        self._recon_pool = None
+        if recon_workers > 0:
+            import concurrent.futures as cf
+            import multiprocessing as mp
+            # spawn, never fork: the parent holds a live CUDA context
+            self._recon_pool = cf.ProcessPoolExecutor(
+                recon_workers, mp_context=mp.get_context("spawn"))
         self.sampler = Sampler(pg, guidance=guidance, keep_traj=keep_traj,
                                sample_steps=sample_steps)
         self.keep_traj = keep_traj
@@ -47,6 +62,18 @@ class GenerationPipeline:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.last_bucket = None
         self.sample_seconds = 0.0   # reverse loops incl. the host copy
+
+    def close(self) -> None:
+        """Shut the reconstruction workers down (if any)."""
+        if self._recon_pool is not None:
+            self._recon_pool.shutdown()
+            self._recon_pool = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
     def _count_interval(self, phore_sample: Dict) -> Tuple[int, int]:
         batch = collate([phore_sample]).to(self.device)
@@ -88,11 +115,13 @@ class GenerationPipeline:
         self.last_bucket = n_lig
         batch = replicate_phore(phore_sample, n_graphs, counts, n_lig
                                 ).to(self.device)
-        out = self.sampler.sample(batch, self.generator)
-        arrays = [out[k].detach().cpu().numpy()
+        out = self.sampler.sample(batch, self.generator,
+                                  chunk_steps=self.chunk_steps)
+        arrays = [None if out[k] is None else out[k].detach().cpu().numpy()
                   for k in ("pred_node", "pred_pos", "pred_edge", "lig_mask")]
         self.sample_seconds += time.time() - t0
-        return decode_batch(*arrays, include_bond=True), out
+        return decode_batch(
+            *arrays, include_bond=self.cfg.model.bond_diffusion), out
 
     def reconstruct(self, mol_info: Dict):
         """(mol, smiles) or raises MolReconsError."""
@@ -112,58 +141,101 @@ class GenerationPipeline:
             return
         ka = self.cfg.model.num_atom_classes
         kb = self.cfg.model.num_bond_classes
-        node = traj["node"][:, graph_idx].cpu().numpy().astype(int)
+        node = traj["node"][:, graph_idx].cpu().numpy()
         pos = traj["pos"][:, graph_idx].cpu().numpy()
-        edge = traj["edge"][:, graph_idx].cpu().numpy().astype(int)
+        edge = traj["edge"][:, graph_idx].cpu().numpy()
+        if not np.issubdtype(node.dtype, np.floating):
+            # class ids -> one-hots; relaxed one-hots decode by argmax as
+            # they are
+            node, edge = np.eye(ka)[node.astype(int)], \
+                np.eye(kb)[edge.astype(int)]
         mask = raw["lig_mask"][graph_idx].cpu().numpy()
         with open(path, "w") as f:
             for step in range(0, len(node), stride):
-                fr = decode_batch(np.eye(ka)[node[step]][None],
-                                  pos[step][None],
-                                  np.eye(kb)[edge[step]][None], mask[None],
-                                  include_bond=True)[0]
+                fr = decode_batch(node[step][None], pos[step][None],
+                                  edge[step][None], mask[None],
+                                  include_bond=self.cfg.model.bond_diffusion
+                                  )[0]
                 mol = SimpleMol(fr["element"], fr["atom_pos"],
                                 fr["bond_index"], fr["bond_type"])
                 append_sdf(mol, f, name=f"step_{step}")
 
     def generate(self, phore: Phore, num_samples: int,
                  out_dir: Optional[str] = None,
-                 fail_budget_factor: int = 3, traj_stride: int = 10,
-                 traj_prob: float = 1.0,
+                 fail_budget_factor: int = 3, save_pool: bool = False,
+                 traj_stride: int = 10, traj_prob: float = 1.0,
                  time_budget: float = 0.0, max_batches: int = 0) -> Dict:
         """Sample pools until `num_samples` molecules are accepted, the
         failure budget is spent, `time_budget` seconds pass (0 = none) or
-        `max_batches` pools ran (0 = no limit). With `keep_traj`, each
-        accepted molecule's trajectory is written with probability
-        `traj_prob`, every `traj_stride`-th state."""
+        `max_batches` pools ran (0 = no limit; a batch that ran out of
+        device memory does not count). With `keep_traj`, each accepted
+        molecule's trajectory is written with probability `traj_prob`,
+        every `traj_stride`-th state. `save_pool` writes every sampled
+        pool's raw output as `<name>_samples_all.npz` with keys
+        `{pred_node,pred_pos,pred_edge,lig_mask}_<i>` (no pred_edge
+        without `bond_diffusion`)."""
         t0 = time.time()
         name = phore.name or "phore"
         traj_rng = np.random.default_rng(self.seed)
         phore_sample = self.prepare_phore(phore)
         lower, upper = self._count_interval(phore_sample)
-        mols, smiles_list, trajs = [], [], []
+        mols, smiles_list, trajs, pool = [], [], [], []
         n_failed = n_sampled = 0
         budget = fail_budget_factor * num_samples
         timed_out = False
         n_batches = 0
+        cur_batch = self.batch_size
         while len(mols) < num_samples and n_failed < budget:
             if max_batches and n_batches >= max_batches:
                 break
             if time_budget and time.time() - t0 > time_budget:
                 timed_out = True
+                print(f"[W] {name}: per-phore time budget "
+                      f"({time_budget:.0f}s) exhausted with "
+                      f"{len(mols)}/{num_samples} accepted", flush=True)
                 break
-            n = min(self.batch_size, num_samples - len(mols))
-            decoded, raw = self.sample_pool(phore_sample, n, lower, upper)
+            n = min(cur_batch, num_samples - len(mols))
+            try:
+                decoded, raw = self.sample_pool(phore_sample, n, lower,
+                                                upper)
+            except torch.cuda.OutOfMemoryError:
+                # the whole batch counts against the budget; the retry is
+                # half the size so that it fits
+                if self.device.type == "cuda":
+                    torch.cuda.empty_cache()
+                n_failed += n
+                cur_batch = max(1, n // 2)
+                print(f"[W] {name}: sampling batch of {n} ran out of device "
+                      f"memory; retrying with batch {cur_batch} "
+                      f"({n_failed}/{budget} failures)", flush=True)
+                continue
             n_sampled += n
             n_batches += 1
+            if save_pool:
+                pool.append({k: raw[k].detach().cpu().numpy()
+                             for k in ("pred_node", "pred_pos", "pred_edge",
+                                       "lig_mask") if raw[k] is not None})
+            results = None
+            if self._recon_pool is not None:
+                from .reconstruct import recon_task
+                results = list(self._recon_pool.map(
+                    recon_task, decoded, [self.add_edge] * len(decoded)))
             for gi, info in enumerate(decoded):
-                try:
-                    mol, smi = self.reconstruct(info)
-                except MolReconsError:
-                    n_failed += 1
-                    continue
+                if results is not None:
+                    ok, payload = results[gi]
+                    if not ok:
+                        n_failed += 1
+                        continue
+                    mol, smi = payload
+                else:
+                    try:
+                        mol, smi = self.reconstruct(info)
+                    except MolReconsError:
+                        n_failed += 1
+                        continue
                 mols.append(mol)
                 smiles_list.append(smi)
+                info["accepted"] = True
                 if self.keep_traj and traj_rng.random() < traj_prob:
                     trajs.append((raw, gi))
         elapsed = time.time() - t0
@@ -177,6 +249,11 @@ class GenerationPipeline:
                          os.path.join(mol_dir, f"{name}_smiles.txt"))
             append_timing(os.path.join(out_dir, "time_chain.txt"), name,
                           len(mols), elapsed)
+            if save_pool and pool:
+                np.savez_compressed(
+                    os.path.join(mol_dir, f"{name}_samples_all.npz"),
+                    **{f"{k}_{i}": v for i, d in enumerate(pool)
+                       for k, v in d.items()})
             for i, (raw, gi) in enumerate(trajs):
                 self._write_traj(raw, gi,
                                  os.path.join(mol_dir, f"traj_{i}.sdf"),

@@ -76,9 +76,20 @@ def predict_bonds(elements: List[int], pos: np.ndarray
                   ) -> Tuple[List[List[int]], List[int]]:
     """All-pairs distance lookup -> directed bond lists (both directions).
 
-    Pure numpy/Python path; the JAX package's ctypes host library is not
-    part of this port yet.
+    Uses the native C library (`phoregen_tpu_torch/native`) when it
+    builds; `predict_bonds_python` is the behavioural reference and the
+    fallback where no compiler exists.
     """
+    from ..native import predict_bonds_native
+    native = predict_bonds_native(elements, pos)
+    if native is not None:
+        return native
+    return predict_bonds_python(elements, pos)
+
+
+def predict_bonds_python(elements: List[int], pos: np.ndarray
+                         ) -> Tuple[List[List[int]], List[int]]:
+    """The Python loop of `predict_bonds`."""
     bond_index: List[List[int]] = [[], []]
     bond_type: List[int] = []
     n = len(elements)

@@ -362,9 +362,9 @@ def recon_task(info: Dict, add_edge: str):
     """Process-pool unit of work: reconstruction + acceptance for one
     decoded molecule — (True, (mol, smiles)) or (False, reason).
 
-    Lives in this jax-free module so spawned reconstruction workers
-    (`GenerationPipeline(recon_workers=...)`) never initialize a JAX
-    backend; SimpleMol and RDKit Mol both pickle."""
+    Lives in this torch-free module so that spawned reconstruction
+    workers (`GenerationPipeline(recon_workers=...)`) never import torch
+    or touch the card; SimpleMol and RDKit Mol both pickle."""
     from .chem import mol_to_smiles
     try:
         mol = reconstruct_from_generated_with_edges(info, add_edge=add_edge)

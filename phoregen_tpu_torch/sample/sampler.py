@@ -3,11 +3,22 @@
 Counterpart of `phoregen_tpu/sample/sampler.py::Sampler`: atom-count
 interval prediction, per-graph count draws, prior draws for positions,
 atom and bond types, then the reverse loop (categorical posteriors with
-Gumbel-max sampling, the Gaussian position posterior with the optional
-guidance energies' gradient subtracted from its mean). The phore embedding
-and, for a fused stack, the packed layer-stack weights are loop-invariant
-and computed once before the loop. Random draws come from an explicit `torch.Generator`; a
-test can inject them per step (`step(..., draws=...)`).
+Gumbel-max sampling, or with `categorical_space: continuous` the Gaussian
+posterior on the relaxed one-hots; the Gaussian position posterior with
+the optional guidance energies' gradient subtracted from its mean). Without
+`bond_diffusion` the bond state keeps its prior draw, atom_prox guidance is
+skipped (as in the JAX package) and `pred_edge` is None. The phore
+embedding and, for a fused stack, the packed layer-stack weights are
+loop-invariant and computed once before the loop. Random draws come from
+an explicit `torch.Generator`; a test can inject them per step
+(`step(..., draws=...)`).
+
+`sample(chunk_steps=n)` (`sample_chunked`) runs the same steps with the
+host waiting for the card every n steps, where the JAX package splits its
+scan into device calls: the same per-step calls, the state left on the
+card, bit for bit the same outputs and generator stream. The JAX
+sampler's `unroll` (XLA's scan unrolling) has no counterpart: the loop
+here is a Python loop.
 """
 from __future__ import annotations
 
@@ -132,8 +143,10 @@ class Sampler:
 
     # ----- strided schedule -----
     def schedule(self):
-        """(timesteps [S], node (trans_T, cum_prev) [S-1,K,K], edge tables,
-        gaussian (coef_x0, coef_xt, std) [S]) on the sampler's device."""
+        """(timesteps [S], node tables, edge tables, position (coef_x0,
+        coef_xt, std) [S] numpy). Categorical tables: (trans_T, cum_prev)
+        [S-1,K,K] on the sampler's device; continuous: the Gaussian
+        (coef_x0, coef_xt, std) [S] of the node and edge schedules."""
         pg = self.pg
         T = pg.num_timesteps
         S = self.sample_steps if 0 < self.sample_steps < T else T
@@ -143,12 +156,16 @@ class Sampler:
             mcfg, diff = pg.config.model, pg.config.model.diff
             dev = self.device
             tab = lambda a: torch.as_tensor(a, device=dev)
-            node = tuple(map(tab, build_strided_tables(
-                pg.node_betas, mcfg.num_atom_classes,
-                diff.diff_atom.init_prob, ts)))
-            edge = tuple(map(tab, build_strided_tables(
-                pg.edge_betas, mcfg.num_bond_classes,
-                diff.diff_bond.init_prob, ts)))
+            if pg.categorical_space == "discrete":
+                node = tuple(map(tab, build_strided_tables(
+                    pg.node_betas, mcfg.num_atom_classes,
+                    diff.diff_atom.init_prob, ts)))
+                edge = tuple(map(tab, build_strided_tables(
+                    pg.edge_betas, mcfg.num_bond_classes,
+                    diff.diff_bond.init_prob, ts)))
+            else:   # Gaussian coefficients per category channel
+                node = build_gaussian_strided(pg.node_betas, ts)
+                edge = build_gaussian_strided(pg.edge_betas, ts)
             gauss = build_gaussian_strided(pg.pos_betas, ts)
             self._sched[S] = (ts, node, edge, gauss)
         return self._sched[S]
@@ -174,12 +191,19 @@ class Sampler:
                 "phore_center": masked_mean(batch.phore_pos,
                                             p_mask[..., None], dim=1)}
 
-    def energy(self, pos, edge_ids, batch, phore_center):
+    def energy(self, pos, edge, batch, phore_center):
+        """Sum of the guidance energies; `edge` is the bond state (class
+        ids, or relaxed one-hots in the continuous space). atom_prox needs
+        predicted bonds and is skipped without `bond_diffusion`."""
         e = pos.new_zeros(())
-        Kb = self.pg.config.model.num_bond_classes
+        mcfg = self.pg.config.model
         for g in self.guidance:
             if g.type == "atom_prox":
-                h_edge = torch.nn.functional.one_hot(edge_ids.long(), Kb)
+                if not mcfg.bond_diffusion:
+                    continue
+                h_edge = edge if edge.is_floating_point() else \
+                    torch.nn.functional.one_hot(edge.long(),
+                                                mcfg.num_bond_classes)
                 e = e + atom_prox_energy(pos, h_edge, batch.bond_mask,
                                          batch.lig_mask, g.min_d, g.max_d)
             elif g.type == "center_prox":
@@ -198,10 +222,16 @@ class Sampler:
         pos = pg.pos_transition.sample_init((B, NL, 3), generator, dev)
         if offset_init_by_center:
             pos = pos - batch.center[:, None, :]
-        node, _, log_node = pg.node_transition.sample_init((B, NL), generator,
-                                                           dev)
-        edge, _, log_edge = pg.edge_transition.sample_init((B, NL, NL),
-                                                           generator, dev)
+        if pg.categorical_space == "discrete":
+            node, _, log_node = pg.node_transition.sample_init(
+                (B, NL), generator, dev)
+            edge, _, log_edge = pg.edge_transition.sample_init(
+                (B, NL, NL), generator, dev)
+        else:   # relaxed one-hots [.., K], no log-probabilities
+            node = pg.node_transition.sample_init((B, NL), generator, dev)
+            edge = pg.edge_transition.sample_init((B, NL, NL), generator,
+                                                  dev)
+            log_node = log_edge = None
         return {"pos": pos, "node": node, "log_node": log_node,
                 "edge": edge, "log_edge": log_edge}
 
@@ -209,46 +239,70 @@ class Sampler:
              is_final: bool, generator: Optional[torch.Generator] = None,
              draws: Optional[Dict] = None):
         """One reverse step i of the schedule. `draws` may hold the step's
-        random numbers ('node_u', 'edge_u' uniforms, 'pos_noise' normals).
-        Returns (new state, (pred_node, pred_pos, pred_edge))."""
+        random numbers ('node_u', 'edge_u' uniforms of the categorical
+        sampling, or 'node_noise', 'edge_noise' normals of the continuous
+        one; 'pos_noise' normals). Returns (new state, (pred_node,
+        pred_pos, pred_edge))."""
         pg = self.pg
         mcfg = pg.config.model
-        ts, (node_tT, node_cp), (edge_tT, edge_cp), (cx0, cxt, std) = \
-            self.schedule()
+        discrete = pg.categorical_space == "discrete"
+        ts, node_tabs, edge_tabs, (cx0, cxt, std) = self.schedule()
         draws = draws or {}
         B = batch.lig_mask.shape[0]
         t = torch.full((B,), int(ts[i]), dtype=torch.int64,
                        device=batch.lig_mask.device)
-        oh = torch.nn.functional.one_hot
         cdt = inv["dtype"]
+        if discrete:
+            oh = torch.nn.functional.one_hot
+            h_node = oh(state["node"].long(), mcfg.num_atom_classes)
+            h_edge = oh(state["edge"].long(), mcfg.num_bond_classes)
+        else:
+            h_node, h_edge = state["node"], state["edge"]
         with torch.no_grad():
             preds = apply_net(
-                pg.net, inv["params"],
-                oh(state["node"].long(), mcfg.num_atom_classes).to(cdt),
-                state["pos"], batch.lig_mask,
-                oh(state["edge"].long(), mcfg.num_bond_classes).to(cdt), t,
-                batch.phore_x.to(cdt), batch.phore_pos, batch.phore_norm,
-                batch.phore_mask, h_phore_emb=inv["h_phore"],
-                compute_count=False, fused_packed=inv["packed"])
+                pg.net, inv["params"], h_node.to(cdt), state["pos"],
+                batch.lig_mask, h_edge.to(cdt), t, batch.phore_x.to(cdt),
+                batch.phore_pos, batch.phore_norm, batch.phore_mask,
+                h_phore_emb=inv["h_phore"], compute_count=False,
+                fused_packed=inv["packed"])
         # posteriors, positions and sampling in float32
-        pred_node, pred_pos, pred_edge = (p.float() for p in preds[:3])
-        ti = min(i, node_tT.shape[0] - 1)
-        log_node = pg.node_transition.q_v_posterior_mats(
-            torch.log_softmax(pred_node, -1), state["log_node"],
-            node_tT[ti], node_cp[ti], is_final)
-        node = log_sample_categorical(log_node, generator,
-                                      draws.get("node_u"))
-        log_edge = pg.edge_transition.q_v_posterior_mats(
-            torch.log_softmax(pred_edge, -1), state["log_edge"],
-            edge_tT[ti], edge_cp[ti], is_final)
-        edge = log_sample_categorical(log_edge, generator,
-                                      draws.get("edge_u"))
+        pred_node, pred_pos, pred_edge = (
+            None if p is None else p.float() for p in preds[:3])
+        edge, log_edge = state["edge"], state["log_edge"]
+        if discrete:
+            ti = min(i, node_tabs[0].shape[0] - 1)
+            log_node = pg.node_transition.q_v_posterior_mats(
+                torch.log_softmax(pred_node, -1), state["log_node"],
+                node_tabs[0][ti], node_tabs[1][ti], is_final)
+            node = log_sample_categorical(log_node, generator,
+                                          draws.get("node_u"))
+            if mcfg.bond_diffusion:
+                log_edge = pg.edge_transition.q_v_posterior_mats(
+                    torch.log_softmax(pred_edge, -1), log_edge,
+                    edge_tabs[0][ti], edge_tabs[1][ti], is_final)
+                edge = log_sample_categorical(log_edge, generator,
+                                              draws.get("edge_u"))
+        else:
+            # the Gaussian reverse step on the relaxed one-hots
+            def gauss_step(x, pred, tabs, noise):
+                return GaussianTransition.get_prev_with(
+                    x, pred, float(tabs[0][i]), float(tabs[1][i]),
+                    float(tabs[2][i]), is_final, generator=generator,
+                    noise=noise)
+            log_node = None
+            node = gauss_step(state["node"], pred_node, node_tabs,
+                              draws.get("node_noise"))
+            if mcfg.bond_diffusion:
+                edge = gauss_step(edge, pred_edge, edge_tabs,
+                                  draws.get("edge_noise"))
         energy_grad = 0.0
         if self.guidance:
             with torch.enable_grad():
                 p = state["pos"].detach().requires_grad_(True)
-                energy_grad, = torch.autograd.grad(
-                    self.energy(p, edge, batch, inv["phore_center"]), p)
+                e = self.energy(p, edge, batch, inv["phore_center"])
+                # no energy term left (atom_prox alone without bonds)
+                if e.requires_grad:
+                    energy_grad, = torch.autograd.grad(e, p)
         pos = GaussianTransition.get_prev_with(
             state["pos"], pred_pos, float(cx0[i]), float(cxt[i]),
             float(std[i]), is_final, energy_grad=energy_grad,
@@ -259,19 +313,28 @@ class Sampler:
 
     def sample(self, batch: PhoreGraphBatch,
                generator: Optional[torch.Generator] = None,
-               offset_init_by_center: bool = False) -> Dict:
+               offset_init_by_center: bool = False,
+               chunk_steps: int = 0) -> Dict:
         """The full reverse process for a padded sampling batch (replicated
         phore, per-graph lig_mask); ligand content of `batch` is ignored.
         With `keep_traj` the result also holds 'traj': the sampled node and
-        edge class ids and positions of the prior draw and of every step,
-        each [S+1, B, ...]."""
+        edge states (class ids as int8, or the continuous space's relaxed
+        one-hots) and positions of the prior draw and of every step, each
+        [S+1, B, ...]. `chunk_steps` > 0: the host waits for the card
+        after every `chunk_steps` of the first S-1 steps and before the
+        final one, as the JAX package's `sample_chunked` makes a device
+        call of each; nothing else changes."""
         ts = self.schedule()[0]
         S = len(ts)
         inv = self.prepare(batch)
         state = self.init_state(batch, generator, offset_init_by_center)
         center = batch.center[:, None, :]
         frames = [state] if self.keep_traj else None
+        chunk = max(1, min(chunk_steps, S - 1)) if chunk_steps > 0 else 0
         for i in range(S):
+            if chunk and i > 0 and (i % chunk == 0 or i == S - 1) \
+                    and state["pos"].is_cuda:
+                torch.cuda.synchronize(state["pos"].device)
             state, preds = self.step(state, i, batch, inv, i == S - 1,
                                      generator)
             if frames is not None:
@@ -284,10 +347,20 @@ class Sampler:
                             "node": state["node"], "edge": state["edge"]},
         }
         if frames is not None:
+            ids = (lambda x: x) if state["node"].is_floating_point() \
+                else (lambda x: x.to(torch.int8))
             result["traj"] = {
-                "node": torch.stack([f["node"].to(torch.int8)
-                                     for f in frames]),
+                "node": torch.stack([ids(f["node"]) for f in frames]),
                 "pos": torch.stack([f["pos"] + center for f in frames]),
-                "edge": torch.stack([f["edge"].to(torch.int8)
-                                     for f in frames])}
+                "edge": torch.stack([ids(f["edge"]) for f in frames])}
         return result
+
+    def sample_chunked(self, batch: PhoreGraphBatch, chunk_steps: int,
+                       generator: Optional[torch.Generator] = None,
+                       offset_init_by_center: bool = False) -> Dict:
+        """`sample` with the host waiting for the card every `chunk_steps`
+        steps: the same steps, the same outputs bit for bit."""
+        if chunk_steps < 1:
+            raise ValueError("chunk_steps must be at least 1")
+        return self.sample(batch, generator, offset_init_by_center,
+                           chunk_steps=chunk_steps)

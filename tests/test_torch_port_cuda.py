@@ -411,3 +411,101 @@ def test_triplet_pool_wrapper_rejects_bad_inputs(cuda):
         q = torch.empty(args[2].numel() + 1, device=cuda)[1:]
         pt.triplet_pool_cuda(args[0], args[1], q.view_as(args[2]), *args[3:])
     assert pt.LAUNCHES["triplet_pool"] == 0
+
+
+# ------------------------------------------------- model options, native
+
+OPTION_PHORE = """opt_phore
+AR\t1.0\t1\t1\t1.0\t2.0\t3.0\t1\t0.0\t0.0\t1.0\t0\t1
+HD\t0.7\t1\t1\t-1.0\t0.5\t2.0\t0\t0.0\t0.0\t0.0\t0\t1
+HY\t1.0\t1\t1\t0.5\t-1.0\t1.0\t0\t0.0\t0.0\t0.0\t0\t1
+EX\t0.837\t0.5\t1\t4.0\t4.0\t4.0\t0\t0.0\t0.0\t0.0\t0\t1
+$$$$
+"""
+OPTION_PATHS = {   # option: (model settings, fused_stack, kernels)
+    "continuous": (dict(categorical_space="continuous"), "pallas2",
+                   ("stage_node_pre", "stage_att_pos")),
+    "no_bond": (dict(bond_diffusion=False), "pallas",
+                ("stage_node", "stage_triplet_pre", "stage_triplet_att",
+                 "stage_pos")),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option", sorted(OPTION_PATHS))
+def test_option_paths_reach_their_kernels(cuda, option):
+    """`categorical_space: continuous` through `pallas2` and
+    `bond_diffusion: false` through `pallas` launch their stack's kernels
+    on a short chain (and no others), and agree with the plain stages on
+    the CPU on the first step's predictions."""
+    import numpy as np
+    from phoregen_tpu_torch.config import default_config
+    from phoregen_tpu_torch.data.batching import replicate_phore
+    from phoregen_tpu_torch.data.phore import parse_phore_text
+    from phoregen_tpu_torch.models.phoregen import PhoreGen, init_params
+    from phoregen_tpu_torch.sample.pipeline import GenerationPipeline
+    from phoregen_tpu_torch.sample.sampler import Sampler
+
+    settings, fused, kernels = OPTION_PATHS[option]
+    cfg = default_config("zinc_300")
+    m = cfg.model
+    m.hidden_dim = m.denoiser.hidden_dim = 32
+    for k, v in dict(num_layers=2, n_heads=4, knn=4, triplet_knn=3,
+                     triplet_width=8, fused_stack=fused,
+                     block_knn_freeze=True).items():
+        setattr(m.denoiser, k, v)
+    if "categorical_space" in settings:
+        m.diff.categorical_space = settings["categorical_space"]
+    if "bond_diffusion" in settings:
+        m.bond_diffusion = settings["bond_diffusion"]
+    m.diff.num_timesteps = 10
+    cfg.dataset.ligand_buckets = [16]
+    cfg.dataset.max_phore = 16
+    cfg.finalize()
+    pg = PhoreGen(cfg)
+    init_params(pg.net, 0)
+    pg.net.to(cuda).eval()
+    sample = GenerationPipeline(pg, device=cuda).prepare_phore(
+        parse_phore_text(OPTION_PHORE, "opt_phore"))
+    batch = replicate_phore(sample, 3, np.asarray([7, 12, 16]), 16)
+    sp = Sampler(pg, sample_steps=4)
+    ls.reset_launch_counts()
+    pt.reset_launch_counts()
+    out = sp.sample(batch.to(cuda),
+                    torch.Generator(device=cuda).manual_seed(1))
+    torch.cuda.synchronize()
+    launches = dict(ls.LAUNCHES, **pt.LAUNCHES)
+    assert launches == {k: 4 * 2 * (k in kernels) for k in launches}
+    assert (out["pred_edge"] is None) == (option == "no_bond")
+    assert torch.isfinite(out["pred_pos"]).all()
+
+    # the first step's predictions against the plain stages on the CPU
+    cpu = PhoreGen(cfg)
+    cpu.net.load_state_dict({k: v.cpu() for k, v in
+                             pg.net.state_dict().items()})
+    cpu.net.eval()
+    state0 = Sampler(cpu).init_state(batch.to("cpu"),
+                                     torch.Generator().manual_seed(2))
+    preds = []
+    for model, dev in ((pg, cuda), (cpu, "cpu")):
+        s = Sampler(model, sample_steps=4)
+        b = batch.to(dev)
+        state = {k: None if v is None else v.to(dev)
+                 for k, v in state0.items()}
+        preds.append(s.step(state, 0, b, s.prepare(b), False,
+                            torch.Generator(device=dev).manual_seed(3))[1])
+    lm = batch.lig_mask
+    for a, b in zip(preds[0][:2], preds[1][:2]):
+        torch.testing.assert_close(a.cpu()[lm], b[lm], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_native_host_library_loads(cuda):
+    """On the card's machine the host library builds (g++) into the
+    port's build directory and is the one bond perception uses."""
+    import os
+    from phoregen_tpu_torch import native
+    assert native.available(), native.load_error()
+    assert os.path.exists(native.library_path())
+    assert native.predict_bonds_native([6, 6], [[0, 0, 0], [1.5, 0, 0]]) \
+        == ([[0, 1], [1, 0]], [1, 1])
