@@ -170,6 +170,8 @@ PATH_KERNELS = {
     "no-bond": ("stage_node", "stage_triplet_pre", "stage_triplet_att",
                 "stage_pos"),
     "chunked": ("stage_node_pre", "stage_att_pos"),
+    "shard": ("stage_node", "stage_triplet_pre", "stage_triplet_att",
+              "stage_pos"),
     # flagship_r4 as it is (kNN triplets, module path) and the dense
     # reference form: no kernel
     "cli": (),
@@ -200,6 +202,29 @@ OPTIONS = {
 }
 # [chunked]: one pallas2 chain whole and in chunks, bit for bit
 CHUNK_STEPS, CHUNK = 50, 7
+# [ddp]: data-parallel training, flagship_r4 through pallas2 in float32
+DDP_STEPS = 4
+DDP_NL = 48
+DDP_TIMEOUT = 600.0
+# a step's loss and gradient norm (relative), and the parameters after the
+# steps: max abs (10 x lr: Adam moves an entry whose gradient is rounding
+# noise by about lr a step, in a direction the rounding picks; measured
+# up to 4.9e-4 on an H100, 700 W) and relative L2 over all of them
+DDP_TOLS = (1e-5, 1e-4, 1e-3, 1e-4)
+# [shard]: pools sharded over [cuda:0, cuda:0] against the unsharded pool
+SHARD_POOLS = (30, 31)
+SHARD_STEPS = 100
+SHARD_NL = 48
+SHARD_COUNTS = (36, 48)     # atom counts drawn in the NL=48 bucket
+# positions, max abs (Angstrom): the shards' products over 15 or 16 rows
+# round unlike the pool's over 30 or 32, and 100 guided steps carry that
+# along (measured 6.1e-4 and 7.6e-6 on an H100, 700 W); a pool whose
+# guidance divided by the shard's size, or whose draws were the shard's
+# own, misses by far more
+SHARD_TOL = 1e-2
+# [xla2 bf16]: relative L2 difference of each output from the float32
+# plain stages (bf16 keeps 8 bits of mantissa, 0.4% a rounding)
+XLA2_BF16_TOL = 0.05
 
 
 def fail(msg: str) -> None:
@@ -1181,8 +1206,358 @@ def phase_reference(root, label):
           f"{errs[2]:.3e} (tol {FORWARD_TOL})", flush=True)
 
 
+def _ddp_rank(rank, world, init_method, root, backend, batches, steps,
+              ck_path):
+    """One rank of [ddp]: flagship_r4's trainer through `pallas2` in
+    float32 on cuda:0, in a process group of `world` ranks over `backend`;
+    `steps` train steps on this rank's rows of the global `batches` (host
+    numpy), seeds 1, 2, ...; rank 0 writes the state to `ck_path` (when
+    given) after them. Returns per-step (loss, grad_norm), ms/step, the
+    kernels' launch counts on the steps and the parameters."""
+    import torch
+    from phoregen_tpu_torch.data.batching import PhoreGraphBatch
+    from phoregen_tpu_torch.ops import layer_stack as ls
+    from phoregen_tpu_torch.ops import pallas_triplet as pt
+    from phoregen_tpu_torch.parallel import group
+    from phoregen_tpu_torch.tools.profile_training import (
+        flagship_trainer, forward_backward_ms)
+    from phoregen_tpu_torch.train.checkpoint import save_checkpoint
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    group.init(rank, world, init_method, dev, backend=backend)
+    try:
+        with tempfile.TemporaryDirectory() as run_dir:
+            return _ddp_steps(flagship_trainer(
+                os.path.join(root, "release", "flagship_r4"), dev, "pallas2",
+                run_dir=run_dir, dtype="float32"), batches, steps, ck_path,
+                dev, ls, pt, PhoreGraphBatch, forward_backward_ms,
+                save_checkpoint)
+    finally:
+        group.shutdown()
+
+
+def _ddp_steps(run, batches, steps, ck_path, dev, ls, pt, batch_cls,
+               forward_backward_ms, save_checkpoint):
+    """The timed steps of [ddp] on `run` (in a process group or not)."""
+    import torch
+    from phoregen_tpu_torch.parallel import group
+    rows = group.local_batch_slice(BATCH)
+    local = [batch_cls(**{k: v[rows] for k, v in b.items()}).to(dev)
+             for b in batches]
+    forward_backward_ms(run, local[0])      # warm-up; leaves no gradient
+    torch.cuda.synchronize()
+    ls.reset_launch_counts()
+    pt.reset_launch_counts()
+    metrics = []
+    for i in range(steps):
+        if i == 1:      # the first step sets up the optimizer and the
+            t0 = time.time()    # collectives' communicators: not timed
+        m = run.train_step(run.state, 1 + i, local[i])
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3 / (steps - 1)
+    launches = _launches(ls, pt)
+    if ck_path and group.rank() == 0:
+        save_checkpoint(ck_path, run.state, 0, run.config)
+    group.barrier()
+    return {"metrics": metrics, "ms": ms, "launches": launches,
+            "params": {n: p.detach().cpu().numpy()
+                       for n, p in run.state.net.named_parameters()}}
+
+
+def _param_diff(a, b):
+    """(max abs difference, relative L2 difference) over all parameters."""
+    import numpy as np
+    mx = max(float(np.abs(a[n] - b[n]).max()) for n in b)
+    num = sum(float(((a[n] - b[n]).astype(np.float64) ** 2).sum()) for n in b)
+    den = sum(float((b[n].astype(np.float64) ** 2).sum()) for n in b)
+    return mx, (num / den) ** 0.5
+
+
+def phase_ddp(root, ls, pt):
+    """[ddp]: data-parallel training of flagship_r4 through `pallas2` in
+    float32, global batches of 16 from the NL=48 bucket of the `mixed`
+    corpus, DDP_STEPS steps from one state on the same batches and draws:
+    (a) world size 2 on this one card over gloo (NCCL refuses two ranks on
+    one device), (b) world size 1 over NCCL, (c) the single-process `Run`.
+    (a) and (b) must match (c) on each step's loss and gradient norm and
+    on every parameter after the last step (DDP_TOLS); then the state (a)
+    wrote resumes at world size 1 for one step, held to (c)'s next step.
+    Returns the launch counts of kernels 5 and 6 over the three runs."""
+    import numpy as np
+    import torch
+    from phoregen_tpu_torch.data.batching import PhoreGraphBatch
+    from phoregen_tpu_torch.parallel import group
+    from phoregen_tpu_torch.tools.profile_training import (
+        bucket_batches, flagship_trainer, forward_backward_ms)
+    from phoregen_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                     save_checkpoint)
+
+    tag = "[ddp]"
+    prefix = os.path.join(root, "release", "flagship_r4")
+    with tempfile.TemporaryDirectory() as tmp:
+        single = flagship_trainer(prefix, "cuda", "pallas2",
+                                  run_dir=os.path.join(tmp, "c"),
+                                  dtype="float32")
+        cfg = single.config
+        if cfg.train.batch_size != BATCH:
+            fail(f"flagship_r4 is expected to train with batches of {BATCH}")
+        batches = [{k: np.asarray(v) for k, v in vars(b).items()}
+                   for b in bucket_batches(cfg, DDP_NL, DDP_STEPS + 1,
+                                           seed=2024)]
+        ck = os.path.join(tmp, "ddp2")
+        runs = {}
+        try:
+            runs["a"] = group.launch(_ddp_rank, 2, (
+                root, "gloo", batches[:DDP_STEPS], DDP_STEPS, ck),
+                timeout=DDP_TIMEOUT)
+            runs["b"] = group.launch(_ddp_rank, 1, (
+                root, "nccl", batches[:DDP_STEPS], DDP_STEPS, None),
+                timeout=DDP_TIMEOUT)
+        except Exception as e:
+            fail(f"{tag} a rank failed: {e}")
+        c = _ddp_steps(single, batches[:DDP_STEPS], DDP_STEPS, None,
+                       torch.device("cuda"), ls, pt, PhoreGraphBatch,
+                       forward_backward_ms, save_checkpoint)
+        nxt = PhoreGraphBatch(**batches[DDP_STEPS]).to("cuda")
+        m = single.train_step(single.state, 1 + DDP_STEPS, nxt)
+        c_next = (float(m["loss"]), float(m["grad_norm"]))
+        c_next_params = {n: p.detach().cpu().numpy()
+                         for n, p in single.state.net.named_parameters()}
+        # the state world size 2 wrote, one more step at world size 1
+        resumed = flagship_trainer(prefix, "cuda", "pallas2",
+                                   run_dir=os.path.join(tmp, "r"),
+                                   dtype="float32")
+        load_checkpoint(ck, resumed.state)
+        r = resumed.train_step(resumed.state, 1 + DDP_STEPS, nxt)
+        r_metrics = (float(r["loss"]), float(r["grad_norm"]))
+        r_params = {n: p.detach().cpu().numpy()
+                    for n, p in resumed.state.net.named_parameters()}
+    loss_tol, gnorm_tol, param_tol, param_l2_tol = DDP_TOLS
+    print(f"{tag} flagship_r4 through pallas2, float32, global batch "
+          f"{BATCH} at NL={DDP_NL}, {DDP_STEPS} steps; (a) 2 ranks on one "
+          f"card over gloo, (b) 1 rank over NCCL, (c) one process")
+    worst = {"a": [0.0, 0.0], "b": [0.0, 0.0]}
+    for i in range(DDP_STEPS):
+        lc, gc = c["metrics"][i]
+        line = f"{tag} step {i + 1}: (c) loss {lc:.6f} grad_norm {gc:.6f}"
+        for k in ("a", "b"):
+            for rk, res in enumerate(runs[k]):
+                la, ga = res["metrics"][i]
+                dl, dg = abs(la - lc) / abs(lc), abs(ga - gc) / abs(gc)
+                worst[k] = [max(worst[k][0], dl), max(worst[k][1], dg)]
+                if rk == 0:
+                    line += f"; ({k}) rel. diff loss {dl:.3e} grad_norm " \
+                            f"{dg:.3e}"
+        print(line)
+    a0, a1 = (res["params"] for res in runs["a"])
+    same_ranks = all(np.array_equal(a0[n], a1[n]) for n in a0)
+    pa = _param_diff(a0, c["params"])
+    pb = _param_diff(runs["b"][0]["params"], c["params"])
+    print(f"{tag} worst rel. diff vs (c): (a) loss {worst['a'][0]:.3e} "
+          f"grad_norm {worst['a'][1]:.3e}; (b) loss {worst['b'][0]:.3e} "
+          f"grad_norm {worst['b'][1]:.3e} (limits {loss_tol:g}, "
+          f"{gnorm_tol:g})")
+    print(f"{tag} parameters after {DDP_STEPS} steps vs (c): (a) max abs "
+          f"{pa[0]:.3e}, rel. L2 {pa[1]:.3e}; (b) max abs {pb[0]:.3e}, rel. "
+          f"L2 {pb[1]:.3e} (limits {param_tol:g} max abs, {param_l2_tol:g} rel. "
+          f"L2); the two ranks of (a) bit for bit equal: {same_ranks}")
+    pr = _param_diff(r_params, c_next_params)
+    dl = abs(r_metrics[0] - c_next[0]) / abs(c_next[0])
+    dg = abs(r_metrics[1] - c_next[1]) / abs(c_next[1])
+    print(f"{tag} saved at world size 2, resumed at world size 1: step "
+          f"{DDP_STEPS + 1} rel. diff vs (c) loss {dl:.3e} grad_norm "
+          f"{dg:.3e}; parameters max abs {pr[0]:.3e}, rel. L2 {pr[1]:.3e}")
+    ms = {"a": runs["a"][0]["ms"], "b": runs["b"][0]["ms"], "c": c["ms"]}
+    print(f"{tag} ms/step over steps 2-{DDP_STEPS}: (a) {ms['a']:.3f}, "
+          f"(b) {ms['b']:.3f}, (c) {ms['c']:.3f}")
+    launches = {k: sum(res["launches"][k] for res in runs["a"])
+                + runs["b"][0]["launches"][k] + c["launches"][k]
+                for k in c["launches"]}
+    per_rank = DDP_STEPS * cfg.model.denoiser.num_layers
+    print(f"{tag} launches (a) rank 0: {json.dumps(runs['a'][0]['launches'])}"
+          f"; (b): {json.dumps(runs['b'][0]['launches'])}; (c): "
+          f"{json.dumps(c['launches'])}", flush=True)
+    for res in runs["a"] + runs["b"]:
+        want = {k: per_rank * (k in PATH_KERNELS["pallas2"])
+                for k in res["launches"]}
+        if res["launches"] != want:
+            fail(f"{tag} a rank must launch {PATH_KERNELS['pallas2']} "
+                 f"{per_rank} times each and no other kernel: "
+                 f"{res['launches']}")
+    if not same_ranks:
+        fail(f"{tag} the two ranks of (a) hold different parameters")
+    if max(worst["a"][0], worst["b"][0], dl) > loss_tol or \
+            max(worst["a"][1], worst["b"][1], dg) > gnorm_tol:
+        fail(f"{tag} loss or gradient norm off the single process")
+    if max(pa[0], pb[0], pr[0]) > param_tol or \
+            max(pa[1], pb[1], pr[1]) > param_l2_tol:
+        fail(f"{tag} parameters off (c): (a) {pa[0]:.3e}, (b) {pb[0]:.3e}, "
+             f"resumed {pr[0]:.3e} > {param_tol}")
+    return {k: launches[k] for k in launches}
+
+
+def phase_shard(root, ls, pt):
+    """[shard]: `GenerationPipeline` on flagship_r4 through `pallas`, its
+    pools sharded over devices [cuda:0, cuda:0], against the unsharded
+    pipeline on the same seed: a pool of 30 and then one of 31 (rounded up
+    to 32), NL=48, SHARD_STEPS strided steps with atom_prox + center_prox
+    guidance: the same atom types and bonds, positions within SHARD_TOL.
+    Then the CLI with --sample_devices 1 and 0 (one visible card:
+    unsharded), pool files equal. Returns the sharded runs' launches."""
+    import numpy as np
+    import torch
+    from phoregen_tpu_torch.cli import sample as cli
+    from phoregen_tpu_torch.data.phore import parse_phore_file
+    from phoregen_tpu_torch.models.phoregen import load_release_model
+    from phoregen_tpu_torch.sample.pipeline import GenerationPipeline
+    from phoregen_tpu_torch.sample.sampler import GuidanceOpt
+
+    tag = "[shard]"
+    phore_path = os.path.join(root, "tests", "fixtures", "phores",
+                              "P03211_merge.phore")
+    pg, _ = load_release_model(os.path.join(root, "release", "flagship_r4"),
+                               device="cuda", fused_stack="pallas")
+    guidance = [GuidanceOpt(**g) for g in CLI_GUIDANCE]
+    pipes = {k: GenerationPipeline(
+        pg, guidance=guidance, sample_nodes_mode="normal", normal_scale=6.0,
+        batch_size=32, seed=2024, device="cuda", sample_steps=SHARD_STEPS,
+        devices=devs) for k, devs in (("single", None),
+                                      ("sharded", ["cuda:0", "cuda:0"]))}
+    ps = pipes["single"].prepare_phore(parse_phore_file(phore_path))
+    lo, up = SHARD_COUNTS
+    per_kernel = SHARD_STEPS * pg.config.model.denoiser.num_layers
+    launches = None
+    for pool in SHARD_POOLS:
+        n_eff = -(-pool // 2) * 2
+        out = {}
+        for k, pipe in pipes.items():
+            ls.reset_launch_counts()
+            pt.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            _, raw = pipe.sample_pool(ps, pool if k == "sharded" else n_eff,
+                                      lo, up)
+            torch.cuda.synchronize()
+            out[k] = ({n: None if v is None else v.cpu() for n, v in
+                       raw.items() if n != "final_state"},
+                      (time.time() - t0) * 1e3 / SHARD_STEPS,
+                      _launches(ls, pt), pipe.last_bucket)
+        (s, s_ms, _, s_nl), (p, p_ms, p_l, p_nl) = out["single"], \
+            out["sharded"]
+        if s_nl != SHARD_NL or p_nl != SHARD_NL:
+            fail(f"{tag} pools in bucket {s_nl}/{p_nl}, expected {SHARD_NL}")
+        if p["pred_pos"].shape[0] != n_eff:
+            fail(f"{tag} pool of {pool} sharded to "
+                 f"{p['pred_pos'].shape[0]} rows, expected {n_eff}")
+        _want_only("shard", p_l, 2 * per_kernel)
+        launches = p_l if launches is None else {
+            kk: launches[kk] + v for kk, v in p_l.items()}
+        lm = s["lig_mask"]
+        bm = lm[:, :, None] & lm[:, None, :]
+        types = torch.equal(s["pred_node"].argmax(-1)[lm],
+                            p["pred_node"].argmax(-1)[lm])
+        bonds = torch.equal(s["pred_edge"].argmax(-1)[bm],
+                            p["pred_edge"].argmax(-1)[bm])
+        err = float((s["pred_pos"] - p["pred_pos"])[lm].abs().max())
+        print(f"{tag} pool {pool} -> {n_eff} rows on [cuda:0, cuda:0], "
+              f"NL={p_nl}, {SHARD_STEPS} steps: same atom types {types}, "
+              f"same bonds {bonds}, positions max abs diff {err:.3e} (tol "
+              f"{SHARD_TOL:g}); ms/step sharded {p_ms:.3f}, unsharded "
+              f"{s_ms:.3f}", flush=True)
+        if not (types and bonds and err <= SHARD_TOL):
+            fail(f"{tag} the sharded pool of {pool} differs from the "
+                 "unsharded one")
+    # the CLI: 1 = unsharded; 0 = every visible card (here one)
+    pools = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        for n in ("1", "0"):
+            argv = ["--ckpt", os.path.join(root, "release", "flagship_r4"),
+                    "--phore", phore_path, "--fused_stack", "pallas",
+                    "--result_path", os.path.join(out_dir, n),
+                    "--num_samples", "4", "--batch_size", "4",
+                    "--max_batches", "1", "--sample_steps", "10",
+                    "--save_pool", "--sample_devices", n, "--seed", "7"]
+            res = cli.main(argv)
+            name = res["results"][0]["name"]
+            with np.load(os.path.join(out_dir, n, name,
+                                      f"{name}_samples_all.npz")) as f:
+                pools[n] = {k: f[k] for k in f.files}
+            print(f"{tag} cli --sample_devices {n}: devices "
+                  f"{[str(d) for d in res['pipeline'].devices]}, sampled "
+                  f"{res['results'][0]['n_sampled']}", flush=True)
+            if len(res["pipeline"].devices) != 1:
+                fail(f"{tag} --sample_devices {n} on one card must run "
+                     "unsharded")
+    if sorted(pools["1"]) != sorted(pools["0"]) or not all(
+            np.array_equal(pools["1"][k], pools["0"][k]) for k in pools["1"]):
+        fail(f"{tag} --sample_devices 1 and 0 wrote different pools")
+    return launches
+
+
+def phase_xla2_bf16(root):
+    """[xla2 bf16]: flagship_r4's network through `fused_stack: xla2` with
+    `fused_block_dtype: bfloat16` (`ops/layer_stack.layer_stack_xla2_bf16`:
+    bf16 carries, weights and feature products; no kernel) against the
+    float32 plain stages (`xla`) on the card, one forward of a batch of 16
+    at NL=48 on seeded noisy states: each output's relative L2 difference
+    on the valid slots within XLA2_BF16_TOL."""
+    import torch
+    from phoregen_tpu_torch.models.phoregen import load_release_model
+
+    prefix = os.path.join(root, "release", "flagship_r4")
+    nets = {k: load_release_model(prefix, device="cuda", fused_stack=f,
+                                  fused_block_dtype=bdt)[0]
+            for k, f, bdt in (("xla2_bf16", "xla2", "bfloat16"),
+                              ("xla", "xla", "float32"))}
+    b = _phore_batch(nets["xla"], root, BATCH, OPTION_NL, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    B, NL = b.lig_mask.shape
+    node = torch.nn.functional.one_hot(torch.randint(
+        0, 12, (B, NL), generator=g, device="cuda"), 12).float()
+    edge = torch.nn.functional.one_hot(torch.randint(
+        0, 6, (B, NL, NL), generator=g, device="cuda"), 6).float()
+    pos = 1.5 * torch.randn(B, NL, 3, generator=g, device="cuda")
+    t = torch.randint(0, 1000, (B,), generator=g, device="cuda")
+    outs, ms = {}, {}
+    for k, pg in nets.items():
+        with torch.no_grad():
+            for rep in range(2):            # the second call is timed
+                torch.cuda.synchronize()
+                t0 = time.time()
+                o = pg.net(node, pos, b.lig_mask, edge, t, b.phore_x,
+                           b.phore_pos, b.phore_norm, b.phore_mask)
+                torch.cuda.synchronize()
+                ms[k] = (time.time() - t0) * 1e3
+        outs[k] = [a.float() for a in o[:3]]
+    lm = b.lig_mask
+    sel = [lm, lm, lm[:, :, None] & lm[:, None, :]]
+    rel, mx = [], []
+    for a, r, m, name in zip(outs["xla2_bf16"], outs["xla"], sel,
+                             ("pred_node", "pred_pos", "pred_edge")):
+        if not torch.isfinite(a).all():
+            fail(f"[xla2 bf16] non-finite {name}")
+        d = a[m] - r[m]
+        mx.append(float(d.abs().max()))
+        rel.append(float(d.norm() / r[m].norm()))
+    print(f"[xla2 bf16] flagship forward, B={B}, NL={NL}: xla2 with bf16 "
+          f"blocks vs the float32 plain stages on the card: rel. L2 diff "
+          f"node {rel[0]:.3e}, pos {rel[1]:.3e}, edge {rel[2]:.3e} (tol "
+          f"{XLA2_BF16_TOL:g}); max abs node {mx[0]:.3e}, pos {mx[1]:.3e}, "
+          f"edge {mx[2]:.3e}; forward ms {ms['xla2_bf16']:.3f} vs "
+          f"{ms['xla']:.3f}", flush=True)
+    if max(rel) > XLA2_BF16_TOL:
+        fail(f"[xla2 bf16] off the float32 plain stages: rel. L2 {rel}")
+
+
 def main():
     import torch
+    only = None     # `--only ddp,shard,xla2_bf16`: those phases alone
+    if sys.argv[1:]:
+        if len(sys.argv) != 3 or sys.argv[1] != "--only":
+            fail("usage: chip_smoke.py [--only ddp,shard,xla2_bf16]")
+        only = sys.argv[2].split(",")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs the card")
     root = os.path.dirname(os.path.abspath(__file__))
@@ -1205,6 +1580,18 @@ def main():
         fail(f"kernel build failed: {e}")
     print(f"[build] {sorted(paths.values())} in "
           f"{time.time() - t_start:.1f} s", flush=True)
+    if only is not None:
+        solo = {"ddp": lambda: phase_ddp(root, ls, pt),
+                "shard": lambda: phase_shard(root, ls, pt),
+                "xla2_bf16": lambda: phase_xla2_bf16(root)}
+        for name in only:
+            if name not in solo:
+                fail(f"no phase {name!r} (one of {sorted(solo)})")
+            t0 = time.time()
+            solo[name]()
+            print(f"[chip_smoke] {name} passed in {time.time() - t0:.1f} s",
+                  flush=True)
+        return
 
     stack, pool = phase_kernels(kc)
     torch.cuda.empty_cache()
@@ -1233,6 +1620,12 @@ def main():
     torch.cuda.empty_cache()
     launches_chunked = phase_chunked(root, ls, pt)
     torch.cuda.empty_cache()
+    launches_ddp = phase_ddp(root, ls, pt)
+    torch.cuda.empty_cache()
+    launches_shard = phase_shard(root, ls, pt)
+    torch.cuda.empty_cache()
+    phase_xla2_bf16(root)
+    torch.cuda.empty_cache()
     for label in REFERENCE_PATHS:
         phase_reference(root, label)
 
@@ -1251,17 +1644,19 @@ def main():
     # more than one does)
     by_path = {
         "stage_node": {"fused": launches, "pallas_bf16": launches_pb,
-                       "no-bond": launches_nb},
-        "stage_triplet_pre": {"fused": launches, "no-bond": launches_nb},
-        "stage_triplet_att": {"fused": launches, "no-bond": launches_nb},
+                       "no-bond": launches_nb, "shard": launches_shard},
+        "stage_triplet_pre": {"fused": launches, "no-bond": launches_nb,
+                              "shard": launches_shard},
+        "stage_triplet_att": {"fused": launches, "no-bond": launches_nb,
+                              "shard": launches_shard},
         "stage_pos": {"fused": launches, "pallas_bf16": launches_pb,
-                      "no-bond": launches_nb},
+                      "no-bond": launches_nb, "shard": launches_shard},
         "stage_node_pre": {"train": launches_train, "pallas2": launches_p2,
                            "continuous": launches_cont,
-                           "chunked": launches_chunked},
+                           "chunked": launches_chunked, "ddp": launches_ddp},
         "stage_att_pos": {"train": launches_train, "pallas2": launches_p2,
                           "continuous": launches_cont,
-                          "chunked": launches_chunked},
+                          "chunked": launches_chunked, "ddp": launches_ddp},
         "stage_triplet_pre_bf16": {"pallas_bf16": launches_pb},
         "stage_triplet_att_bf16": {"pallas_bf16": launches_pb},
         "stage_node_pre_bf16": {"pallas2_bf16": launches_p2b,

@@ -1,13 +1,17 @@
 """Sampling CLI: `python -m phoregen_tpu_torch.cli.sample --ckpt ... --phore ...`.
 
 Counterpart of `phoregen_tpu/cli/sample.py` for the PyTorch port, with its
-flags on one device: flax msgpack release checkpoints read without flax,
+flags: flax msgpack release checkpoints read without flax,
 and reference PhoreGen `.pt` checkpoints (`--ckpt x.pt --config <yml>`,
 `denoiser.triplet_mode: dense`) read through a restricted unpickler.
 `--device` stands for the JAX CLI's `--platform`; its `--unroll` (XLA's
 scan unrolling) has no counterpart, since the reverse loop here is a Python
-loop; `--sample_devices > 1` is not ported yet (ROADMAP.md). The denoiser's path follows the checkpoint's own
-configuration (the release checkpoints: the per-layer module path,
+loop. `--sample_devices N` shards each pool over N devices (0 = every
+visible CUDA device, 1 = unsharded; `sample/pipeline.py`): on `cuda`,
+`cuda:0` to `cuda:N-1`, and more than are visible is a SystemExit; with
+`--device cpu`, N shards on the CPU; with `--chunk_steps` > 0 a warning
+and one device, as in the JAX CLI. The denoiser's path follows the
+checkpoint's own configuration (the release checkpoints: the per-layer module path,
 `fused_stack: none`) unless overridden: `--fused_stack pallas` selects the
 fused layer stack (four CUDA kernels per layer; `pallas3` three, `pallas2`
 two, with merged stages), `--triplet_knn 0` the
@@ -108,9 +112,12 @@ def parse_args(argv=None):
     p.add_argument("--recon_workers", type=int, default=0,
                    help="reconstruct and check sampled molecules in this "
                         "many spawned worker processes (0 = in-process)")
-    p.add_argument("--sample_devices", type=int, default=1,
-                   help="devices to shard sampling pools over (the port "
-                        "samples on one device; > 1 is not ported yet)")
+    p.add_argument("--sample_devices", type=int, default=0,
+                   help="shard each sampling pool's graphs over this many "
+                        "devices (0 = all visible CUDA devices; 1 = no "
+                        "sharding; with --device cpu, shards on the CPU). "
+                        "Graphs are independent, so the shards need no "
+                        "collective.")
     return p.parse_args(argv)
 
 
@@ -228,10 +235,17 @@ def main(argv=None):
     GenerationPipeline (its timing and bucket fields), "results": one
     `generate` result per phore}."""
     args = parse_args(argv)
-    if args.sample_devices > 1:
-        raise SystemExit("[E] --sample_devices > 1: multi-GPU sampling "
-                         "pools are not ported yet (ROADMAP.md, Queue 1); "
-                         "the port samples on one device")
+    from ..parallel import group
+    kind = "cuda" if args.device.startswith("cuda") else "cpu"
+    n_dev = group.device_count(args.sample_devices, kind, "--sample_devices")
+    devices = None
+    if n_dev > 1 and args.chunk_steps > 0:
+        print("[W] --sample_devices is ignored with --chunk_steps > 0 "
+              "(chunked execution is single-device); running unsharded")
+    elif n_dev > 1:
+        devices = ([f"cuda:{i}" for i in range(n_dev)] if kind == "cuda"
+                   else ["cpu"] * n_dev)
+        print(f"[I] Pool-parallel sampling over {n_dev} devices")
     from .. import native
     from ..data.phore import parse_phore_file
     from ..sample.pipeline import GenerationPipeline
@@ -258,6 +272,7 @@ def main(argv=None):
             keep_traj=args.save_traj or args.save_traj_prob > 0,
             seed=args.seed, sample_steps=args.sample_steps,
             device=args.device, chunk_steps=args.chunk_steps,
+            devices=devices,
             recon_workers=args.recon_workers) as pipeline:
         for path in resolve_phore_paths(args.phore):
             res = pipeline.generate(

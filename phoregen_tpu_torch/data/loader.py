@@ -8,8 +8,9 @@ same seed:
 - batches are assembled within a bucket group and the batch order is
   shuffled per epoch with a seeded generator.
 Batches are host numpy arrays; `PhoreGraphBatch.to(device)` moves one to
-the device. The multi-process slicing of the JAX package is not ported yet
-(ROADMAP.md, multi-GPU).
+the device. In a process group (`parallel/group.py`) every rank computes
+the same seeded global order and assembles only its slice of each batch,
+as the JAX package's processes do.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from typing import Iterator, List, Optional, Sequence
 import numpy as np
 
 from ..config import Config
+from ..parallel import group
 from .batching import PhoreGraphBatch, collate, pad_sample, pick_bucket
 from .transforms import add_phore_noise
 
@@ -117,18 +119,24 @@ class PhoreDataLoader:
             rng.shuffle(batches)
         return batches
 
-    def _assemble(self, idxs: np.ndarray,
-                  rng: np.random.Generator) -> PhoreGraphBatch:
+    def _assemble(self, idxs: np.ndarray, rng: np.random.Generator,
+                  rows: slice = slice(None)) -> PhoreGraphBatch:
+        """Pad and collate the members `rows` of the batch `idxs`. The
+        augmentation noise is drawn for every member in order, so a
+        rank's rows are those of the whole batch."""
         tcfg = self.config.train
         members = [self.samples[i] for i in idxs]
         n_lig = pick_bucket(max(m.n_atoms for m in members), self.buckets)
+        keep = range(len(members))[rows]
         padded = []
-        for m in members:
+        for j, m in enumerate(members):
             ppos, pnorm = m.phore_pos, m.phore_norm
             if self.augment and tcfg.add_phore_noise:
                 ppos, pnorm = add_phore_noise(
                     rng, ppos, pnorm, tcfg.phore_noise_std,
                     tcfg.phore_norm_angle)
+            if j not in keep:
+                continue
             padded.append(pad_sample(
                 m.lig_type, m.lig_pos, m.bond_index, m.bond_attr,
                 m.phore_x, ppos, pnorm, m.center, n_lig, self.max_phore))
@@ -140,7 +148,10 @@ class PhoreDataLoader:
 
     def iter_with_sizes(self) -> Iterator[tuple]:
         """Yields (batch, real_size); real_size < batch_size only for a
-        cycled tail batch (duplicates must not skew per-epoch means)."""
+        cycled tail batch (duplicates must not skew per-epoch means). In a
+        process group the batch is this rank's slice of the global batch
+        (`group.local_batch_slice`); real_size stays the global one."""
         rng = np.random.default_rng(self.seed + self.epoch)
         for idxs, real in self._batch_indices(rng):
-            yield self._assemble(idxs, rng), real
+            yield self._assemble(idxs, rng,
+                                 group.local_batch_slice(len(idxs))), real

@@ -16,6 +16,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops import draws
+
 
 class GaussianTransition:
     def __init__(self, betas: np.ndarray, num_classes: Optional[int] = None,
@@ -58,8 +60,7 @@ class GaussianTransition:
         a_bar = torch.as_tensor(self.alphas_bar, device=x.device)[t.long()]
         a_bar = a_bar.reshape(a_bar.shape + (1,) * (x.dim() - 1))
         if noise is None:
-            noise = torch.randn(x.shape, generator=generator, device=x.device,
-                                dtype=x.dtype)
+            noise = draws.randn(x.shape, generator, x.device, x.dtype)
         pert = torch.sqrt(a_bar) * x + torch.sqrt(1.0 - a_bar) * noise
         return pert if self.num_classes is None else (pert, x)
 
@@ -77,8 +78,7 @@ class GaussianTransition:
         mu = coef(self.coef_x0) * x_recon + coef(self.coef_xt) * x_t \
             - energy_grad
         if noise is None:
-            noise = torch.randn(mu.shape, generator=generator,
-                                device=mu.device, dtype=mu.dtype)
+            noise = draws.randn(mu.shape, generator, mu.device, mu.dtype)
         time_zero = (t == 0).reshape(t.shape + (1,) * (x_t.dim() - 1))
         return torch.where(time_zero, mu, mu + coef(self.std) * noise)
 
@@ -86,8 +86,7 @@ class GaussianTransition:
                     device) -> torch.Tensor:
         if self.num_classes is not None:
             shape = tuple(shape) + (self.num_classes,)
-        return torch.randn(tuple(shape), generator=generator, device=device,
-                           dtype=torch.float32)
+        return draws.randn(shape, generator, device)
 
     @staticmethod
     def get_prev_with(x_t: torch.Tensor, x_recon: torch.Tensor,
@@ -101,8 +100,7 @@ class GaussianTransition:
         if is_final:
             return mu
         if noise is None:
-            noise = torch.randn(mu.shape, generator=generator,
-                                device=mu.device, dtype=mu.dtype)
+            noise = draws.randn(mu.shape, generator, mu.device, mu.dtype)
         return mu + std * noise
 
 

@@ -105,6 +105,14 @@ def _unstack(tree, L: int):
     return out
 
 
+def _cast_tree(tree, dtype: torch.dtype):
+    """A parameter tree with every floating leaf in `dtype` (a
+    differentiable copy; leaves already in it are kept)."""
+    return {k: _cast_tree(v, dtype) if isinstance(v, dict)
+            else v.to(dtype) if v.is_floating_point() else v
+            for k, v in tree.items()}
+
+
 class UniDenoiser(nn.Module):
     """num_blocks x (graph rebuild -> num_layers attention layers)."""
 
@@ -221,6 +229,14 @@ class UniDenoiser(nn.Module):
         if fused and packed is None:
             packed = self.pack_fused()
         layers = None if fused else self.layer_trees()
+        if not fused and h_bond.dtype != h.dtype and dcfg.scan_layers:
+            # the JAX package's nn.scan refuses this too: the first layer
+            # promotes h to the float32 of the bond carry
+            raise ValueError(
+                f"the per-layer module path with scan_layers cannot carry "
+                f"h in {h.dtype} beside a bond grid in {h_bond.dtype} (bf16 "
+                "compute without bond_diffusion): the first layer promotes "
+                "h; use a fused stack or scan_layers false")
         offsets, coeff = gaussian_smearing_offsets(fix_offset=True)
         is_lig = (torch.arange(N, device=h.device) >= NP).long()
         node_mask = node_mask.to(torch.bool)
@@ -298,6 +314,15 @@ class UniDenoiser(nn.Module):
         updates + bond update + two position updates.
         Returns (new_h, new_h_bond, x)."""
         B, N, H = h.shape
+        # Dtypes promote as in the JAX package, where flax's Dense widens
+        # bf16 parameters against float32 features: `ph` for what sees h
+        # alone, `pw` for what meets the bond grid, which is float32 under
+        # bf16 compute without bond diffusion (h is float32 from then on).
+        pdt = p["lin_node"]["kernel"].dtype
+        hdt = torch.promote_types(h.dtype, pdt)
+        wide = torch.promote_types(hdt, h_bond.dtype)
+        ph = p if hdt == pdt else _cast_tree(p, hdt)
+        pw = p if wide == pdt else _cast_tree(p, wide)
         offsets, coeff = gaussian_smearing_offsets(fix_offset=True)
         # knn edge features: outer(edge_type[4], rbf(d)[20]) -> 80, + type 4
         rel_x = x[:, :, None, :] - gather_nodes(x, nbr_idx)   # x[dst] - x[src]
@@ -305,7 +330,7 @@ class UniDenoiser(nn.Module):
         # [B,N,K,20], the feature dtype (geometry stays float32)
         dist_feat = gaussian_smearing(dist, offsets, coeff).to(h.dtype)
         outer = (edge_type[..., :, None] * dist_feat[..., None, :]).flatten(-2)
-        edge_feat = torch.cat([outer, edge_type], -1)
+        edge_feat = torch.cat([outer, edge_type.to(outer.dtype)], -1)
         if self.cfg.direction_match:
             # phore norms vs ligand neighbour-centroid norms
             neib = neighbor_centroid_norm(x[:, NP:], mask_l, k=3,
@@ -316,13 +341,15 @@ class UniDenoiser(nn.Module):
             vec3 = -rel_x                                     # x[src] - x[dst]
             dire = torch.stack([(vec1 * vec2).sum(-1), (vec1 * vec3).sum(-1),
                                 (vec2 * vec3).sum(-1)], -1).to(h.dtype)
-            dire = dire @ p["dire_embedding"]["kernel"] \
-                + p["dire_embedding"]["bias"]
-            edge_feat = torch.cat([edge_feat, dire], -1)
+            dire = dire.to(hdt) @ ph["dire_embedding"]["kernel"] \
+                + ph["dire_embedding"]["bias"]
+            edge_feat = torch.cat([edge_feat.to(hdt), dire], -1)
 
-        new_h_with_edge = self.node_knn(p["node_layer_with_edge"], h,
-                                        edge_feat, nbr_idx, nbr_mask, e_w)
-        h_lig = h[:, NP:]
+        new_h_with_edge = self.node_knn(ph["node_layer_with_edge"], h.to(hdt),
+                                        edge_feat.to(hdt), nbr_idx, nbr_mask,
+                                        e_w)
+        hw = h.to(wide)
+        h_lig = hw[:, NP:]
         if self.cfg.x2h_out_fc:
             # with out_fc the output MLP runs over all composed nodes, so
             # the module runs on the composed graph with the bond grid
@@ -331,25 +358,25 @@ class UniDenoiser(nn.Module):
             hb_full[:, NP:, NP:] = h_bond
             pm_full = pair_mask.new_zeros(B, N, N)
             pm_full[:, NP:, NP:] = pair_mask
-            new_h_with_bond = self.node_bond(p["node_layer_with_bond"], h,
-                                             hb_full, pm_full)
+            new_h_with_bond = self.node_bond(pw["node_layer_with_bond"], hw,
+                                             hb_full.to(wide), pm_full)
         else:
-            nhb_l = self.node_bond(p["node_layer_with_bond"], h_lig, h_bond,
-                                   pair_mask)
-            new_h_with_bond = torch.cat([h.new_zeros(B, NP, H), nhb_l], 1)
+            nhb_l = self.node_bond(pw["node_layer_with_bond"], h_lig,
+                                   h_bond.to(wide), pair_mask)
+            new_h_with_bond = torch.cat([hw.new_zeros(B, NP, H), nhb_l], 1)
 
         new_h_bond = h_bond + self.bond_update(
-            p["bond_layer"], h_lig, h_bond, x[:, NP:], mask_l,
-            trip_frozen=trip_frozen)
-        new_h = h + ((new_h_with_edge + new_h_with_bond)
-                     @ p["lin_node"]["kernel"] + p["lin_node"]["bias"])
+            pw["bond_layer"], h_lig, h_bond.to(wide), x[:, NP:], mask_l,
+            trip_frozen=trip_frozen).to(h_bond.dtype)
+        new_h = hw + ((new_h_with_edge.to(wide) + new_h_with_bond)
+                      @ pw["lin_node"]["kernel"] + pw["lin_node"]["bias"])
 
-        dx_edge = self.pos_knn(p["pos_layer_with_edge"], new_h, rel_x,
-                               edge_feat, nbr_idx, nbr_mask, e_w)
+        dx_edge = self.pos_knn(pw["pos_layer_with_edge"], new_h, rel_x,
+                               edge_feat.to(wide), nbr_idx, nbr_mask, e_w)
         pos_l = x[:, NP:]
         rel_bond_x = pos_l[:, None, :, :] - pos_l[:, :, None, :]  # x[dst]-x[src]
-        dx_bond_l = self.pos_bond(p["pos_layer_with_bond"], new_h[:, NP:],
-                                  rel_bond_x, new_h_bond, pair_mask)
+        dx_bond_l = self.pos_bond(pw["pos_layer_with_bond"], new_h[:, NP:],
+                                  rel_bond_x, new_h_bond.to(wide), pair_mask)
         delta_x = dx_edge + torch.cat([x.new_zeros(B, NP, 3), dx_bond_l], 1)
         lig_atom_mask = torch.cat([mask_l.new_zeros(B, NP), mask_l], 1)
         x = x + delta_x * lig_atom_mask[..., None]

@@ -13,7 +13,9 @@ Mixed precision as in the JAX package: the compute dtype follows the
 feature inputs (`h_node_pert`); the caller hands bf16 features and bf16
 parameters (`apply_net`), positions and geometry stay float32, the time
 embedding and the position-derived features are cast at the feature
-boundary, and the atom-count head runs in float32.
+boundary, and the atom-count head runs in float32. Without
+`bond_diffusion` the pair-distance embedding stays float32 and promotes
+the bond features to float32, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -169,14 +171,16 @@ class PhoreDiffNet(nn.Module):
             e_emb = self.edge_embedder(h_edge_pert)
         else:
             d = pos_pert[:, None, :, :] - pos_pert[:, :, None, :]
-            # embedded in float32 like the positions, then cast to the
-            # compute dtype at the feature boundary (under bf16 the JAX
-            # package lets this one feature promote the bond path to
-            # float32 instead)
+            # the float32 distance meets the (bf16) kernel in `Dense`,
+            # which computes in float32 as flax does
             e_emb = self.distance_embedding(
-                torch.sqrt((d * d).sum(-1, keepdim=True) + 1e-12)).to(cdt)
-        h_edge = torch.cat([e_emb, t_emb[:, None, None, :].expand(
-            B, NL, NL, td)], -1)
+                torch.sqrt((d * d).sum(-1, keepdim=True) + 1e-12))
+        # the concatenation promotes as the JAX package's does: under bf16
+        # without bond diffusion the float32 distance embedding makes
+        # h_edge, and the bond path after it, float32
+        edt = torch.promote_types(e_emb.dtype, t_emb.dtype)
+        h_edge = torch.cat([e_emb.to(edt), t_emb[:, None, None, :].expand(
+            B, NL, NL, td).to(edt)], -1)
         h_all = torch.cat([h_phore_emb, h_node], 1)
         pos_all = torch.cat([phore_pos, pos_pert], 1)
         node_mask = torch.cat([phore_mask, lig_mask], 1)

@@ -21,55 +21,112 @@ import torch
 from ..constants import MAX_ATOMS, MIN_ATOMS, phore_ex_column
 from ..diffusion.categorical import CategoricalTransition
 from ..diffusion.gaussian import GaussianTransition
-from ..ops.masked import masked_mean
+from ..ops import draws
+from ..ops.masked import masked_sums
 from ..ops.schedules import get_beta_schedule
 from .diffusion_model import PhoreDiffNet, apply_net, cast_params
 from .layers import dtype_of
+
+
+def qd_sums(y_true, y_l, y_u, s=160.0, weights=None) -> Dict:
+    """The batch sums of the quality-driven interval loss: the graph
+    count `n`, the captured widths `mpiw` and their count `k_h` (hard
+    counts: sign and relu, as in the JAX package) and the soft capture
+    `picp`. y_*: [B, 1]; `weights` ([B, 1] in {0, 1}) excludes graphs."""
+    if weights is None:
+        weights = torch.ones_like(y_true)
+    k_u_h = torch.relu(torch.sign(y_u - y_true))
+    k_l_h = torch.relu(torch.sign(y_true - y_l))
+    k_s = torch.sigmoid((y_u - y_true) * s) * torch.sigmoid(
+        (y_true - y_l) * s)
+    k_h = k_u_h * k_l_h
+    return {"n": weights.sum(), "mpiw": ((y_u - y_l) * k_h * weights).sum(),
+            "k_h": (k_h * weights).sum(), "picp": (k_s * weights).sum()}
+
+
+def qd_from_sums(sums: Dict, a=0.05, nd=15.0, factor=1.0, epsilon=1e-12):
+    """Soft PICP / MPIW loss from `qd_sums` (of one batch, or summed over
+    the ranks of a data-parallel step)."""
+    n = sums["n"]
+    mpiw_c = sums["mpiw"] / (sums["k_h"] + epsilon) * factor
+    picp = sums["picp"] / torch.clamp(n, min=1.0)
+    return mpiw_c + torch.relu((1 - a) - picp) ** 2 * (n ** 0.5) * nd
 
 
 def qd_loss(y_true, y_l, y_u, a=0.05, s=160.0, nd=15.0, factor=1.0,
             epsilon=1e-12, weights=None):
     """Quality-driven interval loss (soft PICP / MPIW). y_*: [B, 1].
     `weights` ([B, 1] in {0, 1}) excludes graphs from the means; None keeps
-    the unweighted form. The hard counts use sign and relu, as in the JAX
-    package."""
-    if weights is None:
-        weights = torch.ones_like(y_true)
-    n = weights.sum()
-    k_u_h = torch.relu(torch.sign(y_u - y_true))
-    k_l_h = torch.relu(torch.sign(y_true - y_l))
-    k_u_s = torch.sigmoid((y_u - y_true) * s)
-    k_l_s = torch.sigmoid((y_true - y_l) * s)
-    k_s = k_u_s * k_l_s
-    k_h = k_u_h * k_l_h
-    mpiw_c = (((y_u - y_l) * k_h * weights).sum()
-              / ((k_h * weights).sum() + epsilon) * factor)
-    picp = (k_s * weights).sum() / torch.clamp(n, min=1.0)
-    return mpiw_c + torch.relu((1 - a) - picp) ** 2 * (n ** 0.5) * nd
+    the unweighted form."""
+    return qd_from_sums(qd_sums(y_true, y_l, y_u, s, weights), a, nd,
+                        factor, epsilon)
 
 
-def _graph_mean(per_graph, graph_weights):
+def _graph_sums(per_graph, graph_weights):
+    """(numerator, denominator) of a mean over graphs; `graph_weights`
+    [B] excludes graphs (the denominator is then floored at 1)."""
     if graph_weights is None:
-        return per_graph.mean()
+        return per_graph.sum(), per_graph.new_tensor(
+            float(per_graph.shape[0]))
     w = graph_weights.to(torch.float32)
-    return (per_graph * w).sum() / torch.clamp(w.sum(), min=1.0)
+    return (per_graph * w).sum(), w.sum()
+
+
+def _graph_mean(num, den, weighted: bool):
+    return num / torch.clamp(den, min=1.0) if weighted else num / den
+
+
+def _exact_match(true, pred_logits, mask):
+    wrong = (pred_logits.argmax(-1) != true) & mask
+    return (~wrong.flatten(1).any(1)).to(torch.float32)
+
+
+def _element_match(true, pred_logits, mask):
+    ok = ((pred_logits.argmax(-1) == true) & mask).to(torch.float32)
+    return ok.flatten(1).sum(1) / torch.clamp(
+        mask.to(torch.float32).flatten(1).sum(1), min=1.0)
 
 
 def exact_match_accuracy(true, pred_logits, mask, graph_weights=None):
     """Fraction of graphs whose every valid entry is argmax-correct. mask:
     [B, ...] validity grid; `graph_weights` [B] excludes graphs."""
-    wrong = (pred_logits.argmax(-1) != true) & mask
-    graph_ok = (~wrong.flatten(1).any(1)).to(torch.float32)
-    return _graph_mean(graph_ok, graph_weights)
+    return _graph_mean(*_graph_sums(_exact_match(true, pred_logits, mask),
+                                    graph_weights), graph_weights is not None)
 
 
 def element_accuracy(true, pred_logits, mask, graph_weights=None):
     """Per-element argmax accuracy over valid entries (per-graph mean with
     the denominator floored at 1, then batch mean)."""
-    ok = ((pred_logits.argmax(-1) == true) & mask).to(torch.float32)
-    per_graph = ok.flatten(1).sum(1) / torch.clamp(
-        mask.to(torch.float32).flatten(1).sum(1), min=1.0)
-    return _graph_mean(per_graph, graph_weights)
+    return _graph_mean(*_graph_sums(_element_match(true, pred_logits, mask),
+                                    graph_weights), graph_weights is not None)
+
+
+class BatchSums:
+    """The sums over the batch that the loss and its metrics divide,
+    collected on this process's rows and then, in a data-parallel step,
+    summed over the ranks in one call (`sum_over_ranks`, whose backward
+    hands each rank the gradient of its own rows): so every rank forms
+    the loss of the global batch, the JAX package's means over all valid
+    atoms, bonds and graphs, and not a mean of per-rank means."""
+
+    def __init__(self):
+        self._sums: Dict[str, torch.Tensor] = {}
+
+    def add(self, name: str, num, den) -> None:
+        self._sums[name + "/num"] = num
+        self._sums[name + "/den"] = den
+
+    def add_all(self, name: str, sums: Dict) -> None:
+        for k, v in sums.items():
+            self._sums[f"{name}/{k}"] = v
+
+    def reduce(self, sum_over_ranks=None) -> Dict[str, torch.Tensor]:
+        if sum_over_ranks is None:
+            return dict(self._sums)
+        names = list(self._sums)
+        total = sum_over_ranks(torch.stack(
+            [self._sums[k].float().reshape(()) for k in names]))
+        return dict(zip(names, total.unbind(0)))
 
 
 def init_params(net: torch.nn.Module, seed: int) -> None:
@@ -134,14 +191,16 @@ class PhoreGen:
         self.loss_weight = tuple(mcfg.loss_weight)
 
     # ----- time sampling -----
-    def sample_time(self, num_graphs: int,
-                    generator: Optional[torch.Generator], device
+    def sample_time(self, num_graphs: int, generator, device
                     ) -> torch.Tensor:
-        """Antithetic: half uniform, half T-1-t."""
-        half = num_graphs // 2 + 1
+        """Antithetic: half uniform, half T-1-t (over the whole batch when
+        `generator` is a `BatchRows`, then its rows)."""
+        gen, total, rows = draws.batch_extent(generator, num_graphs)
+        half = total // 2 + 1
         t = torch.randint(0, self.num_timesteps, (half,),
-                          generator=generator, device=device)
-        return torch.cat([t, self.num_timesteps - t - 1])[:num_graphs]
+                          generator=gen, device=device)
+        t = torch.cat([t, self.num_timesteps - t - 1])[:total]
+        return t if rows is None else t[rows]
 
     # ----- training loss -----
     def perturb(self, batch, generator: Optional[torch.Generator] = None,
@@ -162,8 +221,7 @@ class PhoreGen:
         lig_pos = batch.lig_pos
         if lig_noise_std > 0:
             if jitter is None:
-                jitter = torch.randn(lig_pos.shape, generator=generator,
-                                     device=dev)
+                jitter = draws.randn(lig_pos.shape, generator, dev)
             lig_pos = lig_pos + lig_noise_std * jitter
         if t is None:
             t = self.sample_time(batch.num_graphs, generator, dev)
@@ -187,15 +245,17 @@ class PhoreGen:
             batch.bond_type, t, generator, edge_uniform)
         return out
 
-    def _categorical_loss(self, trans, pred_logits, log_v0, log_vt, t, mask):
+    def _categorical_sums(self, trans, pred_logits, log_v0, log_vt, t,
+                          mask):
         log_recon = torch.log_softmax(pred_logits, dim=-1)
         post_true = trans.q_v_posterior(log_v0, log_vt, t, v0_prob=True)
         post_pred = trans.q_v_posterior(log_recon, log_vt, t, v0_prob=True)
-        return masked_mean(trans.compute_v_Lt(post_true, post_pred, log_v0,
+        return masked_sums(trans.compute_v_Lt(post_true, post_pred, log_v0,
                                               t), mask)
 
     def loss_from_perturbation(self, batch, pert, graph_mask=None,
-                               compute_dtype: str = "float32"
+                               compute_dtype: str = "float32",
+                               sum_over_ranks=None
                                ) -> Tuple[torch.Tensor, Dict]:
         """Network on the perturbed state, then the joint loss and the
         metrics. `graph_mask` ([B] bool) excludes graphs from every
@@ -206,7 +266,12 @@ class PhoreGen:
         parameters are cast by a differentiable copy (`cast_params`), so
         their gradients come back float32; the features go in as bf16,
         positions stay float32, and the predictions are widened to float32
-        before the losses."""
+        before the losses.
+
+        `sum_over_ranks` (`parallel/group.py`), in a data-parallel step
+        where `batch` is this rank's rows of the global batch, sums every
+        numerator and denominator over the ranks (`BatchSums`): the loss
+        and the metrics are then those of the global batch on every rank."""
         mcfg = self.config.model
         t, lig_pos = pert["t"], pert["lig_pos"]
         cdt = dtype_of(compute_dtype)
@@ -224,72 +289,95 @@ class PhoreGen:
             lmask = lmask & gm[:, None]
             emask = emask & gm[:, None, None]
             gw = gm.to(torch.float32)
-        out = {}
+        sums = BatchSums()
         # position MSE over valid atoms (summed over xyz, per valid atom)
-        loss_pos = masked_mean((pred_pos - lig_pos) ** 2,
-                               lmask[..., None]) * self.loss_weight[0]
-        loss_edge = 0.0
+        sums.add("pos", *masked_sums((pred_pos - lig_pos) ** 2,
+                                     lmask[..., None]))
         if self.categorical_space == "discrete":
-            loss_node = self._categorical_loss(
+            sums.add("node", *self._categorical_sums(
                 self.node_transition, pred_node, pert["log_node_0"],
-                pert["log_node_t"], t, lmask) * self.loss_weight[1]
+                pert["log_node_t"], t, lmask))
             if mcfg.bond_diffusion:
-                loss_edge = self._categorical_loss(
+                sums.add("edge", *self._categorical_sums(
                     self.edge_transition, pred_edge, pert["log_edge_0"],
-                    pert["log_edge_t"], t, emask) * self.loss_weight[2]
+                    pert["log_edge_t"], t, emask))
         else:
             # the relaxed one-hots: MSE against the scaled one-hots x 30
-            loss_node = masked_mean((pred_node - pert["h_node_0"]) ** 2,
-                                    lmask[..., None]) * 30.0
+            sums.add("node", *masked_sums((pred_node - pert["h_node_0"]) ** 2,
+                                          lmask[..., None]))
             if mcfg.bond_diffusion:
-                loss_edge = masked_mean((pred_edge - pert["h_edge_0"]) ** 2,
-                                        emask[..., None]) * 30.0
-        loss_len = 0.0
+                sums.add("edge", *masked_sums(
+                    (pred_edge - pert["h_edge_0"]) ** 2, emask[..., None]))
         if mcfg.bond_len_loss:  # over true bonds
             bmask = emask & (batch.bond_type > 0)
             pair_dist = lambda p: torch.sqrt(
                 ((p[:, None] - p[:, :, None]) ** 2).sum(-1) + 1e-12)
-            loss_len = masked_mean(
-                (pair_dist(pred_pos) - pair_dist(lig_pos)) ** 2, bmask)
-            out["loss_len"] = loss_len
+            sums.add("len", *masked_sums(
+                (pair_dist(pred_pos) - pair_dist(lig_pos)) ** 2, bmask))
         # atom-count interval loss, count normalized to [0, 1]
         true_count = batch.lig_mask.sum(1).to(torch.float32)
         norm_count = ((true_count - MIN_ATOMS) / (MAX_ATOMS - MIN_ATOMS)
                       )[:, None]
-        loss_count = qd_loss(norm_count, *pred_count, s=160.0, nd=15.0,
-                             factor=mcfg.count_factor,
-                             weights=None if gw is None else gw[:, None])
+        sums.add_all("count", qd_sums(
+            norm_count, *pred_count, s=160.0,
+            weights=None if gw is None else gw[:, None]))
         hit = ((norm_count >= pred_count[0]) & (norm_count <= pred_count[1])
                ).to(torch.float32)[:, 0]
+        sums.add("count_hit", *_graph_sums(hit, gw))
+        sums.add("node_acc", *_graph_sums(
+            _exact_match(batch.lig_type, pred_node, lmask), gw))
+        sums.add("node_elem_acc", *_graph_sums(
+            _element_match(batch.lig_type, pred_node, lmask), gw))
+        if mcfg.bond_diffusion:
+            sums.add("edge_acc", *_graph_sums(
+                _exact_match(batch.bond_type, pred_edge, emask), gw))
+            sums.add("edge_elem_acc", *_graph_sums(
+                _element_match(batch.bond_type, pred_edge, emask), gw))
+        g = sums.reduce(sum_over_ranks)
+        mean = lambda k: g[k + "/num"] / torch.clamp(g[k + "/den"],
+                                                     min=1e-12)
+        graph_mean = lambda k: _graph_mean(g[k + "/num"], g[k + "/den"],
+                                           gw is not None)
+        out = {}
+        loss_pos = mean("pos") * self.loss_weight[0]
+        if self.categorical_space == "discrete":
+            loss_node = mean("node") * self.loss_weight[1]
+            loss_edge = (mean("edge") * self.loss_weight[2]
+                         if mcfg.bond_diffusion else 0.0)
+        else:
+            loss_node = mean("node") * 30.0
+            loss_edge = mean("edge") * 30.0 if mcfg.bond_diffusion else 0.0
+        loss_len = 0.0
+        if mcfg.bond_len_loss:
+            loss_len = out["loss_len"] = mean("len")
+        loss_count = qd_from_sums(
+            {k: g["count/" + k] for k in ("n", "mpiw", "k_h", "picp")},
+            nd=15.0, factor=mcfg.count_factor)
         loss = loss_pos + loss_node + loss_edge + loss_count + loss_len
         out.update(
             loss=loss, loss_pos=loss_pos, loss_node=loss_node,
-            loss_count=loss_count, count_hit=_graph_mean(hit, gw),
-            node_acc=exact_match_accuracy(batch.lig_type, pred_node, lmask,
-                                          gw),
-            node_elem_acc=element_accuracy(batch.lig_type, pred_node, lmask,
-                                           gw))
+            loss_count=loss_count, count_hit=graph_mean("count_hit"),
+            node_acc=graph_mean("node_acc"),
+            node_elem_acc=graph_mean("node_elem_acc"))
         if mcfg.bond_diffusion:
-            out.update(
-                loss_edge=loss_edge,
-                edge_acc=exact_match_accuracy(batch.bond_type, pred_edge,
-                                              emask, gw),
-                edge_elem_acc=element_accuracy(batch.bond_type, pred_edge,
-                                               emask, gw))
+            out.update(loss_edge=loss_edge, edge_acc=graph_mean("edge_acc"),
+                       edge_elem_acc=graph_mean("edge_elem_acc"))
         return loss, out
 
-    def compute_loss(self, batch, generator: Optional[torch.Generator] = None,
+    def compute_loss(self, batch, generator=None,
                      lig_noise_std: float = 0.0,
                      compute_dtype: str = "float32", graph_mask=None,
-                     **draws) -> Tuple[torch.Tensor, Dict]:
+                     sum_over_ranks=None, **draws
+                     ) -> Tuple[torch.Tensor, Dict]:
         """Joint pos/node/edge/count loss of one batch on the network's
         current parameters; `draws` are `perturb`'s injected draws;
-        `compute_dtype` (`train.dtype`) the network's dtype (see
+        `compute_dtype` (`train.dtype`) the network's dtype and
+        `sum_over_ranks` the data-parallel reduction (see
         `loss_from_perturbation`)."""
         dtype_of(compute_dtype)
         pert = self.perturb(batch, generator, lig_noise_std, **draws)
         return self.loss_from_perturbation(batch, pert, graph_mask,
-                                           compute_dtype)
+                                           compute_dtype, sum_over_ranks)
 
 
 def load_release_model(prefix: str, device="cuda", config=None,

@@ -7,9 +7,11 @@ zeros with a finite backward (a tiny epsilon gives NaN gradients).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+
+from . import draws
 
 NEG_INF = -1e9
 LOG_EPS = 1e-30
@@ -27,14 +29,23 @@ def masked_softmax(scores: torch.Tensor, mask: torch.Tensor,
     return e / torch.clamp(e.sum(dim=dim, keepdim=True), min=1.0)
 
 
+def masked_sums(x: torch.Tensor, mask: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of `x` where mask, sum of the mask in its own shape): the
+    numerator and denominator of `masked_mean` over every axis."""
+    mask = mask.to(x.dtype)
+    return (x * mask).sum(), mask.sum()
+
+
 def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None,
                 keepdim: bool = False) -> torch.Tensor:
     """Mean of `x` over entries where mask is True (0 if none). As in the
     JAX package, the denominator sums the mask in its own (broadcastable)
     shape."""
-    mask = mask.to(x.dtype)
     if dim is None:
-        return (x * mask).sum() / torch.clamp(mask.sum(), min=1e-12)
+        num, den = masked_sums(x, mask)
+        return num / torch.clamp(den, min=1e-12)
+    mask = mask.to(x.dtype)
     num = (x * mask).sum(dim=dim, keepdim=keepdim)
     den = mask.sum(dim=dim, keepdim=keepdim)
     return num / torch.clamp(den, min=1e-12)
@@ -48,9 +59,9 @@ def index_to_log_onehot(x: torch.Tensor, num_classes: int) -> torch.Tensor:
 
 def gumbel_uniform(shape, generator: Optional[torch.Generator],
                    device) -> torch.Tensor:
-    """U[0, 1) draws for Gumbel-max sampling from an explicit generator."""
-    return torch.rand(shape, generator=generator, device=device,
-                      dtype=torch.float32)
+    """U[0, 1) draws for Gumbel-max sampling from an explicit generator
+    (or rows of a batch's draws: `ops/draws.py`)."""
+    return draws.rand(shape, generator, device)
 
 
 def log_sample_categorical(logits: torch.Tensor,

@@ -1,7 +1,7 @@
 """Per-pharmacophore generation pool with a retry budget and outputs.
 
-Counterpart of `phoregen_tpu/sample/pipeline.py::GenerationPipeline` on
-one device: for one pharmacophore, sample batches of at most `batch_size`
+Counterpart of `phoregen_tpu/sample/pipeline.py::GenerationPipeline`:
+for one pharmacophore, sample batches of at most `batch_size`
 graphs until `num_samples` molecules pass reconstruction (valence check
 and a connected molecule), or the failure budget (3 x num_samples) is
 spent; write per-molecule SDF, the SMILES list, a timing row and, with
@@ -12,9 +12,22 @@ and nothing else) is charged to the failure budget whole and retried at
 half the size. With `recon_workers` > 0 reconstruction runs in a pool of
 that many `spawn` processes (`reconstruct.recon_task`; the workers import
 no torch), shut down by `close()`.
+
+`devices` (a list of more than one device, where the JAX pipeline takes a
+`mesh`) shards each pool's graphs over them: the pool is rounded up to a
+multiple of the list's length (the extra rows are real pool members),
+the model is replicated to each device, and each shard's reverse loop
+runs on its own device with no collective (`sampler.sample_lockstep`).
+A shard draws its rows of the pool's draws (`ops/draws.BatchRows`) and
+takes the pool's size as the guidance means' divisor, so the sharded pool
+equals the unsharded pool on the same seed. The shards are gathered
+before decoding. `chunk_steps` > 0 runs unsharded, with a warning, as in
+the JAX CLI.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import os
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -23,12 +36,14 @@ import numpy as np
 import torch
 
 from ..constants import MAX_ATOMS, MIN_ATOMS
-from ..data.batching import collate, pad_sample, pick_bucket, replicate_phore
+from ..data.batching import (PhoreGraphBatch, collate, pad_sample,
+                             pick_bucket, replicate_phore)
 from ..data.phore import Phore, featurize_phore
 from .chem import MolReconsError, SimpleMol, mol_to_smiles
 from .decode import decode_batch
 from .reconstruct import reconstruct_from_generated_with_edges
-from .sampler import GuidanceOpt, Sampler
+from ..ops.draws import BatchRows
+from .sampler import GuidanceOpt, Sampler, sample_lockstep
 from .writers import append_sdf, append_timing, write_sdf, write_smiles
 
 
@@ -38,11 +53,18 @@ class GenerationPipeline:
                  add_edge: str = "predicted", batch_size: int = 30,
                  keep_traj: bool = False, seed: int = 2024,
                  sample_steps: int = 0, device="cuda", chunk_steps: int = 0,
-                 recon_workers: int = 0):
+                 recon_workers: int = 0, devices: Optional[Sequence] = None):
         self.pg = pg
         self.cfg = pg.config
         self.device = torch.device(device)
         self.chunk_steps = chunk_steps
+        devices = [torch.device(d) for d in devices or ()]
+        if len(devices) > 1 and chunk_steps > 0:
+            print(f"[W] sampling devices ({len(devices)}) are ignored with "
+                  "chunk_steps > 0 (chunked execution is single-device); "
+                  "running unsharded")
+            devices = []
+        self.devices = devices if len(devices) > 1 else [self.device]
         self._recon_pool = None
         if recon_workers > 0:
             import concurrent.futures as cf
@@ -52,6 +74,16 @@ class GenerationPipeline:
                 recon_workers, mp_context=mp.get_context("spawn"))
         self.sampler = Sampler(pg, guidance=guidance, keep_traj=keep_traj,
                                sample_steps=sample_steps)
+        # one sampler (and model replica) per distinct device of the shards
+        samplers = {next(pg.net.parameters()).device: self.sampler}
+        for dev in self.devices:
+            if dev not in samplers:
+                rep = copy.deepcopy(pg)
+                rep.net.to(dev)
+                samplers[dev] = Sampler(rep, guidance=guidance,
+                                        keep_traj=keep_traj,
+                                        sample_steps=sample_steps)
+        self._samplers = [samplers[d] for d in self.devices]
         self.keep_traj = keep_traj
         self.sample_nodes_mode = sample_nodes_mode
         self.normal_scale = normal_scale
@@ -60,6 +92,10 @@ class GenerationPipeline:
         self.seed = seed
         self.rng = np.random.default_rng(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # a shard draws the whole pool's numbers from a generator of its
+        # own, seeded alike, and keeps its rows
+        self._generators = [self.generator] if len(self.devices) == 1 else [
+            torch.Generator(device=d).manual_seed(seed) for d in self.devices]
         self.last_bucket = None
         self.sample_seconds = 0.0   # reverse loops incl. the host copy
 
@@ -105,23 +141,59 @@ class GenerationPipeline:
 
     def sample_pool(self, phore_sample: Dict, n_graphs: int, lower: int,
                     upper: int) -> Tuple[List[Dict], Dict]:
-        """One sampling batch -> (decoded per-molecule dicts, raw output)."""
+        """One sampling batch -> (decoded per-molecule dicts, raw output).
+        Sharded over `devices`, the pool is `n_graphs` rounded up to a
+        multiple of their number, all of it decoded."""
         ds = self.cfg.dataset
         t0 = time.time()
+        nd = len(self.devices)
+        n_graphs = -(-n_graphs // nd) * nd
         counts = Sampler.sample_counts(self.rng, lower, upper, n_graphs,
                                        mode=self.sample_nodes_mode,
                                        scale=self.normal_scale)
         n_lig = pick_bucket(int(counts.max()), ds.ligand_buckets)
         self.last_bucket = n_lig
-        batch = replicate_phore(phore_sample, n_graphs, counts, n_lig
-                                ).to(self.device)
-        out = self.sampler.sample(batch, self.generator,
-                                  chunk_steps=self.chunk_steps)
+        batch = replicate_phore(phore_sample, n_graphs, counts, n_lig)
+        if nd == 1:
+            out = self.sampler.sample(batch.to(self.device), self.generator,
+                                      chunk_steps=self.chunk_steps)
+        else:
+            out = self._sample_shards(batch, n_graphs)
         arrays = [None if out[k] is None else out[k].detach().cpu().numpy()
                   for k in ("pred_node", "pred_pos", "pred_edge", "lig_mask")]
         self.sample_seconds += time.time() - t0
         return decode_batch(
             *arrays, include_bond=self.cfg.model.bond_diffusion), out
+
+    def _sample_shards(self, batch, n_graphs: int) -> Dict:
+        """The pool's reverse processes, shard k (rows [k*per, (k+1)*per))
+        on device k, in lockstep; their outputs gathered on the first
+        device in row order."""
+        per = n_graphs // len(self.devices)
+        runs = []
+        for k, (dev, sampler, gen) in enumerate(zip(
+                self.devices, self._samplers, self._generators)):
+            rows = slice(k * per, (k + 1) * per)
+            shard = PhoreGraphBatch(**{
+                f.name: getattr(batch, f.name)[rows]
+                for f in dataclasses.fields(batch)}).to(dev)
+            runs.append((dev, sampler.steps(
+                shard, BatchRows(gen, rows.start, rows.stop, n_graphs),
+                pool_size=n_graphs)))
+        outs = sample_lockstep(runs)
+        home = self.devices[0]
+
+        def cat(parts, dim=0):
+            if parts[0] is None:
+                return None
+            if isinstance(parts[0], dict):
+                return {k: cat([p[k] for p in parts], dim) for k in parts[0]}
+            return torch.cat([p.to(home) for p in parts], dim)
+        out = {k: cat([o[k] for o in outs]) for k in outs[0]
+               if k != "traj"}
+        if "traj" in outs[0]:   # [S+1, B, ...]: graphs on axis 1
+            out["traj"] = cat([o["traj"] for o in outs], 1)
+        return out
 
     def reconstruct(self, mol_info: Dict):
         """(mol, smiles) or raises MolReconsError."""
@@ -209,7 +281,7 @@ class GenerationPipeline:
                       f"memory; retrying with batch {cur_batch} "
                       f"({n_failed}/{budget} failures)", flush=True)
                 continue
-            n_sampled += n
+            n_sampled += len(decoded)
             n_batches += 1
             if save_pool:
                 pool.append({k: raw[k].detach().cpu().numpy()
@@ -221,6 +293,8 @@ class GenerationPipeline:
                 results = list(self._recon_pool.map(
                     recon_task, decoded, [self.add_edge] * len(decoded)))
             for gi, info in enumerate(decoded):
+                if len(mols) >= num_samples:
+                    break  # surplus rows of a pool rounded up to the shards
                 if results is not None:
                     ok, payload = results[gi]
                     if not ok:

@@ -19,9 +19,16 @@ scan into device calls: the same per-step calls, the state left on the
 card, bit for bit the same outputs and generator stream. The JAX
 sampler's `unroll` (XLA's scan unrolling) has no counterpart: the loop
 here is a Python loop.
+
+A pool sharded over devices (`sample/pipeline.py`) runs one reverse
+process per shard in lockstep (`steps`, `sample_lockstep`): a shard draws
+its rows of the pool's draws (`ops/draws.BatchRows`) and its guidance
+energies divide by the pool's size, as the JAX package's batch means over
+a sharded pool do, so its rows equal those of the unsharded pool.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -47,27 +54,37 @@ class GuidanceOpt:
     weight: float = 1.0       # frag_attract: energy scale
 
 
-def atom_prox_energy(pos, h_edge, bond_mask, lig_mask, min_d, max_d):
+def _pool_mean(per_graph, pool_size: Optional[int]):
+    """Mean over the graphs of the pool: `pool_size` None = this batch is
+    the pool; a shard of a pool passes the pool's size, so that its rows
+    of the energy gradient are those of the whole pool's."""
+    n = per_graph.shape[0] if pool_size is None else pool_size
+    return per_graph.sum() / n
+
+
+def atom_prox_energy(pos, h_edge, bond_mask, lig_mask, min_d, max_d,
+                     pool_size: Optional[int] = None):
     """Hinge energy on predicted-bond lengths outside [min_d, max_d]: mean
-    over each graph's predicted bonds, then over graphs."""
+    over each graph's predicted bonds, then over the pool's graphs."""
     del lig_mask
     is_bond = bond_mask & (h_edge.argmax(-1) > 0)
     d = pos[:, None, :, :] - pos[:, :, None, :]
     blen = torch.sqrt((d * d).sum(-1) + 1e-12)
     hinge = torch.clamp(blen - max_d, min=0.0) + torch.clamp(min_d - blen,
                                                              min=0.0)
-    return masked_mean(hinge, is_bond, dim=(1, 2)).mean()
+    return _pool_mean(masked_mean(hinge, is_bond, dim=(1, 2)), pool_size)
 
 
-def frag_attract_energy(pos, lig_mask, sigma=1.2, weight=1.0, n_hops=7):
+def frag_attract_energy(pos, lig_mask, sigma=1.2, weight=1.0, n_hops=7,
+                        pool_size: Optional[int] = None):
     """Differentiable connectivity energy: the share of a molecule that a
     soft diffusion from the centroid-nearest atom cannot reach.
 
     Soft adjacency W = 1 / (1 + (d^2 / sigma^2)^3), row-normalised over
     valid atoms; reachability r = seed @ W^(2^n_hops) by repeated squaring;
-    energy = 4 * sum of relu(0.25 / n_valid - r) per graph, averaged. A
-    connected cluster gives about 0, a split one about the far cluster's
-    share, with gradients through the inter-cluster distances."""
+    energy = 4 * sum of relu(0.25 / n_valid - r) per graph, averaged over
+    the pool. A connected cluster gives about 0, a split one about the far
+    cluster's share, with gradients through the inter-cluster distances."""
     N = pos.shape[1]
     maskf = lig_mask.to(pos.dtype)
     d = pos[:, :, None, :] - pos[:, None, :, :]
@@ -86,13 +103,16 @@ def frag_attract_energy(pos, lig_mask, sigma=1.2, weight=1.0, n_hops=7):
     n_valid = torch.clamp(maskf.sum(-1), min=1.0)
     thresh = 0.25 / n_valid[:, None]
     unreached = (torch.relu(thresh - r) * maskf).sum(-1) * 4.0
-    return weight * unreached.mean()
+    return weight * _pool_mean(unreached, pool_size)
 
 
-def center_prox_energy(pos, lig_mask, phore_center):
-    """||ligand centroid - non-EX phore centroid|| per graph, averaged."""
+def center_prox_energy(pos, lig_mask, phore_center,
+                       pool_size: Optional[int] = None):
+    """||ligand centroid - non-EX phore centroid|| per graph, averaged
+    over the pool."""
     centroid = masked_mean(pos, lig_mask[..., None], dim=1)
-    return torch.linalg.norm(centroid - phore_center, dim=-1).mean()
+    return _pool_mean(torch.linalg.norm(centroid - phore_center, dim=-1),
+                      pool_size)
 
 
 class Sampler:
@@ -191,10 +211,12 @@ class Sampler:
                 "phore_center": masked_mean(batch.phore_pos,
                                             p_mask[..., None], dim=1)}
 
-    def energy(self, pos, edge, batch, phore_center):
-        """Sum of the guidance energies; `edge` is the bond state (class
-        ids, or relaxed one-hots in the continuous space). atom_prox needs
-        predicted bonds and is skipped without `bond_diffusion`."""
+    def energy(self, pos, edge, batch, phore_center,
+               pool_size: Optional[int] = None):
+        """Sum of the guidance energies, each a mean over the pool's graphs
+        (`pool_size`; None = `batch` is the pool); `edge` is the bond state
+        (class ids, or relaxed one-hots in the continuous space). atom_prox
+        needs predicted bonds and is skipped without `bond_diffusion`."""
         e = pos.new_zeros(())
         mcfg = self.pg.config.model
         for g in self.guidance:
@@ -205,12 +227,14 @@ class Sampler:
                     torch.nn.functional.one_hot(edge.long(),
                                                 mcfg.num_bond_classes)
                 e = e + atom_prox_energy(pos, h_edge, batch.bond_mask,
-                                         batch.lig_mask, g.min_d, g.max_d)
+                                         batch.lig_mask, g.min_d, g.max_d,
+                                         pool_size)
             elif g.type == "center_prox":
-                e = e + center_prox_energy(pos, batch.lig_mask, phore_center)
+                e = e + center_prox_energy(pos, batch.lig_mask, phore_center,
+                                           pool_size)
             elif g.type == "frag_attract":
                 e = e + frag_attract_energy(pos, batch.lig_mask, g.sigma,
-                                            g.weight)
+                                            g.weight, pool_size=pool_size)
         return e
 
     def init_state(self, batch: PhoreGraphBatch,
@@ -299,7 +323,8 @@ class Sampler:
         if self.guidance:
             with torch.enable_grad():
                 p = state["pos"].detach().requires_grad_(True)
-                e = self.energy(p, edge, batch, inv["phore_center"])
+                e = self.energy(p, edge, batch, inv["phore_center"],
+                                inv.get("pool_size"))
                 # no energy term left (atom_prox alone without bonds)
                 if e.requires_grad:
                     energy_grad, = torch.autograd.grad(e, p)
@@ -314,7 +339,8 @@ class Sampler:
     def sample(self, batch: PhoreGraphBatch,
                generator: Optional[torch.Generator] = None,
                offset_init_by_center: bool = False,
-               chunk_steps: int = 0) -> Dict:
+               chunk_steps: int = 0, pool_size: Optional[int] = None
+               ) -> Dict:
         """The full reverse process for a padded sampling batch (replicated
         phore, per-graph lig_mask); ligand content of `batch` is ignored.
         With `keep_traj` the result also holds 'traj': the sampled node and
@@ -323,10 +349,23 @@ class Sampler:
         [S+1, B, ...]. `chunk_steps` > 0: the host waits for the card
         after every `chunk_steps` of the first S-1 steps and before the
         final one, as the JAX package's `sample_chunked` makes a device
-        call of each; nothing else changes."""
+        call of each; nothing else changes. A shard of a pool passes
+        `generator` as `ops/draws.BatchRows` (its rows of the pool's draws)
+        and the pool's size as `pool_size` (the guidance means' divisor):
+        see `sample_lockstep`."""
+        return sample_lockstep([(batch.lig_mask.device, self.steps(
+            batch, generator, offset_init_by_center, chunk_steps,
+            pool_size))])[0]
+
+    def steps(self, batch: PhoreGraphBatch, generator=None,
+              offset_init_by_center: bool = False, chunk_steps: int = 0,
+              pool_size: Optional[int] = None):
+        """`sample` as a Python generator that yields after every reverse
+        step and returns the result (`sample_lockstep` drives it)."""
         ts = self.schedule()[0]
         S = len(ts)
         inv = self.prepare(batch)
+        inv["pool_size"] = pool_size
         state = self.init_state(batch, generator, offset_init_by_center)
         center = batch.center[:, None, :]
         frames = [state] if self.keep_traj else None
@@ -339,6 +378,7 @@ class Sampler:
                                      generator)
             if frames is not None:
                 frames.append(state)
+            yield
         pred_node, pred_pos, pred_edge = preds
         result = {
             "pred_node": pred_node, "pred_pos": pred_pos + center,
@@ -364,3 +404,25 @@ class Sampler:
             raise ValueError("chunk_steps must be at least 1")
         return self.sample(batch, generator, offset_init_by_center,
                            chunk_steps=chunk_steps)
+
+
+def sample_lockstep(runs: Sequence) -> list:
+    """Drive reverse processes (`Sampler.steps`), given as (device, run)
+    pairs, one step of each in turn until all have ended; returns their
+    results in order. The kernels of a step are queued on its device
+    without a host wait, so the shards of a pool on several cards run at
+    once; on one card they interleave."""
+    results = [None] * len(runs)
+    live = list(range(len(runs)))
+    while live:
+        for k in list(live):
+            dev, run = runs[k]
+            ctx = (torch.cuda.device(dev) if torch.device(dev).type == "cuda"
+                   else contextlib.nullcontext())
+            with ctx:
+                try:
+                    next(run)
+                except StopIteration as stop:
+                    results[k] = stop.value
+                    live.remove(k)
+    return results

@@ -28,11 +28,20 @@ except Exception:  # pragma: no cover
 
 
 class MetricLogger:
-    def __init__(self, config, run_dir: Optional[str] = None):
+    """`resume` None: this process owns the run directory (prepares it,
+    dumps the config, writes the history and prints). A bool: a reader
+    for the other ranks of a process group, after rank 0 has prepared the
+    directory and decided `resume`; it keeps the same history, writes
+    nothing and prints nothing."""
+
+    def __init__(self, config, run_dir: Optional[str] = None,
+                 resume: Optional[bool] = None):
         self.config = config
         lcfg = config.logger
         self.run_dir = run_dir or os.path.join(lcfg.result, lcfg.run_name)
-        self.resume = prepare_run_dir(self.run_dir, lcfg.restart)
+        self.writer = resume is None
+        self.resume = (prepare_run_dir(self.run_dir, lcfg.restart)
+                       if self.writer else resume)
         self.history: Dict[str, List[Dict[str, float]]] = {"train": [],
                                                            "valid": []}
         self.best_valid = float("inf")
@@ -48,6 +57,8 @@ class MetricLogger:
         if self.resume and os.path.exists(self.history_path):
             self._load_history()
 
+        if not self.writer:
+            return
         # dump the run's config
         with open(os.path.join(self.run_dir, "parameters.yml"), "w") as f:
             yaml.safe_dump(config.to_dict(), f)
@@ -120,6 +131,8 @@ class MetricLogger:
         return False
 
     def flush_history(self):
+        if not self.writer:
+            return
         with open(self.history_path, "w") as f:
             json.dump({"history": self.history, "best_valid": self.best_valid,
                        "best_epoch": self.best_epoch, "epoch": self.epoch},
@@ -130,4 +143,5 @@ class MetricLogger:
             w.close()
 
     def log(self, msg: str, level: str = "I"):
-        print(f"[{level}] {msg}", flush=True)
+        if self.writer:
+            print(f"[{level}] {msg}", flush=True)

@@ -6,8 +6,14 @@ the validation loss once per epoch; `last_model.*` every epoch and
 `best_model.*` on the best validation loss; milestone snapshots of the
 best model at epochs 160 and 250 for pretraining runs; stage-2 warm start
 from a pretrain checkpoint when `dataset.checkpoint` is set and the
-dataset is pdbbind; resume from `last_model` (`logger.restart`). Runs on
-one device.
+dataset is pdbbind; resume from `last_model` (`logger.restart`).
+
+In a process group (`parallel/group.py`; `cli/train.py` starts one) each
+rank runs this loop on its own device with the whole state, on its slice
+of each global batch (`train/step.py` reduces): rank 0 logs and writes
+the run directory, `history.log`, `last_model` and `best_model`, and the
+other ranks wait for it at a barrier and read what it wrote. The history
+is the one a single process writes on the same global batches.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import torch
 
 from ..data.loader import PhoreDataLoader, RawSample
 from ..models.phoregen import PhoreGen, init_params
+from ..parallel import group
 from .checkpoint import load_checkpoint, load_params_only, save_checkpoint
 from .logger import MetricLogger
 from .state import (TrainState, create_train_state, get_learning_rate,
@@ -77,18 +84,30 @@ class PlateauScheduler:
 
 class Run:
     """Builds logger -> model -> state -> loaders; runs the epoch loop.
-    `device`: where the model and the batches live ('cuda' unless the
-    caller asks for the CPU)."""
+    `device`: where the model and this rank's batches live ('cuda' unless
+    the caller asks for the CPU). In a process group, `train.num_devices`
+    (when not 0) must be its world size."""
 
     def __init__(self, config, run_dir: Optional[str] = None,
                  device="cuda"):
-        if config.train.num_devices > 1:
-            raise NotImplementedError(
-                "train.num_devices > 1 is not ported yet: ROADMAP.md, "
-                "'Still to port', multi-GPU")
+        n = config.train.num_devices
+        if n > 0 and n != group.world_size():
+            raise ValueError(
+                f"train.num_devices is {n} but this process group has "
+                f"{group.world_size()} rank(s): start one process per "
+                "device (phoregen_tpu_torch.cli.train does, or torchrun)")
         self.config = config
         self.device = torch.device(device)
-        self.logger = MetricLogger(config, run_dir=run_dir)
+        self.is_writer = group.rank() == 0
+        # rank 0 prepares the run directory; the others follow its verdict
+        # on resuming once it has
+        self.logger = (MetricLogger(config, run_dir=run_dir)
+                       if self.is_writer else None)
+        resume = group.broadcast_object(
+            self.logger.resume if self.is_writer else None)
+        if not self.is_writer:
+            self.logger = MetricLogger(config, run_dir=run_dir,
+                                       resume=resume)
         self.pg = PhoreGen(config)
         self.train_step = None
         self.eval_step = None
@@ -140,7 +159,7 @@ class Run:
         loader.set_epoch(epoch)
         # optional torch.profiler capture of steps [1, 1+N) of epoch 0
         prof_n = cfg.logger.profile_steps if (
-            mode == "train" and epoch == 0) else 0
+            mode == "train" and epoch == 0 and self.is_writer) else 0
         prof = None
         for idx, (batch, real_size) in enumerate(loader.iter_with_sizes()):
             if prof_n and idx == 1:
@@ -155,8 +174,9 @@ class Run:
                 # rows >= real_size in a cycled tail batch are duplicates;
                 # the eval step zero-weights them so epoch means are exact
                 # over distinct samples
-                gmask = torch.arange(loader.batch_size,
-                                     device=self.device) < real_size
+                gmask = (torch.arange(loader.batch_size,
+                                      device=self.device) < real_size
+                         )[group.local_batch_slice(loader.batch_size)]
                 metrics = self.eval_step(seed, batch, gmask)
             self.logger.record(metrics, mode=mode,
                                weight=real_size / loader.batch_size)
@@ -215,8 +235,10 @@ class Run:
                 self.run_on_epoch(valid_loader, "valid", epoch)
 
             is_best = self.logger.update_best()
-            self.save(epoch, is_best)
-            self.logger.flush_history()
+            if self.is_writer:
+                self.save(epoch, is_best)
+                self.logger.flush_history()
+            group.barrier()
 
             # plateau schedule on the validation loss; train loss when no
             # validation split is configured

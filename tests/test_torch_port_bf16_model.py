@@ -117,6 +117,105 @@ def test_bf16_network_matches_jax_bf16(name):
                                    rtol=0.08)
 
 
+# without bond diffusion the float32 pair-distance embedding promotes h_edge
+# to float32 in the JAX package: name -> (JAX fused_stack, port fused_stack,
+# scan_layers)
+NO_BOND = {
+    "xla2": ("xla2", "xla2", True),
+    "pallas": ("xla", "pallas", True),
+    "module_unscanned": ("none", "none", False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NO_BOND))
+def test_bf16_without_bond_diffusion_promotes_h_edge_as_jax(name):
+    """compute_dtype bfloat16, bond_diffusion false: h_edge reaches the
+    denoiser in float32 and equal to the JAX package's h_edge (1e-6: a
+    bf16 cast of the distance embedding misses by ~1e-2), and the network
+    agrees with the JAX forward within its bf16 bound (rtol = atol = 0.08)
+    with the same output dtypes (the unscanned module path turns float32
+    after its first layer, as in the JAX package)."""
+    jfused, pfused, scan = NO_BOND[name]
+    jcfg = small_config(jfused)
+    jcfg.model.compute_dtype = "bfloat16"
+    jcfg.model.bond_diffusion = False
+    jcfg.model.denoiser.scan_layers = scan
+    batch = _jbatch(jcfg)
+    jpg = JPhoreGen(jcfg)
+    params = jpg.init_params(jax.random.PRNGKey(0), batch)
+    pg = PhoreGen(port_config(jcfg, pfused))
+    pg.net.load_state_dict(from_jax_params(params), strict=True)
+    x = _inputs(batch)
+    bf = jnp.bfloat16
+    bparams = jax.tree_util.tree_map(lambda a: a.astype(bf), params)
+    pos = jnp.asarray(x["pos"])
+
+    def jax_h_edge(m, pos, t):
+        d = pos[:, None, :, :] - pos[:, :, None, :]
+        emb = m.distance_embedding(
+            jnp.sqrt(jnp.sum(d * d, axis=-1, keepdims=True) + 1e-12))
+        t_emb = m._time_embed(t).astype(bf)
+        return jnp.concatenate([emb, jnp.broadcast_to(
+            t_emb[:, None, None, :], emb.shape[:3] + t_emb.shape[-1:])], -1)
+    ref_edge = jpg.net.apply(bparams, pos, jnp.asarray(x["t"]),
+                             method=jax_h_edge)
+    assert ref_edge.dtype == jnp.float32
+    ref = jpg.net.apply(
+        bparams, jnp.asarray(x["h_node"]).astype(bf), pos, batch.lig_mask,
+        jnp.asarray(x["h_edge"]).astype(bf), jnp.asarray(x["t"]),
+        jnp.asarray(batch.phore_x).astype(bf), batch.phore_pos,
+        batch.phore_norm, batch.phore_mask)
+    tb = _tb(batch)
+    seen = {}
+    hook = pg.net.denoiser.register_forward_pre_hook(
+        lambda m, a: seen.update(h_edge=a[2]))
+    with torch.no_grad():
+        out = apply_net(pg.net, cast_params(pg.net, BF),
+                        _t(x["h_node"]).to(BF), _t(x["pos"]), tb.lig_mask,
+                        _t(x["h_edge"]).to(BF), _t(x["t"]),
+                        tb.phore_x.to(BF), tb.phore_pos, tb.phore_norm,
+                        tb.phore_mask)
+    hook.remove()
+    assert seen["h_edge"].dtype == torch.float32
+    np.testing.assert_allclose(seen["h_edge"].numpy(), np.asarray(ref_edge),
+                               atol=1e-6, rtol=1e-6)
+    assert out[2] is None and ref[2] is None
+    lm = np.asarray(batch.lig_mask)
+    for o, r in zip(out[:2], ref[:2]):
+        assert str(o.dtype).split(".")[-1] == str(r.dtype)
+        np.testing.assert_allclose(o.float().numpy()[lm],
+                                   np.asarray(r, np.float32)[lm], atol=0.08,
+                                   rtol=0.08)
+
+
+def test_bf16_without_bond_diffusion_scanned_module_path_refuses():
+    """The scanned module path cannot carry the promoted h: the JAX
+    package's nn.scan raises, and so does the port, naming the way out."""
+    jcfg = small_config("none")
+    jcfg.model.compute_dtype = "bfloat16"
+    jcfg.model.bond_diffusion = False
+    batch = _jbatch(jcfg)
+    jpg = JPhoreGen(jcfg)
+    params = jpg.init_params(jax.random.PRNGKey(0), batch)
+    x = _inputs(batch)
+    bf = jnp.bfloat16
+    with pytest.raises(TypeError, match="carry"):
+        jpg.net.apply(
+            jax.tree_util.tree_map(lambda a: a.astype(bf), params),
+            jnp.asarray(x["h_node"]).astype(bf), jnp.asarray(x["pos"]),
+            batch.lig_mask, jnp.asarray(x["h_edge"]).astype(bf),
+            jnp.asarray(x["t"]), jnp.asarray(batch.phore_x).astype(bf),
+            batch.phore_pos, batch.phore_norm, batch.phore_mask)
+    pg = PhoreGen(port_config(jcfg, "none"))
+    pg.net.load_state_dict(from_jax_params(params), strict=True)
+    tb = _tb(batch)
+    with pytest.raises(ValueError, match="scan_layers false"):
+        apply_net(pg.net, cast_params(pg.net, BF), _t(x["h_node"]).to(BF),
+                  _t(x["pos"]), tb.lig_mask, _t(x["h_edge"]).to(BF),
+                  _t(x["t"]), tb.phore_x.to(BF), tb.phore_pos,
+                  tb.phore_norm, tb.phore_mask)
+
+
 # ---------------------------------------------------------------- the loss
 
 def _global_norm(grads):

@@ -523,8 +523,10 @@ def test_cli_save_pool_recon_workers_and_chunks(tmp_path, capsys):
     `--save_pool --recon_workers 2 --chunk_steps 1` writes what the JAX
     CLI writes for the same options: time_chain.txt, the SMILES list and
     `<name>_samples_all.npz` with the JAX key layout; the startup line
-    names the native library. `--sample_devices 2` still raises and names
-    ROADMAP.md."""
+    names the native library. `--sample_devices 2` on the CPU samples the
+    pool in two shards (it used to raise), with `--chunk_steps` unsharded
+    after a warning; on `cuda`, more devices than are visible is a
+    SystemExit that names both numbers."""
     from phoregen_tpu_torch.cli import sample as cli
     phore = os.path.join(ROOT, "tests", "fixtures", "phores",
                          "P03211_merge.phore")
@@ -536,6 +538,7 @@ def test_cli_save_pool_recon_workers_and_chunks(tmp_path, capsys):
             "--normal_scale", "6.0", "--pos_guidance_opt", json.dumps(
                 [{"type": "atom_prox", "min_d": 1.0, "max_d": 3.0},
                  {"type": "center_prox"}])]
+    n_cuda = torch.cuda.device_count()
     out = cli.main(base + ["--save_pool", "--recon_workers", "2",
                            "--chunk_steps", "1"])
     assert "host bond perception: native library" in capsys.readouterr().out
@@ -554,8 +557,20 @@ def test_cli_save_pool_recon_workers_and_chunks(tmp_path, capsys):
                                   "pred_pos_0"]
     B, NL = pool["lig_mask_0"].shape
     assert B == 2 and pool["pred_edge_0"].shape == (2, NL, NL, 6)
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        cli.main(base + ["--sample_devices", "2"])
+    sharded = cli.main(base + ["--sample_devices", "2", "--result_path",
+                               str(tmp_path / "sharded")])
+    assert "Pool-parallel sampling over 2 devices" in \
+        capsys.readouterr().out
+    assert [d.type for d in sharded["pipeline"].devices] == ["cpu", "cpu"]
+    assert sharded["results"][0]["n_sampled"] == 2
+    chunked = cli.main(base + ["--sample_devices", "2", "--chunk_steps", "1",
+                               "--result_path", str(tmp_path / "chunked")])
+    assert "ignored with --chunk_steps" in capsys.readouterr().out
+    assert len(chunked["pipeline"].devices) == 1
+    with pytest.raises(SystemExit, match=f"asks for {n_cuda + 1} CUDA "
+                                         f"devices, but {n_cuda} are"):
+        cli.main(base + ["--device", "cuda", "--sample_devices",
+                         str(n_cuda + 1)])
     # XLA's --unroll has no counterpart (the help text says why)
     with pytest.raises(SystemExit):
         cli.parse_args(base + ["--unroll", "2"])

@@ -345,8 +345,14 @@ def test_cli_follows_the_checkpoint_and_guards_narrowing(tmp_path):
     # so are bf16 blocks (they used to be refused)
     with pytest.raises(FileNotFoundError, match="none.phore"):
         cli.main(base + ["--fused_block_dtype", "bfloat16"])
-    with pytest.raises(SystemExit, match="ROADMAP"):
+    # sharded pools are ported: two CPU shards get past the model too,
+    # and more CUDA devices than are visible is refused, naming both
+    with pytest.raises(FileNotFoundError, match="none.phore"):
         cli.main(base + ["--sample_devices", "2"])
+    n_cuda = torch.cuda.device_count()
+    with pytest.raises(SystemExit, match=f"{n_cuda} are visible"):
+        cli.main(base + ["--device", "cuda", "--sample_devices",
+                         str(n_cuda + 1)])
     # --chunk_steps and reference .pt checkpoints are ported too; a .pt
     # needs the --config that describes it
     with pytest.raises(FileNotFoundError, match="none.phore"):

@@ -327,16 +327,34 @@ def test_ema_off_leaves_the_shadow_and_eval_step_takes_a_graph_mask():
     assert np.isfinite(float(a["loss"])) and np.isfinite(float(b["loss"]))
 
 
-def test_more_than_one_device_raises_and_names_the_roadmap():
+def test_more_than_one_device_raises_and_names_the_roadmap(tmp_path,
+                                                          monkeypatch):
+    """Data parallelism is ported (it used to raise, naming ROADMAP.md):
+    `train.num_devices` 2 on the CPU trains two gloo ranks through the
+    CLI; more CUDA devices than are visible is a SystemExit naming both
+    numbers; a `Run` whose `train.num_devices` is not its process group's
+    world size refuses."""
+    import yaml
+    from phoregen_tpu_torch.cli import train as cli
+    cfg = _run_cfg(tmp_path, "ranks", fused="none")
+    cfg.train.num_devices = 2
+    path = os.path.join(str(tmp_path), "cfg.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg.to_dict(), f)
+    hist = cli.main(["--config", path, "--epochs", "1", "--synthetic_size",
+                     "8", "--device", "cpu"])
+    assert len(hist["train"]) == 1 and np.isfinite(hist["train"][0]["loss"])
+    assert os.path.exists(os.path.join(str(tmp_path), "ranks",
+                                       "last_model.msgpack"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match="2 CUDA devices, but 1 are "
+                                         "visible"):
+        cli.main(["--config", path, "--device", "cuda"])
     pcfg = port_config(_train_cfg("xla"), "pallas2")
-    pg = PhoreGen(pcfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(pg, pcfg, mesh=object())
     pcfg.train.num_devices = 4
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_eval_step(pg, pcfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ploop.Run(pcfg, run_dir="unused", device="cpu")
+    with pytest.raises(ValueError, match="one process per device"):
+        ploop.Run(pcfg, run_dir=str(tmp_path / "unused"), device="cpu")
 
 
 # ----------------------------------------------------------- Run, the CLI
