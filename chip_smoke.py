@@ -2,6 +2,7 @@
 """Quickest proof that the PyTorch port runs on the card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only filelist,evalacc    # those phases alone
 
 Phases (any failure exits non-zero and prints no result):
 1. build: compiles the hand-written CUDA kernels from
@@ -105,7 +106,28 @@ Phases (any failure exits non-zero and prints no result):
    train step;
 12. [chunked]: a 50-step `pallas2` chain whole and with `chunk_steps` 7,
    equal bit for bit;
-13. check: accepted molecules are finite and written, and one forward of
+13. [ddp], [shard], [xla2 bf16]: data-parallel training of flagship_r4
+   through `pallas2` (two gloo ranks on the one card, one NCCL rank, one
+   process; save at world size 2, resume at 1), pools sharded over
+   [cuda:0, cuda:0] against the unsharded pool, and the `xla2` bf16-block
+   network against the float32 plain stages (`phase_ddp`, `phase_shard`,
+   `phase_xla2_bf16` say what each holds);
+14. [filelist]: training from a file list at full width: 32 `mixed`
+   samples (16 at NL=48, 16 at NL=80) written as `PairDataset`'s per-item
+   cache behind zinc_300 JSON file lists and a pickled pdbbind index;
+   `get_dataset` must return them equal field for field through both
+   branches, none skipped; then `Run.train` through `pallas2` in float32
+   for 4 steps from the file list and from the same samples handed to
+   `Run` directly: the same seeds and host batches, losses and gradient
+   norms within DDP_TOLS, kernels 5 and 6 launched 4 x 6 times each;
+15. [evalacc]: `eval_accuracies` of release/flagship_r4 as it is (module
+   path, kNN triplets, bf16), 4 x 16 samples, under `profile_trace`, whose
+   trace must hold CUDA kernel events; its first batch's eval step with
+   draws made on the CPU on the card and on the CPU, in float32 compute
+   (loss within 1e-4 relative) and in the config's bf16 (within 2^-8, one
+   bf16 unit roundoff), accuracies within 1/64; the block printed beside
+   the JAX package's recorded one (QUALITY_r05.json, no limit);
+16. check: accepted molecules are finite and written, and one forward of
    the flagship network on a small input agrees between the card (kernels)
    and the CPU (plain versions), on the three sampling paths, within
    atol = rtol = 1e-3 (6 layers of float32 attention, different summation
@@ -172,6 +194,7 @@ PATH_KERNELS = {
     "chunked": ("stage_node_pre", "stage_att_pos"),
     "shard": ("stage_node", "stage_triplet_pre", "stage_triplet_att",
               "stage_pos"),
+    "filelist": ("stage_node_pre", "stage_att_pos"),
     # flagship_r4 as it is (kNN triplets, module path) and the dense
     # reference form: no kernel
     "cli": (),
@@ -225,6 +248,22 @@ SHARD_TOL = 1e-2
 # [xla2 bf16]: relative L2 difference of each output from the float32
 # plain stages (bf16 keeps 8 bits of mantissa, 0.4% a rounding)
 XLA2_BF16_TOL = 0.05
+# [filelist]: flagship_r4 trained from zinc_300 file lists through
+# PairDataset's per-item cache: FILELIST_PER_BUCKET samples in each bucket,
+# `Run.train` for FILELIST_EPOCHS epochs of one batch a bucket, through
+# pallas2 in float32, against the same samples handed to `Run` directly
+FILELIST_BUCKETS = (48, 80)
+FILELIST_PER_BUCKET = 16
+FILELIST_EPOCHS = 2
+# [evalacc]: eval_accuracies of flagship_r4 as its config stands; the card
+# against the CPU on the first batch's draws, by compute dtype: loss
+# (relative) and each accuracy (one graph of the 64 eval_accuracies
+# averages is 1/64). In float32 only the summation order differs; in the
+# config's bf16 the two backends round the network's products and
+# activations differently (measured 2.2e-4 on an H100, 700 W), so the
+# loss is held to one unit roundoff of bf16 (2^-8)
+EVALACC = dict(seed=9999, n_batches=4, batch_size=16)
+EVALACC_TOLS = {"float32": (1e-4, 1 / 64), "bfloat16": (2 ** -8, 1 / 64)}
 
 
 def fail(msg: str) -> None:
@@ -1551,12 +1590,279 @@ def phase_xla2_bf16(root):
         fail(f"[xla2 bf16] off the float32 plain stages: rel. L2 {rel}")
 
 
+def _recording(step, record):
+    """`Run.train_step` wrapped to append (seed, host batch, loss,
+    grad_norm, ms) of each step to `record`."""
+    import torch
+
+    def wrapped(state, seed, batch):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        m = step(state, seed, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        record.append((int(seed), {k: v.cpu().numpy() for k, v in
+                                   vars(batch).items()},
+                       loss, gnorm, (time.time() - t0) * 1e3))
+        return m
+    return wrapped
+
+
+def _same_samples(a, b):
+    """Two RawSample lists equal field for field."""
+    import dataclasses
+    import numpy as np
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        for f in dataclasses.fields(y):
+            u, v = getattr(x, f.name), getattr(y, f.name)
+            if isinstance(v, np.ndarray):
+                if not (isinstance(u, np.ndarray) and u.dtype == v.dtype
+                        and np.array_equal(u, v)):
+                    return False
+            elif u != v:
+                return False
+    return True
+
+
+def phase_filelist(root, ls, pt):
+    """[filelist]: training from a file list at full width. 16 samples of
+    the `mixed` corpus in each of the NL=48 and NL=80 buckets (under
+    flagship_r4's max_atom) written as PairDataset's per-item cache under
+    the basenames of a zinc_300 JSON file list (train: all 32; valid and
+    test: two each) and of a pickled pdbbind index; the phore paths are
+    bundled real ones, the molecule files do not exist (the cache is read
+    first; there is no RDKit to parse them). `get_dataset` must return the
+    samples equal field for field through both branches. Then `Run.train`
+    at flagship_r4's configuration and weights through `pallas2` in
+    float32, FILELIST_EPOCHS epochs (one batch a bucket: 4 steps), from
+    the file list and from the same samples handed to `Run` directly: the
+    same seeds and host batches, losses and gradient norms within
+    DDP_TOLS (the backward's atomic adds reorder), kernels 5 and 6
+    launched steps x 6 times each in the file-list run. Returns that
+    run's launches."""
+    import copy
+    import pickle
+    import numpy as np
+    import torch
+    from phoregen_tpu_torch.data.dataset import get_dataset
+    from phoregen_tpu_torch.data.realcorpus import list_real_phore_files
+    from phoregen_tpu_torch.tools.profile_training import (
+        bucket_samples, flagship_trainer)
+
+    tag = "[filelist]"
+    prefix = os.path.join(root, "release", "flagship_r4")
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {k: flagship_trainer(prefix, "cuda", "pallas2",
+                                    run_dir=os.path.join(tmp, k),
+                                    dtype="float32")
+                for k in ("filelist", "direct")}
+        cfg = runs["filelist"].config
+        samples = [s for i, nl in enumerate(FILELIST_BUCKETS)
+                   for s in bucket_samples(cfg, nl, FILELIST_PER_BUCKET,
+                                           seed=2027 + i)]
+        phores = list_real_phore_files(include_sampling=False)
+        save = os.path.join(tmp, "cache")
+        os.makedirs(save)
+        pairs = []
+        for i, s in enumerate(samples):
+            name = f"zinc_{i:02d}"
+            pairs.append([os.path.join(tmp, "mols", name + ".sdf"),
+                          phores[i]])
+            with open(os.path.join(save, name + ".pkl"), "wb") as f:
+                pickle.dump(s, f)
+        splits = {"train": pairs, "valid": pairs[:2], "test": pairs[-2:]}
+        want = (samples, samples[:2], samples[-2:])
+        ds = cfg.dataset
+        ds.save_path = save
+        for split, rows in splits.items():
+            path = os.path.join(tmp, f"{split}.json")
+            with open(path, "w") as f:
+                json.dump(rows, f)
+            setattr(ds, f"zinc_{split}_filelist", path)
+        index = os.path.join(tmp, "index.pkl")
+        with open(index, "wb") as f:
+            pickle.dump({f"pdbbind_{k}": [tuple(r) for r in v]
+                         for k, v in splits.items()}, f)
+        pcfg = copy.deepcopy(cfg)
+        pcfg.dataset.data_name = "pdbbind"
+        pcfg.dataset.pdbbind_filelist = index
+        t0 = time.time()
+        got = {"zinc_300": get_dataset(cfg), "pdbbind": get_dataset(pcfg)}
+        read_s = time.time() - t0
+        for branch, sets in got.items():
+            if [len(x) for x in sets] != [len(x) for x in want] or not all(
+                    _same_samples(a, b) for a, b in zip(sets, want)):
+                fail(f"{tag} get_dataset through {branch} returned "
+                     f"{[len(x) for x in sets]} samples, not the "
+                     f"{[len(x) for x in want]} written")
+        print(f"{tag} get_dataset: {len(samples)} train samples "
+              f"({FILELIST_PER_BUCKET} each at NL={FILELIST_BUCKETS}) equal "
+              f"field for field through zinc_300 file lists and a pdbbind "
+              f"index, none skipped; both read in {read_s:.2f} s",
+              flush=True)
+
+        records = {}
+        for k, run in runs.items():
+            records[k] = []
+            run.train_step = _recording(run.train_step, records[k])
+            ls.reset_launch_counts()
+            pt.reset_launch_counts()
+            run.train(got["zinc_300"][0] if k == "filelist" else samples,
+                      [], epochs=FILELIST_EPOCHS)
+            if k == "filelist":
+                launches = _launches(ls, pt)
+            del run.state
+            torch.cuda.empty_cache()
+    fl, di = records["filelist"], records["direct"]
+    steps = len(FILELIST_BUCKETS) * FILELIST_EPOCHS
+    if len(fl) != steps or len(di) != steps:
+        fail(f"{tag} {len(fl)} and {len(di)} steps, expected {steps}")
+    same = all(a[0] == b[0] and a[1].keys() == b[1].keys() and all(
+        np.array_equal(a[1][n], b[1][n]) for n in a[1]) for a, b in
+        zip(fl, di))
+    worst = [max(abs(a[i] - b[i]) / abs(b[i]) for a, b in zip(fl, di))
+             for i in (2, 3)]
+    for i, (a, b) in enumerate(zip(fl, di)):
+        print(f"{tag} step {i + 1} NL={a[1]['lig_pos'].shape[1]} seed "
+              f"{a[0]}: loss {a[2]:.6f} vs {b[2]:.6f}, grad_norm "
+              f"{a[3]:.6f} vs {b[3]:.6f}; ms {a[4]:.3f} vs {b[4]:.3f}")
+    ms = {nl: [a[4] for a in fl[1:] if a[1]["lig_pos"].shape[1] == nl]
+          for nl in FILELIST_BUCKETS}
+    print(f"{tag} Run.train through {cfg.model.denoiser.fused_stack}, "
+          f"{cfg.train.dtype}, {steps} steps of "
+          f"{BATCH} graphs from the file list: ms/step over steps 2-{steps} "
+          f"{np.mean([a[4] for a in fl[1:]]):.3f} ("
+          + ", ".join(f"NL={nl}: {np.mean(v):.3f}" for nl, v in ms.items()
+                      if v)
+          + f"); the same seeds and host batches as the direct run: {same};"
+          f" worst rel. diff loss {worst[0]:.3e}, grad_norm {worst[1]:.3e} "
+          f"(limits {DDP_TOLS[0]:g}, {DDP_TOLS[1]:g}); launches "
+          f"{json.dumps(launches)}", flush=True)
+    if not same:
+        fail(f"{tag} the file list gave other batches than the samples")
+    if worst[0] > DDP_TOLS[0] or worst[1] > DDP_TOLS[1]:
+        fail(f"{tag} loss or gradient norm off the direct run")
+    _want_only("filelist", launches, steps * cfg.model.denoiser.num_layers)
+    return launches
+
+
+def phase_evalacc(root):
+    """[evalacc]: `eval_accuracies` of release/flagship_r4 as its config
+    stands (module path, kNN triplets, train.dtype bfloat16) on the card,
+    4 batches of 16, seed 9999, inside `profile_trace`: the trace must
+    hold CUDA kernel events. Then its first batch through the same eval
+    step with draws made on the CPU, once on the card and once all on the
+    CPU, in the config's bf16 and in float32 compute: the loss and each
+    accuracy within EVALACC_TOLS of that dtype. The card's block is printed beside the JAX package's
+    recorded one (QUALITY_r05.json; other draws, so no limit)."""
+    import numpy as np
+    import torch
+    from phoregen_tpu_torch.data.loader import PhoreDataLoader
+    from phoregen_tpu_torch.data.realcorpus import mixed_corpus
+    from phoregen_tpu_torch.models.phoregen import load_release_model
+    from phoregen_tpu_torch.train.step import make_eval_step
+    from phoregen_tpu_torch.utils.evalacc import ACC_KEYS, eval_accuracies
+    from phoregen_tpu_torch.utils.profiling import TRACE_NAME, profile_trace
+
+    tag = "[evalacc]"
+    prefix = os.path.join(root, "release", "flagship_r4")
+    pg, _ = load_release_model(prefix, "cuda")
+    cfg = pg.config
+    secs = {}
+    with tempfile.TemporaryDirectory() as logdir:
+        for k in ("plain", "profiled"):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            with profile_trace(logdir, enabled=k == "profiled"):
+                card = eval_accuracies(pg, cfg, **EVALACC)
+            secs[k] = time.time() - t0
+        with open(os.path.join(logdir, TRACE_NAME)) as f:
+            events = json.load(f)["traceEvents"]
+    n_kernels = sum(e.get("cat") == "kernel" for e in events)
+    print(f"{tag} flagship_r4 as configured (fused_stack="
+          f"{cfg.model.denoiser.fused_stack}, triplet_knn="
+          f"{cfg.model.denoiser.triplet_knn}, train.dtype={cfg.train.dtype})"
+          f", {EVALACC['n_batches']} x {EVALACC['batch_size']} samples, "
+          f"seed {EVALACC['seed']}: {card}; {secs['plain']:.2f} s, "
+          f"{secs['profiled']:.2f} s under profile_trace ({n_kernels} CUDA "
+          f"kernel events in the trace)", flush=True)
+    if tuple(card) != ACC_KEYS or not all(np.isfinite(v)
+                                          for v in card.values()):
+        fail(f"{tag} eval accuracies {card}")
+    if n_kernels == 0:
+        fail(f"{tag} the trace holds no CUDA kernel event")
+
+    # the first batch of that run, through the eval step eval_accuracies
+    # runs, with draws made on the CPU: on the card, then all on the CPU,
+    # in the config's bf16 and in float32 (unrounded: eval_accuracies
+    # rounds to 4 places, 4e-5 of this loss)
+    loader = PhoreDataLoader(mixed_corpus(EVALACC["seed"], EVALACC[
+        "n_batches"] * EVALACC["batch_size"]), cfg, EVALACC["batch_size"],
+        shuffle=False)
+    vb, real = next(loader.iter_with_sizes())
+    B, NL = vb.lig_type.shape
+    rng = np.random.default_rng(EVALACC["seed"])
+    draws = dict(t=rng.integers(0, cfg.model.diff.num_timesteps, B),
+                 pos_noise=rng.normal(size=(B, NL, 3)).astype(np.float32),
+                 node_uniform=rng.uniform(size=(
+                     B, NL, cfg.model.num_atom_classes)).astype(np.float32),
+                 edge_uniform=rng.uniform(size=(
+                     B, NL, NL, cfg.model.num_bond_classes)).astype(
+                         np.float32))
+    first = {}
+    for dev in ("cuda", "cpu"):
+        if dev == "cpu":
+            del pg
+            torch.cuda.empty_cache()
+            pg, _ = load_release_model(prefix, "cpu")
+        for dt in EVALACC_TOLS:
+            dcfg = copy.deepcopy(cfg)
+            dcfg.train.dtype = dt
+            t0 = time.time()
+            m = make_eval_step(pg, dcfg)(
+                np.uint32(EVALACC["seed"]), vb.to(dev),
+                torch.arange(B, device=dev) < real,
+                **{k: torch.as_tensor(v, device=dev)
+                   for k, v in draws.items()})
+            first[dev, dt] = ({k: float(m[k]) for k in ACC_KEYS},
+                              time.time() - t0)
+    fmt = lambda d: ", ".join(f"{k} {v:.6f}" for k, v in d.items())
+    bad = []
+    for dt, (loss_tol, acc_tol) in EVALACC_TOLS.items():
+        (on_card, card_s), (on_cpu, cpu_s) = first["cuda", dt], \
+            first["cpu", dt]
+        d_loss = abs(on_card["loss"] - on_cpu["loss"]) / abs(on_cpu["loss"])
+        d_acc = max(abs(on_card[k] - on_cpu[k]) for k in ACC_KEYS[1:])
+        print(f"{tag} first batch ({real} graphs, NL={NL}), {dt} compute, "
+              f"draws made on the CPU: card {fmt(on_card)} ({card_s:.2f} "
+              f"s); CPU {fmt(on_cpu)} ({cpu_s:.2f} s); rel. diff loss "
+              f"{d_loss:.3e} (tol {loss_tol:.3g}), worst accuracy diff "
+              f"{d_acc:.4f} (tol {acc_tol:.4f})", flush=True)
+        if d_loss > loss_tol or d_acc > acc_tol:
+            bad.append(dt)
+    gap = abs(first["cuda", "bfloat16"][0]["loss"] - first[
+        "cuda", "float32"][0]["loss"]) / first["cuda", "float32"][0]["loss"]
+    print(f"{tag} bf16 against float32 compute on the card: rel. diff loss "
+          f"{gap:.3e}", flush=True)
+    with open(os.path.join(root, "QUALITY_r05.json")) as f:
+        ref = json.load(f)["eval_acc"]
+    print(f"{tag} the card's block beside the JAX package's recorded one "
+          f"(QUALITY_r05.json, CPU, JAX draws; no limit: the draws differ): "
+          + ", ".join(f"{k} {card[k]} vs {ref[k]}" for k in ACC_KEYS),
+          flush=True)
+    if bad:
+        fail(f"{tag} the card disagrees with the CPU on the same draws in "
+             f"{bad} compute")
+
+
 def main():
     import torch
-    only = None     # `--only ddp,shard,xla2_bf16`: those phases alone
+    only = None     # `--only filelist,evalacc`: those phases alone
     if sys.argv[1:]:
         if len(sys.argv) != 3 or sys.argv[1] != "--only":
-            fail("usage: chip_smoke.py [--only ddp,shard,xla2_bf16]")
+            fail("usage: chip_smoke.py [--only ddp,shard,xla2_bf16,"
+                 "filelist,evalacc]")
         only = sys.argv[2].split(",")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs the card")
@@ -1583,7 +1889,9 @@ def main():
     if only is not None:
         solo = {"ddp": lambda: phase_ddp(root, ls, pt),
                 "shard": lambda: phase_shard(root, ls, pt),
-                "xla2_bf16": lambda: phase_xla2_bf16(root)}
+                "xla2_bf16": lambda: phase_xla2_bf16(root),
+                "filelist": lambda: phase_filelist(root, ls, pt),
+                "evalacc": lambda: phase_evalacc(root)}
         for name in only:
             if name not in solo:
                 fail(f"no phase {name!r} (one of {sorted(solo)})")
@@ -1626,6 +1934,10 @@ def main():
     torch.cuda.empty_cache()
     phase_xla2_bf16(root)
     torch.cuda.empty_cache()
+    launches_fl = phase_filelist(root, ls, pt)
+    torch.cuda.empty_cache()
+    phase_evalacc(root)
+    torch.cuda.empty_cache()
     for label in REFERENCE_PATHS:
         phase_reference(root, label)
 
@@ -1653,10 +1965,12 @@ def main():
                       "no-bond": launches_nb, "shard": launches_shard},
         "stage_node_pre": {"train": launches_train, "pallas2": launches_p2,
                            "continuous": launches_cont,
-                           "chunked": launches_chunked, "ddp": launches_ddp},
+                           "chunked": launches_chunked, "ddp": launches_ddp,
+                           "filelist": launches_fl},
         "stage_att_pos": {"train": launches_train, "pallas2": launches_p2,
                           "continuous": launches_cont,
-                          "chunked": launches_chunked, "ddp": launches_ddp},
+                          "chunked": launches_chunked, "ddp": launches_ddp,
+                          "filelist": launches_fl},
         "stage_triplet_pre_bf16": {"pallas_bf16": launches_pb},
         "stage_triplet_att_bf16": {"pallas_bf16": launches_pb},
         "stage_node_pre_bf16": {"pallas2_bf16": launches_p2b,

@@ -1,8 +1,10 @@
 """Training CLI: `python -m phoregen_tpu_torch.cli.train --config x.yml`.
 
 Counterpart of `phoregen_tpu/cli/train.py` (argparse --config, host banner,
-`Run().train`). The dataset is the hermetic corpus `get_dataset` generates
-from a seed (`--synthetic_size N` sets its size). Runs on the card unless
+`Run().train`). The dataset is `get_dataset`'s: the ZINC / PDBBind file
+lists when the config names them (read through the per-item cache under
+`dataset.save_path` first), else the hermetic corpus it generates from a
+seed (`--synthetic_size N` sets its size). Runs on the card unless
 `--device cpu` is given.
 
 Data-parallel training (`parallel/group.py`), where the JAX CLI shards

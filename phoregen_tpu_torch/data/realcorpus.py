@@ -15,9 +15,7 @@ the same seed:
   and EX shell sampling) for the other half of the mix.
 
 Everything produced here sanitizes under `sample.chem.sanitize_simple` and
-is connected by construction. `generate_ex_shell` is this package's copy
-of `phoregen_tpu/data/ligphore.py::generate_ex_shell` (the rest of that
-module needs RDKit and ligand files, and is not ported yet).
+is connected by construction.
 """
 from __future__ import annotations
 
@@ -29,6 +27,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..constants import MAX_ATOMS, MIN_ATOMS
+from .ligphore import generate_ex_shell
 from .phore import Phore, PhoreFeature, featurize_phore, parse_phore_file
 from .loader import RawSample
 
@@ -45,44 +44,6 @@ _MAX_VAL = np.array([3, 4, 3, 2, 1, 4, 5, 6, 1, 1, 1], np.float64)
 
 _BOND_LEN = 1.5
 _AROM_RING_R = 1.39
-
-
-
-_EX_ALPHA = 0.837
-
-
-def generate_ex_shell(feats: List[PhoreFeature], lig_pos: np.ndarray,
-                      rng: np.random.Generator, low: float = 3.0,
-                      up: float = 5.0, num_ex: int = 5,
-                      clash_d: float = 2.0, rounds: int = 100
-                      ) -> List[PhoreFeature]:
-    """Sample EX volumes on shells [low, up] around feature points, rejecting
-    points that clash with ligand atoms or other EX."""
-    centers = np.asarray([f.pos for f in feats if f.type != "EX"],
-                         np.float32)
-    if centers.size == 0:
-        return []
-    out: List[PhoreFeature] = []
-    ex_pos: List[np.ndarray] = []
-    for _ in range(rounds):
-        if len(out) >= num_ex:
-            break
-        c = centers[rng.integers(len(centers))]
-        v = rng.normal(size=3)
-        v /= np.linalg.norm(v) + 1e-12
-        r = rng.uniform(low, up)
-        p = c + r * v
-        if np.min(np.linalg.norm(lig_pos - p, axis=1)) < clash_d:
-            continue
-        if ex_pos and np.min(np.linalg.norm(
-                np.asarray(ex_pos) - p, axis=1)) < clash_d:
-            continue
-        ex_pos.append(p)
-        out.append(PhoreFeature(
-            type="EX", alpha=_EX_ALPHA, weight=0.5, factor=1.0,
-            pos=tuple(p), has_norm=False, norm=(0.0, 0.0, 0.0), label="0",
-            anchor_weight=1.0))
-    return out
 
 
 def zinc_like_size(rng: np.random.Generator, max_atoms: int = MAX_ATOMS,

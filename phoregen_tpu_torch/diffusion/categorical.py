@@ -55,18 +55,26 @@ def _one_step_mats(betas: np.ndarray, prob: np.ndarray):
     return np.stack(one_step, axis=0), np.stack(cum, axis=0)
 
 
+def build_transition_mats(betas: np.ndarray, num_classes: int,
+                          init_prob: Union[str, np.ndarray, None]):
+    """Host-side float64 construction of the prior, cumulative Q-bar_t and
+    Q_t^T: (prob [K], q_mats [T, K, K], transpose_one_step [T, K, K])."""
+    prob = build_init_prob(num_classes, init_prob)
+    one_step, q_mats = _one_step_mats(betas, prob)
+    return prob, q_mats, np.transpose(one_step, (0, 2, 1))
+
+
 class CategoricalTransition:
     def __init__(self, betas: np.ndarray, num_classes: int,
                  init_prob: Union[str, np.ndarray, None] = None):
         self.num_classes = num_classes
-        prob = build_init_prob(num_classes, init_prob)
+        prob, cum, transpose_one_step = build_transition_mats(
+            np.asarray(betas, np.float64), num_classes, init_prob)
         self.init_logprob = np.clip(np.log(prob + EPS), -32.0, None
                                     ).astype(np.float32)
-        one_step, cum = _one_step_mats(np.asarray(betas, np.float64), prob)
         # cumulative Q-bar_t and transposed one-step Q_t^T, [T, K, K]
         self.q_mats = cum.astype(np.float32)
-        self.transpose_q_onestep = np.transpose(one_step, (0, 2, 1)).astype(
-            np.float32)
+        self.transpose_q_onestep = transpose_one_step.astype(np.float32)
         self._dev = {}
 
     def _tables(self, device):

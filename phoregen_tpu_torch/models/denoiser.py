@@ -44,6 +44,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from ..constants import FIXED_RBF_OFFSETS
 from ..ops import layer_stack as ls
 from ..ops.knn import hybrid_neighbors, knn_neighbors, radius_neighbors
 from ..ops.masked import masked_mean
@@ -131,11 +132,15 @@ class UniDenoiser(nn.Module):
         if self.fused_stack != "none":
             self._check_fused_config()
         H, heads = dcfg.hidden_dim, dcfg.n_heads
-        self.fe = dcfg.num_r_gaussian * dcfg.edge_feat_dim \
+        # the edge distances are smeared on the fixed grid whatever
+        # num_r_gaussian says, as in the JAX package (whose layers take
+        # their input widths from the features)
+        n_rbf = len(FIXED_RBF_OFFSETS)
+        self.fe = n_rbf * dcfg.edge_feat_dim \
             + dcfg.edge_feat_dim + (9 if dcfg.direction_match else 0)
         if dcfg.use_global_ew:
             # relu whatever act_fn says, as in the JAX package
-            self.edge_pred_layer = MLP(dcfg.num_r_gaussian, 1, H, dcfg.norm)
+            self.edge_pred_layer = MLP(n_rbf, 1, H, dcfg.norm)
         shapes = dict(norm=dcfg.norm, out_fc=dcfg.x2h_out_fc,
                       include_h_node=dcfg.h_node_in_bond_net,
                       direction_match=dcfg.direction_match,

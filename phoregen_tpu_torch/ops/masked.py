@@ -51,6 +51,18 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None,
     return num / torch.clamp(den, min=1e-12)
 
 
+def masked_sum(x: torch.Tensor, mask: torch.Tensor, dim=None,
+               keepdim: bool = False) -> torch.Tensor:
+    x = x * mask.to(x.dtype)
+    return x.sum() if dim is None else x.sum(dim=dim, keepdim=keepdim)
+
+
+def masked_logsumexp(x: torch.Tensor, mask: torch.Tensor, dim: int = -1,
+                     keepdim: bool = False) -> torch.Tensor:
+    x = torch.where(mask.to(torch.bool), x, torch.full_like(x, NEG_INF))
+    return torch.logsumexp(x, dim=dim, keepdim=keepdim)
+
+
 def index_to_log_onehot(x: torch.Tensor, num_classes: int) -> torch.Tensor:
     onehot = torch.nn.functional.one_hot(x.long(), num_classes).to(
         torch.float32)

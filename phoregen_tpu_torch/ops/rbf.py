@@ -67,3 +67,7 @@ def angular_encoding(x: torch.Tensor, freq_bands) -> torch.Tensor:
     f = torch.as_tensor(freq_bands, dtype=x.dtype, device=x.device)
     xe = x[..., None]
     return torch.cat([xe, torch.sin(xe * f), torch.cos(xe * f)], dim=-1)
+
+
+def angular_encoding_dim(num_funcs: int = 3) -> int:
+    return 1 + 2 * 2 * num_funcs

@@ -68,19 +68,18 @@ def flagship_trainer(ckpt: str, device="cuda", fused_stack: str = "pallas2",
     return run
 
 
-def bucket_batches(cfg, nl: int, n_batches: int, seed: int = 0):
-    """`n_batches` training batches (host numpy) of the `mixed` corpus whose
-    molecules all fall in the ligand bucket `nl`: sizes are drawn around the
-    bucket's middle and samples of other buckets are dropped."""
+def bucket_samples(cfg, nl: int, need: int, seed: int = 0):
+    """`need` samples of the `mixed` corpus that all fall in the ligand
+    bucket `nl`: sizes are drawn around the bucket's middle and samples of
+    other buckets are dropped."""
     from ..data.batching import pick_bucket
-    from ..data.loader import PhoreDataLoader
     from ..data.realcorpus import mixed_corpus
 
     ds = cfg.dataset
     buckets = sorted(ds.ligand_buckets)
     lo = max([b for b in buckets if b < nl] + [0]) + 1
     hi = min(nl, ds.max_atom)
-    need, samples, tries = n_batches * cfg.train.batch_size, [], 0
+    samples, tries = [], 0
     while len(samples) < need and tries < 20:
         got = mixed_corpus(seed + 1000 * tries, need, ds.data_name,
                            max_phore=ds.max_phore, max_atoms=hi,
@@ -91,7 +90,15 @@ def bucket_batches(cfg, nl: int, n_batches: int, seed: int = 0):
         tries += 1
     if len(samples) < need:
         raise RuntimeError(f"could not grow {need} samples for bucket {nl}")
-    loader = PhoreDataLoader(samples[:need], cfg, cfg.train.batch_size,
+    return samples[:need]
+
+
+def bucket_batches(cfg, nl: int, n_batches: int, seed: int = 0):
+    """`n_batches` training batches (host numpy) of `bucket_samples`."""
+    from ..data.loader import PhoreDataLoader
+
+    samples = bucket_samples(cfg, nl, n_batches * cfg.train.batch_size, seed)
+    loader = PhoreDataLoader(samples, cfg, cfg.train.batch_size,
                              shuffle=True, seed=seed, augment=True)
     return [b for b in loader]
 

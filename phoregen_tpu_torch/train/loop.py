@@ -27,6 +27,7 @@ import torch
 from ..data.loader import PhoreDataLoader, RawSample
 from ..models.phoregen import PhoreGen, init_params
 from ..parallel import group
+from ..utils.profiling import profile_trace
 from .checkpoint import load_checkpoint, load_params_only, save_checkpoint
 from .logger import MetricLogger
 from .state import (TrainState, create_train_state, get_learning_rate,
@@ -191,20 +192,14 @@ class Run:
         self.logger.summarize_epoch(mode)
 
     def _start_profile(self):
-        from torch.profiler import ProfilerActivity, profile
-        acts = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            acts.append(ProfilerActivity.CUDA)
-        prof = profile(activities=acts)
+        prof = profile_trace(os.path.join(self.logger.run_dir, "profile"))
         prof.__enter__()
         return prof
 
     def _stop_profile(self, prof):
         prof.__exit__(None, None, None)
-        out = os.path.join(self.logger.run_dir, "profile")
-        os.makedirs(out, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(out, "trace.json"))
-        self.logger.log(f"Profiler trace written to {out}")
+        self.logger.log("Profiler trace written to "
+                        f"{os.path.join(self.logger.run_dir, 'profile')}")
         return None
 
     # ----- top-level train -----

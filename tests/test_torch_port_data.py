@@ -108,15 +108,3 @@ def test_get_dataset_hermetic_equals_jax(corpus):
     for ours, ref in zip(pdataset.get_dataset(pcfg, synthetic_size=12),
                          jdataset.get_dataset(jcfg, synthetic_size=12)):
         _same_samples(ours, ref)
-
-
-def test_file_list_datasets_raise_and_name_the_roadmap(tmp_path):
-    _, pcfg = _cfgs()
-    pcfg.dataset.zinc_train_filelist = str(tmp_path / "train.json")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pdataset.get_dataset(pcfg)
-    pcfg.dataset.zinc_train_filelist = ""
-    pcfg.dataset.data_name = "pdbbind"
-    pcfg.dataset.pdbbind_filelist = str(tmp_path / "index.pkl")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pdataset.get_dataset(pcfg)

@@ -24,7 +24,9 @@ def test_every_module_imports_with_jax_blocked():
     for m in ("train.state", "train.step", "train.checkpoint", "train.logger",
               "train.loop", "cli.train", "cli.sample", "data.transforms",
               "data.synthetic", "data.realcorpus", "data.loader",
-              "data.dataset"):
+              "data.dataset", "data.sdf", "data.mol", "data.phorefp",
+              "data.surface", "data.ligphore", "utils.evalacc",
+              "utils.misc", "utils.profiling", "ops.mdn"):
         assert f"phoregen_tpu_torch.{m}" in mods, m
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack',\n"

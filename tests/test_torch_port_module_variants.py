@@ -1,6 +1,7 @@
 """The port's per-layer module path on parameter trees of other shapes
 than the flagship's (unstacked layers, output MLPs, exact-width triplets,
-no LayerNorm, no direction or edge-weight features), whole network against
+no LayerNorm, no direction or edge-weight features, num_r_gaussian other
+than 20), whole network against
 the JAX package, the settings the port refused and now takes (bf16 blocks,
 bf16 compute: 0.08, the JAX package's bf16 bound), and those it still
 refuses. Same sizes and tolerance (1e-4) as
@@ -30,6 +31,9 @@ OWN_PARAMS = {
                               act_fn="gelu"),
     "no_ew_no_dire_no_norm": dict(use_global_ew=False, direction_match=False,
                                   norm=False, h_node_in_bond_net=False),
+    # edge distances stay on the fixed 20-point grid, whatever
+    # num_r_gaussian says (the JAX layers infer their widths from it)
+    "num_r_gaussian_4": dict(num_r_gaussian=4),
 }
 
 
