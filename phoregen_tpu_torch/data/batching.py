@@ -35,6 +35,18 @@ class PhoreGraphBatch:
         return self.lig_type.shape[1]
 
     @property
+    def num_phore_slots(self) -> int:
+        return self.phore_x.shape[1]
+
+    @property
+    def atom_counts(self):
+        """[B] int32 count of real ligand atoms per graph."""
+        m = self.lig_mask
+        if isinstance(m, torch.Tensor):
+            return m.sum(1, dtype=torch.int32)
+        return np.sum(m, axis=1, dtype=np.int32)
+
+    @property
     def bond_mask(self):
         """[B, NL, NL] directed pair validity (off-diagonal, both real)."""
         m = self.lig_mask

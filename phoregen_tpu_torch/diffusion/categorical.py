@@ -77,6 +77,10 @@ class CategoricalTransition:
         self.transpose_q_onestep = transpose_one_step.astype(np.float32)
         self._dev = {}
 
+    @property
+    def num_timesteps(self) -> int:
+        return self.q_mats.shape[0]
+
     def _tables(self, device):
         """(q_mats, transpose_q_onestep) as tensors on `device`, cached."""
         key = str(device)

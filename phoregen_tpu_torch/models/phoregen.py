@@ -315,7 +315,7 @@ class PhoreGen:
             sums.add("len", *masked_sums(
                 (pair_dist(pred_pos) - pair_dist(lig_pos)) ** 2, bmask))
         # atom-count interval loss, count normalized to [0, 1]
-        true_count = batch.lig_mask.sum(1).to(torch.float32)
+        true_count = batch.atom_counts.to(torch.float32)
         norm_count = ((true_count - MIN_ATOMS) / (MAX_ATOMS - MIN_ATOMS)
                       )[:, None]
         sums.add_all("count", qd_sums(

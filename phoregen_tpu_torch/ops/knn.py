@@ -42,14 +42,17 @@ def _masked_sq_dist(x: torch.Tensor, mask: torch.Tensor):
     return d2, valid, torch.where(valid, d2, torch.full_like(d2, _INF))
 
 
-def knn_neighbors(x: torch.Tensor, mask: torch.Tensor, k: int
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+def knn_neighbors(x: torch.Tensor, mask: torch.Tensor, k: int,
+                  return_d2: bool = False) -> Tuple[torch.Tensor, ...]:
     """x [B,N,3], mask [B,N] bool -> (nbr_idx [B,N,K] int64, nbr_mask [B,N,K]
     bool) with K = min(k, N-1): the k nearest valid sources j != i of each
-    destination i, nearest first."""
+    destination i, nearest first. With `return_d2`, also the masked
+    [B,N,N] squared distances (`_INF` on padded pairs and the diagonal)."""
     k = min(k, mask.shape[1] - 1)
     _, _, d2m = _masked_sq_dist(x, mask)
     val, idx = _smallest_k(d2m, k)
+    if return_d2:
+        return idx, val < _INF * 0.5, d2m
     return idx, val < _INF * 0.5
 
 
@@ -57,10 +60,8 @@ def radius_neighbors(x: torch.Tensor, mask: torch.Tensor, k: int, r: float
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Radius graph capped at k neighbours: the k nearest valid sources
     that lie within `r` of the destination."""
-    k = min(k, mask.shape[1] - 1)
-    _, _, d2m = _masked_sq_dist(x, mask)
-    val, idx = _smallest_k(d2m, k)
-    return idx, (val < _INF * 0.5) & (val <= r * r)
+    idx, nbr_mask, d2 = knn_neighbors(x, mask, k, return_d2=True)
+    return idx, nbr_mask & (d2.gather(-1, idx) <= r * r)
 
 
 def hybrid_neighbors(x: torch.Tensor, mask: torch.Tensor, num_phore: int,

@@ -38,7 +38,7 @@ import torch
 from ..constants import MAX_ATOMS, MIN_ATOMS
 from ..data.batching import (PhoreGraphBatch, collate, pad_sample,
                              pick_bucket, replicate_phore)
-from ..data.phore import Phore, featurize_phore
+from ..data.phore import Phore, featurize_phore, parse_phore_file
 from .chem import MolReconsError, SimpleMol, mol_to_smiles
 from .decode import decode_batch
 from .reconstruct import reconstruct_from_generated_with_edges
@@ -337,3 +337,9 @@ class GenerationPipeline:
                 "n_sampled": n_sampled, "count_interval": (lower, upper),
                 "seconds": elapsed, "abandoned": len(mols) < num_samples,
                 "timed_out": timed_out}
+
+    def generate_from_file(self, phore_path: str, num_samples: int,
+                           out_dir: Optional[str] = None) -> Dict:
+        """`generate` on the phore that `parse_phore_file` reads."""
+        return self.generate(parse_phore_file(phore_path), num_samples,
+                             out_dir)

@@ -92,10 +92,11 @@ def trained_names(net: torch.nn.Module, freeze_pos: bool) -> List[str]:
             if not (freeze_pos and is_frozen_pos_name(n))]
 
 
-def make_optimizer(tcfg, net: torch.nn.Module) -> torch.optim.Optimizer:
-    ocfg = tcfg.optimizer
+def make_optimizer(cfg, net: torch.nn.Module) -> torch.optim.Optimizer:
+    """Adam or AdamW over the trained parameters (`cfg`: the TrainConfig)."""
+    ocfg = cfg.optimizer
     named = dict(net.named_parameters())
-    params = [named[n] for n in trained_names(net, tcfg.freeze_pos)]
+    params = [named[n] for n in trained_names(net, cfg.freeze_pos)]
     if ocfg.type == "adam":
         return torch.optim.Adam(params, lr=ocfg.lr, betas=(0.9, 0.999),
                                 eps=1e-8)
@@ -136,10 +137,10 @@ class TrainState:
     step: int = 0
 
 
-def create_train_state(tcfg, net: torch.nn.Module) -> TrainState:
+def create_train_state(cfg, net: torch.nn.Module) -> TrainState:
     device = next(net.parameters()).device
     return TrainState(
-        net=net, optimizer=make_optimizer(tcfg, net),
+        net=net, optimizer=make_optimizer(cfg, net),
         ema_params={n: p.detach().clone()
                     for n, p in net.named_parameters()},
         grad_queue=GradNormQueue(device), step=0)

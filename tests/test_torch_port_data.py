@@ -102,6 +102,24 @@ def test_loader_batches_equal_jax(shuffle, augment):
     assert tb.phore_x.shape[1] == pcfg.dataset.max_phore
 
 
+def test_batch_slot_and_atom_counts_equal_jax():
+    """`num_phore_slots` and `atom_counts` (int32 real ligand atoms per
+    graph) of the port's batch, on the host and as torch tensors, equal
+    the JAX batch's on the same samples."""
+    jcfg, pcfg = _cfgs()
+    jb = next(iter(jloader.PhoreDataLoader(
+        jreal.mixed_corpus(2, 8, max_atoms=48), jcfg, 8, shuffle=False)))
+    pb = next(iter(ploader.PhoreDataLoader(
+        preal.mixed_corpus(2, 8, max_atoms=48), pcfg, 8, shuffle=False)))
+    want = np.asarray(jb.atom_counts)
+    assert want.dtype == np.int32 and len(set(want.tolist())) > 1
+    for b in (pb, pb.to("cpu")):
+        assert b.num_phore_slots == jb.num_phore_slots
+        got = np.asarray(b.atom_counts)
+        assert got.dtype == np.int32
+        np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("corpus", ["mixed", "chains"])
 def test_get_dataset_hermetic_equals_jax(corpus):
     jcfg, pcfg = _cfgs(corpus)

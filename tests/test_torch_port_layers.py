@@ -192,6 +192,28 @@ def test_radius_neighbors_match_jax(points):
     assert 0 < pm.sum() < pm.numel()
 
 
+@pytest.mark.parametrize("points", ["random", "tied"])
+def test_knn_neighbors_return_d2_matches_jax(points):
+    """`return_d2` adds the masked squared distances: 1e-6 relative on the
+    finite entries, the same pattern of the +inf fill (padding and the
+    diagonal), and the same table as without it."""
+    x, mask = _tied_points() if points == "tied" else (
+        _inputs(2)["x"], _inputs(2)["mask"])
+    ji, jm, jd2 = jknn.knn_neighbors(jnp.asarray(x), jnp.asarray(mask), 4,
+                                     return_d2=True)
+    pi, pm, pd2 = pknn.knn_neighbors(T(x), T(mask), 4, return_d2=True)
+    jd2, pd2 = np.asarray(jd2), pd2.numpy()
+    assert pd2.shape == jd2.shape == (B, N, N)
+    inf = jd2 >= 0.5 * jknn._INF
+    np.testing.assert_array_equal(pd2 >= 0.5 * pknn._INF, inf)
+    assert inf.any() and not inf.all()
+    np.testing.assert_allclose(pd2[~inf], jd2[~inf], rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(pi.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(pm.numpy(), np.asarray(jm))
+    qi, qm = pknn.knn_neighbors(T(x), T(mask), 4)
+    assert torch.equal(qi, pi) and torch.equal(qm, pm)
+
+
 @pytest.mark.parametrize("k", [2, NP + 2])
 @pytest.mark.parametrize("points", ["random", "tied"])
 def test_hybrid_neighbors_match_jax(points, k):

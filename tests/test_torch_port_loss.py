@@ -55,6 +55,11 @@ def _log_probs(rng, shape, K):
     return np.asarray(jax.nn.log_softmax(jnp.asarray(logits), -1))
 
 
+def test_num_timesteps_matches_jax(cats):
+    jc, pc, _ = cats
+    assert pc.num_timesteps == jc.num_timesteps == T
+
+
 def test_q_vt_pred_and_posterior_match_jax(cats):
     jc, pc, K = cats
     rng = np.random.default_rng(0)

@@ -8,6 +8,7 @@ uniforms, and the Gaussian posterior mean with the guidance gradient
 (`jax.grad` of the JAX energies, `get_prev_with`). Posterior tolerance
 1e-5 (float32 on identical inputs); predictions 2e-4 as in
 tests/test_torch_port_model.py."""
+import dataclasses
 import os
 
 import jax
@@ -17,13 +18,14 @@ import pytest
 import torch
 
 from phoregen_tpu.data.loader import PhoreDataLoader
+from phoregen_tpu.data.phore import parse_phore_file as jparse_phore_file
 from phoregen_tpu.data.synthetic import synthetic_dataset
 from phoregen_tpu.models.phoregen import PhoreGen as JPhoreGen
 from phoregen_tpu.ops.masked import masked_mean as jmasked_mean
 from phoregen_tpu.sample import sampler as jsampler
 
 from phoregen_tpu_torch.data.batching import replicate_phore
-from phoregen_tpu_torch.data.phore import parse_phore_text
+from phoregen_tpu_torch.data.phore import parse_phore_file, parse_phore_text
 from phoregen_tpu_torch.models.phoregen import PhoreGen
 from phoregen_tpu_torch.sample import sampler as psampler
 from phoregen_tpu_torch.sample.pipeline import GenerationPipeline
@@ -42,6 +44,13 @@ $$$$
 """
 GUIDANCE = [dict(type="atom_prox", min_d=1.0, max_d=3.0),
             dict(type="center_prox")]
+
+
+def _lenient(info):
+    """Reconstruction without the valence check: the weights are random."""
+    mol = reconstruct_from_generated_with_edges(
+        info, add_edge="predicted", check_validity=False)
+    return mol, mol.formula()
 
 
 @pytest.fixture(scope="module")
@@ -294,6 +303,47 @@ def test_pipeline_end_to_end_writes_sdf(models, tmp_path):
         text = f.read()
     assert "V2000" in text and text.rstrip().endswith("$$$$")
     assert os.path.exists(os.path.join(out_dir, "time_chain.txt"))
+
+
+def test_generate_from_file_is_generate_on_the_parsed_phore(models, tmp_path):
+    """`generate_from_file` returns the dict and writes the SDF and SMILES
+    files that `generate` does on the parsed phore, on the same seed; the
+    port parses the file into the JAX package's Phore."""
+    _, _, pg = models
+    path = str(tmp_path / "pipe_phore.phore")
+    with open(path, "w") as f:
+        f.write(PHORE_TEXT)
+    phore = parse_phore_file(path)
+    assert dataclasses.asdict(phore) == dataclasses.asdict(
+        jparse_phore_file(path))
+
+    def run(tag):
+        pipe = GenerationPipeline(
+            pg, guidance=[psampler.GuidanceOpt(**g) for g in GUIDANCE],
+            batch_size=2, seed=5, device="cpu")
+        pipe.reconstruct = _lenient
+        out = str(tmp_path / tag)
+        res = (pipe.generate_from_file(path, 2, out) if tag == "file"
+               else pipe.generate(phore, 2, out))
+        files = {}
+        for d, _, names in os.walk(out):
+            for n in names:
+                with open(os.path.join(d, n)) as f:
+                    files[os.path.relpath(os.path.join(d, n), out)] = f.read()
+        return res, files
+
+    (a, fa), (b, fb) = run("file"), run("parsed")
+    assert a.keys() == b.keys()
+    for k in a:
+        if k not in ("mols", "seconds"):
+            assert a[k] == b[k], k
+    assert a["name"] == "pipe_phore" and a["n_finished"] == 2
+    assert fa.keys() == fb.keys()
+    assert {"pipe_phore/0.sdf", "pipe_phore/1.sdf",
+            "pipe_phore/pipe_phore_smiles.txt"} <= fa.keys()
+    for name in fa:
+        if name != "time_chain.txt":          # it holds the seconds
+            assert fa[name] == fb[name], name
 
 
 def test_pipeline_keeps_and_writes_trajectories(module_models, tmp_path):

@@ -194,6 +194,28 @@ def test_five_optimizer_steps_match_optax(opt):
     assert pstate.get_learning_rate(popt) == pytest.approx(3e-5)
 
 
+def test_optimizer_and_train_state_take_the_jax_keyword_cfg():
+    """`make_optimizer` and `create_train_state` take the TrainConfig as
+    `cfg`, as the JAX package's do: the same learning rate, a fresh step
+    count and an EMA shadow equal to the params."""
+    vals = _tree_vals(np.random.default_rng(6))
+    tcfg = _tcfg("adamw")
+    jst = jstate.create_train_state(
+        cfg=tcfg, params=jax.tree_util.tree_map(jnp.asarray, vals))
+    net = _Tree(vals)
+    pst = pstate.create_train_state(cfg=tcfg, net=net)
+    lr = np.float32(jstate.get_learning_rate(jst.opt_state))   # optax: f32
+    assert np.float32(pstate.get_learning_rate(pst.optimizer)) == lr
+    assert np.float32(pstate.get_learning_rate(
+        pstate.make_optimizer(cfg=tcfg, net=net))) == lr
+    assert pst.step == int(jst.step) == 0
+    for n, p in net.named_parameters():
+        a, b = n.split(".")
+        assert torch.equal(pst.ema_params[n], p.detach())
+        np.testing.assert_array_equal(pst.ema_params[n].numpy(),
+                                      np.asarray(jst.ema_params[a][b]))
+
+
 def test_freeze_pos_clips_on_all_gradients_and_freezes_the_update():
     """optax clips on the norm of ALL gradients, then zeroes the update of
     the `pos_layer*` leaves, and AdamW's decay does not touch them."""
