@@ -7,7 +7,9 @@
 Phases (any failure exits non-zero and prints no result):
 1. build: compiles the hand-written CUDA kernels from
    phoregen_tpu_torch/csrc/ with nvcc (sm_90a), one nvcc per source, all
-   started together;
+   started together, and counts the tensor-core (HMMA) instructions in the
+   SASS of `node_kernel` and `trip_att_kernel` (`cuobjdump -sass`), which
+   must hold some: their products run in 3xTF32 on the tensor cores;
 2. kernels: holds each kernel against its plain PyTorch version on the
    card and times both with CUDA events: the four layer-stack kernels and
    the two merged ones (A + B1, B2 + C) at flagship shapes (B=16, NP=96,
@@ -139,6 +141,7 @@ power limit; the last line is the device JSON.
 import copy
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -280,11 +283,35 @@ def gpu_name_power() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def hmma_counts(lib_path: str) -> dict:
+    """{kernel function (mangled name): HMMA instructions in its SASS} of
+    the layer-stack kernels that run stage A and stage B2 (cuobjdump from
+    the toolkit that built them)."""
+    from phoregen_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    res = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                         text=True, timeout=300)
+    if res.returncode != 0:
+        fail(f"cuobjdump -sass failed: {res.stderr.strip()}")
+    counts, fn = {}, None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if re.search(r"node_kernel|trip_att_kernel",
+                                         m.group(1)) else None
+            if fn:
+                counts[fn] = 0
+        elif fn and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
 def print_row(r, shape: str) -> None:
     from phoregen_tpu_torch.ops.kernel_check import BLOCK_MISMATCH_SHARE
     print(f"[kernels] {r['name']} {shape}: max_abs_err={r['max_abs_err']:.3e} "
           f"max_rel_err={r['max_rel_err']:.3e} ms={r['ms']:.4f} "
           f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+          f"bound_tc_ms={r['bound_tc_ms']:.4f} "
           f"({r['bound_by']}; {r['bytes'] / 1e6:.1f} MB, "
           f"{r['flops'] / 1e9:.2f} GFLOP on the slots the masks leave"
           + (f", {r['flops_all_slots'] / 1e9:.2f} on all slots"
@@ -1886,6 +1913,12 @@ def main():
         fail(f"kernel build failed: {e}")
     print(f"[build] {sorted(paths.values())} in "
           f"{time.time() - t_start:.1f} s", flush=True)
+    hmma = hmma_counts(paths["layer_stack"])
+    print(f"[sass] HMMA instructions (cuobjdump -sass): " + ", ".join(
+        f"{k} {v}" for k, v in sorted(hmma.items())), flush=True)
+    if not any("node_kernel" in k and v for k, v in hmma.items()) or not any(
+            "trip_att_kernel" in k and v for k, v in hmma.items()):
+        fail(f"node_kernel or trip_att_kernel holds no HMMA: {hmma}")
     if only is not None:
         solo = {"ddp": lambda: phase_ddp(root, ls, pt),
                 "shard": lambda: phase_shard(root, ls, pt),
@@ -1946,12 +1979,13 @@ def main():
     main_n = f"B=16 N={bucket}" if f"B=16 N={bucket}" in pool \
         else next(iter(pool))
     shape_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                  "bytes", "flops", "tol")
+                  "bound_tc_ms", "bytes", "flops", "tol")
     pool_row = dict(pool[main_n], shape=main_n, other_shapes=[
         {"shape": label, **{k: r[k] for k in shape_keys}}
         for label, r in pool.items() if label != main_n])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "bound_tc_ms",
+            "library_ms")
     # launches of each kernel on the main path that runs it (by path where
     # more than one does)
     by_path = {

@@ -1,5 +1,6 @@
 // Fused layer-stack stage kernels for Hopper (sm_90a), float32 arithmetic
-// throughout; the inter-stage blocks pre_t and q_z may be stored in bf16.
+// throughout (the matrix products in 3xTF32 on the tensor cores); the
+// inter-stage blocks pre_t and q_z may be stored in bf16.
 //
 // These replace the four Pallas TPU kernels that `layer_stack_pallas`
 // (phoregen_tpu/ops/layer_stack.py) runs per attention layer:
@@ -23,26 +24,32 @@
 //   A takes two nodes a block so that its kNN edge products run on 2 * K =
 //   64 rows a weight pass instead of 32 (measured on the H100: 9% off stage
 //   A at NL=80 and 48); the bond-grid attention of a ligand node then runs
-//   once for each of the two. B2 + C has no room for a second destination.
-// - One product loop, `mm`, serves every matrix product of the six kernels
-//   and `rows_gemm`. A thread owns TM x 4 outputs (TM = 1..5, chosen so that
-//   the block's row groups cover the rows in one pass: 5 for 80 rows, 3 for
-//   48), reads its A fragment as one 16-byte shared load per row and 4 k and
-//   its weight fragment as four 16-byte loads per 4 k: 80 FMAs on 9 loads at
-//   TM = 5. Row pitches are padded by 4 floats so that row groups of one warp
-//   fall on different banks. Measured, the loop runs at about 60% of the FMA
-//   pipes' rate at TM = 5 and 35% at TM = 2 (the 32 kNN edges of one node).
-//   Weight k-slices of KS = 16 rows x 128 columns
-//   go through a two-deep shared-memory ring filled by cp.async: the slice
-//   after the one being multiplied is in flight behind its FMAs, one block
-//   barrier a slice. Narrow products (16 columns) spread (row, 4 columns)
-//   tiles over the whole block; single-row products (`vec_mat`) split the
-//   sum over k across the block and reduce. Float32 FMA only: TF32 or bf16
-//   tensor-core products would break the 1e-4 tolerances.
+//   once for each of the two, and not at all for a padded ligand slot (its
+//   pool would add exact zeros). B2 + C has no room for a second
+//   destination.
+// - One product routine, `mm`, serves every matrix product of the six
+//   kernels and `rows_gemm`. Products whose width is a multiple of 4 run
+//   on the tensor cores in error-compensated 3xTF32 (`mm_tc`): warp-level
+//   mma.sync m16n8k8 TF32 tiles, each operand split in registers into a
+//   TF32 hi and lo part, three products (lo.hi + hi.lo + hi.hi) into a
+//   float32 sum; A's fragments come from shared memory by ldmatrix, the
+//   weight's from a two-deep shared-memory ring of k-slices (16 rows of 128
+//   columns or 8 of 256, row pitch 8 mod 32 floats) filled by cp.async, one
+//   block barrier a slice. The rows' errors against their plain versions
+//   are several times a float32 FMA loop's and far inside the 1e-4
+//   tolerance (see mm). Stage A's and B2's products take 1.3x-1.6x fewer
+//   cycles than on an FMA loop (PERF.md); mma.sync does not reach the
+//   tensor cores' wgmma rate, the next step. Single-row
+//   products (`vec_mat`) split the sum over k across the block and reduce.
+//   The layout of a call is chosen by shape with no integer division: a
+//   division is some 30 instructions, and a product's fixed cost counts at
+//   these widths.
 // - Rows per weight pass. B2 takes a whole column of a destination (all
 //   sources j, up to 80 pairs) through its two products at once, so
 //   `tq_W1` and `t_out_W` are read once a block, not once per 8 pairs.
-//   Heads go in groups of 256 / Wt (8 at the flagship): q_h of the group
+//   Where q_h of all heads fits beside a whole column (the flagship at NL <=
+//   48), B2 alone takes all heads in one pass over the pre_t tiles; else
+//   heads go in groups of 256 / Wt (8 at the flagship): q_h of the group
 //   [pairs][256] is computed, a warp per pair streams the pair's pre_t tile
 //   (K8 x Wt, contiguous, 16-byte cp.async, rows rotated against bank
 //   conflicts) into its own buffer and writes `pooled` over the q_h slots it
@@ -52,16 +59,18 @@
 //   tiles (2 passes at the flagship, 419 MB each at NL=80, B=16). Measured
 //   on the H100 with groups of 4 (4 passes) the tile phase ran at the
 //   memory's rate, not the FMAs': the 132 blocks' tiles (43 MB) do not stay
-//   in L2 between passes. One pass (16 heads, q_h 165 KB) does not fit.
+//   in L2 between passes. One pass over a column of 80 (16 heads, q_h 165
+//   KB) does not fit; one pass over 48 + 32 pairs a block measured 6%
+//   slower than two over 80 (trip_att_heads).
 //   Pairs that the masks void (padding, j == i) skip tile and attention; a
 //   padded destination only copies hb + t_out_b and x, and the products of
 //   B2 and of the bond grid's attention (A, C) run on the sources up to a
 //   graph's last atom only, not on the padding behind it.
 // - Shared memory of B2 + C at the flagship (NL=80): rows 41 KB | q_h 81 KB
 //   (then C's first-layer tile) | q_z 41 KB, then 16 pre_t tile buffers
-//   64 KB, then C's k tile | weight ring 16 KB (between a group's two
+//   64 KB, then C's k tile | weight ring 17 KB (between a group's two
 //   products it holds the warps' softmax weights) | scores, values, query:
-//   15 KB; 222,800 bytes, one block an SM. ls_launch_plan reports it. The
+//   15 KB; 223,824 bytes, one block an SM. ls_launch_plan reports it. The
 //   kNN edge attention of the same destination runs first and lies over the
 //   same regions.
 // - Wide phases: edge features over (edge, rbf) pairs; each softmax a warp
@@ -78,11 +87,13 @@
 //   ONE rows_gemm on [nodeA_W | nodeB_W], then B1's grid and A's grid, each
 //   with its own shared-memory footprint (measured equal, within 1%, to one
 //   grid whose blocks take either role; two grids need no third kernel).
-// - Bounds on the H100 (flagship, B=16, NL=80, NP=96): every stage is
-//   bound by float32 FMA throughput outside the tensor cores (67 TFLOP/s)
-//   except B1, whose pre_t write (B*NL*NL*K8*Wt*4 = 419 MB) makes it bound
-//   by bytes (3.35 TB/s). The measured times sit beside their bounds in
-//   PERF.md.
+// - Bounds on the H100 (flagship, B=16, NL=80, NP=96): with every
+//   operation at the float32 FMA rate outside the tensor cores (67
+//   TFLOP/s), every stage is bound by operations except B1, whose pre_t
+//   write (B*NL*NL*K8*Wt*4 = 419 MB) makes it bound by bytes (3.35 TB/s);
+//   with the matrix products at 3xTF32's 165 TFLOP/s
+//   (kernel_check.bound_tc_ms) the bounds fall by a third or more. The
+//   measured times sit beside both bounds in PERF.md.
 // - bf16 blocks (`fused_block_dtype`, the JAX package's
 //   layer_stack_pallas(block_dtype=bf16)): B1 and A + B1 have a form that
 //   stores pre_t and q_z as bf16 (rounded to nearest even from the float32
@@ -114,11 +125,14 @@
 #define FE 93     // [edge type x rbf (80) | edge type (4) | dire (9)]
 #define FEP 100   // row pitch of the edge-feature tile; columns 93..95 are 0
 #define NT 512    // threads per block
+#define NW 16     // warps per block
+#define LOG_NW 4
 #define KS 16     // weight rows per staged slice
 #define NCMAX 128 // columns per staged pass
 #define PD 4      // pad of shared-memory row pitches
 #define RMAX 80   // most source rows per pass in A, B2, C
-#define RING_FLOATS (2 * KS * NCMAX)
+#define RING_HALF (KS * (NCMAX + 8))  // a slice of the weight ring
+#define RING_FLOATS (2 * RING_HALF)
 
 __constant__ float c_rbf_off[NRBF] = {
     0.0f, 1.0f, 1.25f, 1.5f, 1.75f, 2.0f, 2.25f, 2.5f, 2.75f, 3.0f,
@@ -272,157 +286,48 @@ __device__ __forceinline__ WSrc wmat(const float* W, int ldw) {
   return ws;
 }
 
-// A thread's share of staging columns [c0, c0 + nc) of the weight: the
-// 16-byte chunk at column c0 + cl of slice rows kk0, kk0 + step, ...; worked
-// out once a column chunk, so that a slice costs no division.
+// A thread's share of staging columns [c0, c0 + nc) of the weight into ring
+// rows of `pitch` floats: the 16-byte chunk at column c0 + cl of slice rows
+// kk0, kk0 + step, ...; worked out once a column chunk, so that a slice
+// costs no division (and a power-of-two width and a plain weight none at
+// all: an integer division is some 30 instructions, and a product's fixed
+// cost counts at the widths here).
 struct StageMap {
   const float* src;  // (row 0, column c0 + cl)
-  int ldw, kk0, step, cl;
+  int ldw, kk0, step, cl, pitch;
 };
 
-__device__ __forceinline__ StageMap stage_map(const WSrc& ws, int c0, int nc) {
+__device__ __forceinline__ StageMap stage_map(const WSrc& ws, int c0, int nc,
+                                              int pitch) {
   const int n4 = nc >> 2, tid = threadIdx.x;
   StageMap m;
-  m.step = blockDim.x / n4;
-  m.kk0 = tid / n4 < m.step ? tid / n4 : KS;  // spare threads stage nothing
-  m.cl = (tid % n4) * 4;
+  int q;
+  if ((n4 & (n4 - 1)) == 0) {
+    const int l = __ffs(n4) - 1;
+    m.step = NT >> l; q = tid >> l;
+  } else {
+    m.step = NT / n4; q = tid / n4;
+  }
+  m.kk0 = q < m.step ? q : 1 << 20;  // spare threads stage nothing
+  m.cl = (tid - q * n4) * 4;
   const int c = c0 + m.cl;
-  m.src = ws.W + (size_t)(c / ws.cbw) * ws.cbs + c % ws.cbw;
+  m.src = c < ws.cbw ? ws.W + c
+                     : ws.W + (size_t)(c / ws.cbw) * ws.cbs + c % ws.cbw;
   m.ldw = ws.ldw;
+  m.pitch = pitch;
   return m;
 }
 
-// Rows [k0, k0 + KS) of the weight into one ring buffer [KS][NCMAX]; rows
+// Rows [k0, k0 + ks) of the weight into one ring buffer [ks][pitch]; rows
 // from Kd on are zero.
 __device__ __forceinline__ void stage_slice(const StageMap& m, int Kd, int k0,
-                                            float* buf) {
-  for (int kk = m.kk0; kk < KS; kk += m.step) {
-    float* dst = buf + kk * NCMAX + m.cl;
+                                            int ks, float* buf) {
+  for (int kk = m.kk0; kk < ks; kk += m.step) {
+    float* dst = buf + kk * m.pitch + m.cl;
     if (k0 + kk < Kd)
       cp_async16(dst, m.src + (size_t)(k0 + kk) * m.ldw);
     else
       st4(dst, make_float4(0.f, 0.f, 0.f, 0.f));
-  }
-}
-
-struct MmMap {
-  int cpw, nwc, nrg;  // column groups a warp, warps a row of warps, row groups
-};
-
-__device__ __forceinline__ MmMap mm_map(int nc, int nw) {
-  const int ncg = nc >> 2;
-  MmMap m;
-  m.cpw = 8;
-  while (m.cpw > ncg) m.cpw >>= 1;
-  m.nwc = (ncg + m.cpw - 1) / m.cpw;
-  m.nrg = imax(1, nw / m.nwc) * (32 / m.cpw);
-  return m;
-}
-
-#define MM_STEP(KK)                                                  \
-  {                                                                  \
-    const float4 w0 = ld4(wb + (KK) * NCMAX);                        \
-    const float4 w1 = ld4(wb + ((KK) + 1) * NCMAX);                  \
-    const float4 w2 = ld4(wb + ((KK) + 2) * NCMAX);                  \
-    const float4 w3 = ld4(wb + ((KK) + 3) * NCMAX);                  \
-    _Pragma("unroll") for (int r = 0; r < TM; ++r) {                 \
-      const float4 av = ld4(A + ro[r] + k0 + (KK));                  \
-      acc[r][0] = fmaf(av.x, w0.x, acc[r][0]);                       \
-      acc[r][1] = fmaf(av.x, w0.y, acc[r][1]);                       \
-      acc[r][2] = fmaf(av.x, w0.z, acc[r][2]);                       \
-      acc[r][3] = fmaf(av.x, w0.w, acc[r][3]);                       \
-      acc[r][0] = fmaf(av.y, w1.x, acc[r][0]);                       \
-      acc[r][1] = fmaf(av.y, w1.y, acc[r][1]);                       \
-      acc[r][2] = fmaf(av.y, w1.z, acc[r][2]);                       \
-      acc[r][3] = fmaf(av.y, w1.w, acc[r][3]);                       \
-      acc[r][0] = fmaf(av.z, w2.x, acc[r][0]);                       \
-      acc[r][1] = fmaf(av.z, w2.y, acc[r][1]);                       \
-      acc[r][2] = fmaf(av.z, w2.z, acc[r][2]);                       \
-      acc[r][3] = fmaf(av.z, w2.w, acc[r][3]);                       \
-      acc[r][0] = fmaf(av.w, w3.x, acc[r][0]);                       \
-      acc[r][1] = fmaf(av.w, w3.y, acc[r][1]);                       \
-      acc[r][2] = fmaf(av.w, w3.z, acc[r][2]);                       \
-      acc[r][3] = fmaf(av.w, w3.w, acc[r][3]);                       \
-    }                                                                \
-  }
-
-// out[m*ldo + c] (= or +=) bias[c] + sum_k A[m*lda + k] * W(k, c) for
-// m < M, c < Nc (Nc % 4 == 0). A lies in shared memory with lda % 4 == 0
-// and columns [Kd, up4(Kd)) finite; `out` in shared or device memory with
-// 16-byte aligned rows; `ring` is RING_FLOATS of shared memory. Every
-// thread of the block must call it; A must be complete (a barrier) before
-// the call, and a barrier ends it. Thread (cg, rg) owns columns cg*4.. of
-// the 128-column chunk and rows rg, rg + nrg, ... of the pass. A warp is 8
-// column groups x 4 row groups: its weight load is one 128-byte wavefront a
-// quarter warp and its A load four rows on different banks (row pitch = 4
-// mod 32). Measured on the H100: a slice of 16 k takes a warp about 2,000
-// cycles at TM = 5 (1,280 would be the FMA pipes' rate); a 32 x 1 warp
-// layout measured the same, and thread tiles of TM x 8 columns with the
-// warps in two k-groups (13 loads for 160 FMAs) 10% slower.
-template <int TM>
-__device__ __noinline__ void mm_tm(const float* A, int lda, int M, WSrc ws,
-                                   int Kd, int Nc,
-                                   const float* __restrict__ bias, float* out,
-                                   int ldo, bool accumulate, float* ring) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nsl = (Kd + KS - 1) / KS, Kd4 = up4(Kd);
-  for (int c0 = 0; c0 < Nc; c0 += NCMAX) {
-    const int nc = imin(NCMAX, Nc - c0), ncg = nc >> 2;
-    const MmMap mp = mm_map(nc, blockDim.x >> 5);
-    const StageMap sp = stage_map(ws, c0, nc);
-    const int cg = (warp % mp.nwc) * mp.cpw + lane % mp.cpw;
-    const int rg = (warp / mp.nwc) * (32 / mp.cpw) + lane / mp.cpw;
-    const int nrg = mp.nrg;
-    for (int m0 = 0; m0 < M; m0 += nrg * TM) {
-      const int mr = m0 + rg;
-      const bool act = cg < ncg && rg < nrg && mr < M;
-      float acc[TM][4];
-      int ro[TM];
-#pragma unroll
-      for (int r = 0; r < TM; ++r) {
-        acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
-        ro[r] = imin(mr + r * nrg, M - 1) * lda;
-      }
-      stage_slice(sp, Kd, 0, ring);
-      for (int s = 0; s < nsl; ++s) {
-        cp_async_wait();
-        __syncthreads();
-        if (s + 1 < nsl)
-          stage_slice(sp, Kd, (s + 1) * KS, ring + ((s + 1) & 1) * KS * NCMAX);
-        if (act) {
-          const float* wb = ring + (s & 1) * KS * NCMAX + cg * 4;
-          const int k0 = s * KS, kn = imin(KS, Kd4 - k0);
-          if (kn == KS) {
-#pragma unroll
-            for (int kk = 0; kk < KS; kk += 4) MM_STEP(kk)
-          } else {
-            for (int kk = 0; kk < kn; kk += 4) MM_STEP(kk)
-          }
-        }
-      }
-      if (act) {
-        const int c = c0 + cg * 4;
-        float bv[4] = {0.f, 0.f, 0.f, 0.f};
-        if (bias) {
-#pragma unroll
-          for (int q = 0; q < 4; ++q) bv[q] = __ldg(bias + c + q);
-        }
-#pragma unroll
-        for (int r = 0; r < TM; ++r) {
-          if (mr + r * nrg < M) {
-            float* o = out + (size_t)(mr + r * nrg) * ldo + c;
-            float4 v = make_float4(acc[r][0] + bv[0], acc[r][1] + bv[1],
-                                   acc[r][2] + bv[2], acc[r][3] + bv[3]);
-            if (accumulate) {
-              const float4 old = ld4(o);
-              v.x += old.x; v.y += old.y; v.z += old.z; v.w += old.w;
-            }
-            st4(o, v);
-          }
-        }
-      }
-      __syncthreads();
-    }
   }
 }
 
@@ -441,24 +346,260 @@ __device__ void mm_narrow(const float* A, int lda, int M,
   __syncthreads();
 }
 
-__device__ void mm(const float* A, int lda, int M, WSrc ws, int Kd, int Nc,
-                   const float* bias, float* out, int ldo, bool accumulate,
-                   float* ring) {
-  if (Nc & 3) {  // only plain weights come here (value heads)
+// ------------------------------------------- tensor-core products, 3xTF32
+
+// x = hi + lo with hi = x rounded to TF32 (10 mantissa bits, to nearest,
+// ties away from zero: cvt.rna.tf32.f32's rounding of a finite x, in two
+// integer operations) and lo = x - hi, exact in float32, of which the
+// tensor core reads the top 11 significant bits. Rounding lo to TF32 as
+// well gave the same errors on the card and cost 2-5% a row; truncating
+// hi doubled the products' error, enough to fail chip_smoke.py's bf16
+// training check (PERF.md).
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (x + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi));
+}
+
+// d += a b over one m16n8k8 tile, TF32 operands, float32 accumulator.
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The lane's A fragment of a 16 x 8 tile from shared memory in one
+// instruction: four 8 x 4 float matrices, lane l giving the address of row
+// l % 8 of matrix l / 8 (see mm_tc).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4],
+                                            uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr));
+}
+
+// One k-step of one row tile against the warp's TN column tiles: the A
+// fragment `a` (float32 bits) is split here, the weight fragments come
+// split (bh, bl); the three products go small terms first, lo.hi + hi.lo
+// + hi.hi.
+template <int TN>
+__device__ __forceinline__ void tile_step(const uint32_t (&a)[4],
+                                          const uint32_t (&bh)[TN][2],
+                                          const uint32_t (&bl)[TN][2],
+                                          float (&acc)[TN][4]) {
+  uint32_t ah[4], al[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) split_tf32(a[q], ah[q], al[q]);
+#pragma unroll
+  for (int n = 0; n < TN; ++n) {
+    mma_tf32(acc[n], al, bh[n]);
+    mma_tf32(acc[n], ah, bl[n]);
+    mma_tf32(acc[n], ah, bh[n]);
+  }
+}
+
+// The lane's weight fragments of one k-step from a ring slice (wb: row 0
+// of the k-step at the lane's column gr of the warp's first column tile;
+// rows `pitch` floats apart), split.
+template <int TN>
+__device__ __forceinline__ void split_b(const float* wb, int pitch, int tq,
+                                        uint32_t (&bh)[TN][2],
+                                        uint32_t (&bl)[TN][2]) {
+#pragma unroll
+  for (int n = 0; n < TN; ++n) {
+    split_tf32(__float_as_uint(wb[tq * pitch + n * 8]), bh[n][0], bl[n][0]);
+    split_tf32(__float_as_uint(wb[(tq + 4) * pitch + n * 8]), bh[n][1],
+               bl[n][1]);
+  }
+}
+
+// The tensor-core form of `mm`. The block's warps form wm rows x wn columns
+// of warps; a warp owns TM x TN tiles of 16 rows x 8 columns (m16n8k8
+// fragments: lane (gr, tq) = (lane / 4, lane % 4) holds A elements
+// (gr | gr + 8, tq | tq + 4) of a tile, weight elements (tq | tq + 4, gr)
+// and outputs (gr | gr + 8, 2 tq | 2 tq + 1)). A pass covers wn * TN * 8
+// columns and wm * TM * 16 rows. The weight columns of a pass go through
+// the two-deep ring as slices of ks rows (16 rows of 128 columns, 8 of 256)
+// at a pitch of 8 mod 32 floats, so that a warp's weight-fragment loads
+// fall on 32 banks; one block barrier a slice. A's fragments come from
+// shared memory by ldmatrix (rows at lda = 4 mod 32, or 20, on 32 banks);
+// rows beyond M read row M - 1 and are not stored. The k loop is straight
+// code over the warp's TM x TN tiles, so that their independent mma chains
+// and the next tile's loads overlap; a warp with no tile inside the product
+// skips it. A k-step that runs past Kd (the last one, when Kd % 8 != 0)
+// loads A by element and reads its columns from Kd on as 0; the ring's
+// rows there are 0 as well, so nothing that lies in shared memory beyond
+// the matrix reaches a stored value.
+template <int TM, int TN>
+__device__ __noinline__ void mm_tc(const float* A, int lda, int M, WSrc ws,
+                                   int Kd, int Nc,
+                                   const float* __restrict__ bias, float* out,
+                                   int ldo, bool accumulate, float* ring,
+                                   int lwm) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gr = lane >> 2, tq = lane & 3;
+  const int wm = 1 << lwm, wn = NW >> lwm;
+  const int wc = warp & (wn - 1), wr = warp >> (LOG_NW - lwm);
+  const int cw = wn * TN * 8;
+  // ldmatrix: lane l addresses row l % 8 (+ 8 for matrices 1 and 3) and
+  // column + 4 for matrices 2 and 3 of a tile
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8, lcol = (lane >> 4) * 4;
+  const uint32_t a_sh = (uint32_t)__cvta_generic_to_shared(A);
+  for (int c0 = 0; c0 < Nc; c0 += cw) {
+    const int nc = imin(cw, Nc - c0);
+    const int pitch = ((nc + 31) & ~31) + 8;
+    int ks = 8;  // slice rows: a multiple of 8, up to 64, as the ring holds
+    while (ks < 64 && (ks + 8) * pitch <= RING_HALF) ks += 8;
+    const StageMap sp = stage_map(ws, c0, nc, pitch);
+    const int wcol = wc * TN * 8;
+    const bool col_live = wcol < nc;
+    for (int m0 = 0; m0 < M; m0 += wm * TM * 16) {
+      const int mb = m0 + wr * TM * 16;
+      const int live = col_live ? imin(TM, (M - mb + 15) >> 4) : 0;
+      float acc[TM][TN][4];
+      uint32_t aa[TM];
+#pragma unroll
+      for (int r = 0; r < TM; ++r) {
+#pragma unroll
+        for (int n = 0; n < TN; ++n)
+          acc[r][n][0] = acc[r][n][1] = acc[r][n][2] = acc[r][n][3] = 0.f;
+        aa[r] = a_sh + (uint32_t)(imin(mb + r * 16 + lrow, M - 1) * lda +
+                                  lcol) * 4u;
+      }
+      stage_slice(sp, Kd, 0, ks, ring);
+      for (int k0 = 0, s = 0; k0 < Kd; k0 += ks, s ^= 1) {
+        cp_async_wait();
+        __syncthreads();
+        if (k0 + ks < Kd)
+          stage_slice(sp, Kd, k0 + ks, ks, ring + (s ^ 1) * RING_HALF);
+        if (live > 0) {
+          const float* wb = ring + s * RING_HALF + wcol + gr;
+          const int kr = imin(ks, Kd - k0), kf = kr & ~7;
+#pragma unroll 2
+          for (int kk = 0; kk < kf; kk += 8) {
+            uint32_t bh[TN][2], bl[TN][2];
+            split_b<TN>(wb + kk * pitch, pitch, tq, bh, bl);
+#pragma unroll
+            for (int r = 0; r < TM; ++r) {
+              uint32_t a[4];
+              ldmatrix_x4(a, aa[r] + (uint32_t)(k0 + kk) * 4u);
+              tile_step<TN>(a, bh, bl, acc[r]);
+            }
+          }
+          if (kf < kr) {  // the k-step that runs past Kd
+            uint32_t bh[TN][2], bl[TN][2];
+            split_b<TN>(wb + kf * pitch, pitch, tq, bh, bl);
+            const int ka = k0 + kf + tq;
+#pragma unroll
+            for (int r = 0; r < TM; ++r) {
+              const float* ar = A + imin(mb + r * 16 + gr, M - 1) * lda;
+              const float* ar8 = A + imin(mb + r * 16 + gr + 8, M - 1) * lda;
+              uint32_t a[4];
+              a[0] = ka < Kd ? __float_as_uint(ar[ka]) : 0u;
+              a[1] = ka < Kd ? __float_as_uint(ar8[ka]) : 0u;
+              a[2] = ka + 4 < Kd ? __float_as_uint(ar[ka + 4]) : 0u;
+              a[3] = ka + 4 < Kd ? __float_as_uint(ar8[ka + 4]) : 0u;
+              tile_step<TN>(a, bh, bl, acc[r]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < TN; ++n) {
+        const int c = c0 + wcol + n * 8 + 2 * tq;
+        if (!col_live || c >= Nc) continue;
+        const float b0 = bias ? __ldg(bias + c) : 0.f;
+        const float b1 = bias ? __ldg(bias + c + 1) : 0.f;
+#pragma unroll
+        for (int r = 0; r < TM; ++r) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = mb + r * 16 + gr + 8 * h;
+            if (r >= live || row >= M) continue;
+            float2* o = reinterpret_cast<float2*>(out + (size_t)row * ldo + c);
+            float2 v = make_float2(acc[r][n][2 * h] + b0,
+                                   acc[r][n][2 * h + 1] + b1);
+            if (accumulate) {
+              const float2 old = *o;
+              v.x += old.x; v.y += old.y;
+            }
+            *o = v;
+          }
+        }
+      }
+      __syncthreads();  // the ring's slice 0 is staged again next pass
+    }
+  }
+}
+
+// out[m*ldo + c] (= or +=) bias[c] + sum_k A[m*lda + k] * W(k, c) for
+// m < M, c < Nc. A lies in shared memory, 16-byte aligned, with lda % 4 ==
+// 0; its columns from Kd on are not read. `out` lies in shared or device
+// memory with 16-byte aligned rows; `ring` is RING_FLOATS of shared memory.
+// Every thread of the block must call it; A must be complete (a barrier)
+// before the call, and a barrier ends it.
+//
+// Every product whose width is a multiple of 4 runs on the tensor cores in
+// 3xTF32 (mm_tc): each operand x is split in registers into TF32 parts
+// (split_tf32: hi = rna(x), lo = x - hi) and a tile's sum takes lo.hi +
+// hi.lo + hi.hi, small terms first, in float32. What it leaves out, lo.lo
+// and lo's bits beyond TF32, is ~2^-21 of |x||w| at most; the tensor
+// core's float32 accumulation adds more than that. Against their plain
+// versions the layer-stack rows read max abs errors of a few 1e-7 to a few
+// 1e-6, several times those of a float32 FMA loop (measured on the card:
+// PERF.md), far inside the 1e-4 tolerances; plain TF32 (hi.hi
+// alone) would come near them (tests/test_torch_port_tf32_split.py
+// emulates both in numpy). The
+// tile shape (TM, TN) and the warps' grid (wm rows of warps) are fixed by
+// the product's shape: the one with the least work a k-step on the busiest
+// warp, counting an ldmatrix and 4 x 2 for its split a row tile, two
+// loads and 2 x 2 for their split a column tile, and three mma a tile at
+// four instruction slots each (an m16n8k8 TF32 mma.sync holds its SM
+// quarter's tensor core, which four warps share, for several cycles).
+// Plain weights of widths that are no multiple of 4 (value heads) take
+// mm_narrow.
+__device__ __noinline__ void mm(const float* A, int lda, int M, WSrc ws,
+                                int Kd, int Nc, const float* bias, float* out,
+                                int ldo, bool accumulate, float* ring) {
+  if (Nc & 3) {
     mm_narrow(A, lda, M, ws.W, ws.ldw, Kd, Nc, bias, out, ldo);
     return;
   }
-  const int nrg = mm_map(imin(NCMAX, Nc), blockDim.x >> 5).nrg;
-#define MM_TM(T) \
-  mm_tm<T>(A, lda, M, ws, Kd, Nc, bias, out, ldo, accumulate, ring)
-  switch ((M + nrg - 1) / nrg) {
-    case 0: case 1: MM_TM(1); break;
-    case 2: MM_TM(2); break;
-    case 3: MM_TM(3); break;
-    case 4: MM_TM(4); break;
-    default: MM_TM(5);
+  // every divisor below is a power of two once the loops are unrolled
+  const int ntm = (M + 15) >> 4, ntn = (Nc + 7) >> 3;
+  int best = 1 << 30, TM = 1, TN = 1, LWM = 0;
+#pragma unroll
+  for (int tn = 1; tn <= 2; ++tn) {
+#pragma unroll
+    for (int lwm = 0; lwm <= LOG_NW; ++lwm) {
+      const int wm = 1 << lwm, wn = NW >> lwm;
+      const int tm = imin(5, (ntm + wm - 1) >> lwm);
+      const int cols = (ntn + wn * tn - 1) / (wn * tn);   // column passes
+      const int rows =                                     // row passes
+          ntm <= wm * tm ? 1 : (ntm + wm * tm - 1) / (wm * tm);
+      const int live = imin(tm, ntm);                     // busiest warp
+      const int cost = cols * rows * (live * (1 + 8 + 12 * tn) + tn * 6);
+      if (cost < best) { best = cost; TM = tm; TN = tn; LWM = lwm; }
+    }
   }
-#undef MM_TM
+#define MM_TC(T, N) \
+  mm_tc<T, N>(A, lda, M, ws, Kd, Nc, bias, out, ldo, accumulate, ring, LWM)
+  switch (TN * 8 + TM) {
+    case 9: MM_TC(1, 1); break;
+    case 10: MM_TC(2, 1); break;
+    case 11: MM_TC(3, 1); break;
+    case 12: MM_TC(4, 1); break;
+    case 13: MM_TC(5, 1); break;
+    case 17: MM_TC(1, 2); break;
+    case 18: MM_TC(2, 2); break;
+    case 19: MM_TC(3, 2); break;
+    case 20: MM_TC(4, 2); break;
+    default: MM_TC(5, 2);
+  }
+#undef MM_TC
 }
 
 // out[c] = bias[c] + sum_k v[k] * W[k*ldw + c] for c < Nc (Nc % 4 == 0,
@@ -607,8 +748,9 @@ __device__ void node_comb(const Dims& d, const Args& a, const float* xb,
   for (int e = 0; e < 3; ++e) out[e] = c[e] / cnt - pl[e];
 }
 
-// Heads per group in B2: as many as fill 2 * NCMAX columns of q_h (8 at the
-// flagship). Each group is one more pass over the pre_t tiles.
+// Heads per group in B2 + C: as many as fill 2 * NCMAX columns of q_h (8 at
+// the flagship). Each group is one more pass over the pre_t tiles. B2 alone
+// takes all heads in one group (trip_att_heads).
 __host__ __device__ inline int att_head_group(const Dims& d) {
   return imax(1, imin(d.heads, 2 * NCMAX / d.Wt));
 }
@@ -629,7 +771,7 @@ __host__ __device__ inline int edge_chunk(int KE) {
 //         edge features [KC][FEP] of one pass over the edges (KC of the
 //         KE edges of the block's G nodes, see edge_chunk)
 //   u1:   first-layer tile [R or KC][2H+PD] | B2's q_h / pooled
-//         [R][HG*Wt+PD]
+//         [R][hg*Wt+PD] (hg heads a group; 0: no B2)
 //   u2:   second-layer tile (bond k [R][H+PD], edge k|v [KC][2H+PD]) |
 //         B2's q_z [R][H+PD] while a head group's queries are made, then
 //         its per-warp pre_t tiles [K8*Wt]
@@ -646,7 +788,7 @@ struct Lay {
 };
 
 __host__ __device__ inline Lay stage_layout(const Dims& d, int vcols, int R,
-                                            bool edge, bool b2, int G = 1) {
+                                            bool edge, int hg, int G = 1) {
   // K: the edge rows of the block's G destination nodes, KC a pass of them
   const int H = d.H, K = edge ? G * d.K : 0, PH = H + PD, PP = 2 * H + PD;
   const int KC = edge_chunk(K);
@@ -659,8 +801,8 @@ __host__ __device__ inline Lay stage_layout(const Dims& d, int vcols, int R,
   L.ldv = L.vsep ? up4(vcols) : PP;
   const int u0 = imax(R * PH, KC * FEP);
   int u1 = edge ? imax(R, KC) * PP : 0, u2 = edge ? imax(R * PH, KC * PP) : 0;
-  if (b2) {
-    u1 = imax(u1, R * (att_head_group(d) * d.Wt + PD));
+  if (hg) {
+    u1 = imax(u1, R * (hg * d.Wt + PD));
     u2 = imax(u2, imax(R * PH, nw * d.K8 * d.Wt));
   }
   L.rows = o; o += u0;
@@ -923,14 +1065,17 @@ enum {
 };
 
 // Stage A for nodes n0 .. n0 + G - 1 of graph b: the kNN edge attention of
-// all G at once (G * K rows a weight pass), then each ligand node's bond-grid
-// attention and the output layer. P holds the node projections h @ nodeA_W
-// in columns [0, 10H) of rows of pitch PW.
+// all G at once (G * K rows a weight pass), then the bond-grid attention of
+// each ligand node that holds an atom, and the output layer. A padded
+// ligand slot skips its bond grid: every weight of its pool is exactly 0
+// (PairMask), so the pool would add exact zeros to its kNN attention. P
+// holds the node projections h @ nodeA_W in columns [0, 10H) of rows of
+// pitch PW.
 __device__ void node_body(const Dims& d, const Args& a, float* sm, int R,
                           int b, int n0, int G, int PW) {
   const int tid = threadIdx.x;
   const int N = d.NP + d.NL, H = d.H, NH = d.heads, dh = H / NH;
-  const Lay L = stage_layout(d, H, R, true, false, G);
+  const Lay L = stage_layout(d, H, R, true, 0, G);
   const EdgeSmem s = edge_smem(sm, L, d.H);
   const bool one_pass = R >= d.NL;
   float *rows = sm + L.rows, *scb = sm + L.scb;
@@ -949,10 +1094,11 @@ __device__ void node_body(const Dims& d, const Args& a, float* sm, int R,
   for (int g = 0; g < G; ++g)
     pool_cols(s.sc + g * d.K * NH, NH, s.v + g * d.K * s.ldv, s.ldv, d.K, H,
               dh, outv + g * H, false, s.ring);
+  const float* ml = FP(T_MASK_L) + (size_t)b * d.NL;
   int nsrc = -1;
   for (int g = 0; g < G; ++g) {
     const int n = n0 + g;
-    if (n >= d.NP) {
+    if (n >= d.NP && ml[n - d.NP] != 0.f) {
       const int dl = n - d.NP;
       const float* Pn = P + ((size_t)b * N + n) * PW;
       if (tid < H) s.qt[tid] = Pn[5 * H + tid] + FP(NA_Q_B0)[H + tid];
@@ -961,7 +1107,7 @@ __device__ void node_body(const Dims& d, const Args& a, float* sm, int R,
       __syncthreads();
       vec_mat(s.qt, qW1 + H * H, H, H, H, FP(NA_Q_B1) + H, s.qv, s.ring);
       if (nsrc < 0)
-        nsrc = valid_sources(FP(T_MASK_L) + (size_t)b * d.NL, d.NL,
+        nsrc = valid_sources(ml, d.NL,
                              reinterpret_cast<int*>(sm + L.misc + 3));
       bond_attention(d, a, s, R, nsrc, rows, vall, ldv, scb, b, dl,
                      HbColumnRows{FP(NA_HB)}, P, PW, 6 * H, 8 * H, FP(NA_B_W),
@@ -1081,7 +1227,7 @@ __device__ bool pos_padded(const Dims& d, const Args& a, int b, int dl) {
 __global__ void __launch_bounds__(NT, 1) pos_kernel(Dims d, Args a, int R) {
   extern __shared__ float sm[];
   if (pos_padded(d, a, blockIdx.y, blockIdx.x)) return;
-  const Lay L = stage_layout(d, d.heads, R, true, false);
+  const Lay L = stage_layout(d, d.heads, R, true, 0);
   const int nsrc =
       valid_sources(FP(T_MASK_L) + (size_t)blockIdx.y * d.NL, d.NL,
                     reinterpret_cast<int*>(sm + L.misc + 3));
@@ -1317,20 +1463,21 @@ __device__ AttSmem att_smem(const Dims& d, float* sm, const Lay& L) {
 }
 
 // Stage B2 for np <= R pairs: per-head queries, masked softmax over the K8
-// sources of j, pool, t_out_W; heads in groups of att_head_group(d). ROW:
+// sources of j, pool, t_out_W; heads in groups of HG, each group one pass
+// over the pairs' pre_t tiles. ROW:
 // the pairs are (j0, i0 + p), one row of the bond grid; else (j0 + p, i0),
 // one column. The new bond features go to TA_OUT and stay in out[p][ldo]
 // (shared memory); a block barrier ends it. BT: element type of pre_t and
 // q_z (see Blk); the warps' pre_t tiles hold it as it is stored.
 template <bool ROW, class BT>
 __device__ void trip_att_pairs(const Dims& d, const Args& a, const AttSmem& s,
-                               int b, int j0, int i0, int np, float* out,
-                               int ldo) {
+                               int b, int j0, int i0, int np, int HG,
+                               float* out, int ldo) {
   constexpr int dj = ROW ? 0 : 1, di = ROW ? 1 : 0;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int NL = d.NL, H = d.H, K8 = d.K8, Wt = d.Wt, NH = d.heads;
   const int PH = H + PD, H4 = H >> 2, W4 = Wt >> 2;
-  const int HG = att_head_group(d), QP = HG * Wt + PD;
+  const int QP = HG * Wt + PD;
 #define PAIR(p) (((size_t)b * NL + j0 + (p) * dj) * NL + i0 + (p) * di)
   const float* ml = FP(TA_MASK_L) + (size_t)b * NL;
   const float inv_sw = (float)(1.0 / sqrt((double)Wt));
@@ -1487,9 +1634,9 @@ __device__ void trip_att_void_pairs(const Dims& d, const Args& a, int b,
 
 template <class BT>
 __global__ void __launch_bounds__(NT, 1)
-trip_att_kernel(Dims d, Args a, int R) {
+trip_att_kernel(Dims d, Args a, int R, int HG) {
   extern __shared__ float sm[];
-  const Lay L = stage_layout(d, 0, R, false, true);
+  const Lay L = stage_layout(d, 0, R, false, HG);
   const int b = blockIdx.z, j = blockIdx.y, i0 = blockIdx.x * R;
   const int np = imin(R, d.NL - i0);
   const float* ml = FP(TA_MASK_L) + (size_t)b * d.NL;
@@ -1498,7 +1645,7 @@ trip_att_kernel(Dims d, Args a, int R) {
       valid_sources(ml, d.NL, reinterpret_cast<int*>(sm + L.misc + 3));
   const int nv = ml[j] != 0.f ? imax(0, imin(np, nsrc - i0)) : 0;
   if (nv > 0)
-    trip_att_pairs<true, BT>(d, a, att_smem(d, sm, L), b, j, i0, nv,
+    trip_att_pairs<true, BT>(d, a, att_smem(d, sm, L), b, j, i0, nv, HG,
                              sm + L.rows, d.H + PD);
   trip_att_void_pairs<true>(d, a, b, j, i0, nv, np);
 }
@@ -1519,7 +1666,8 @@ struct AttRows {
   AttSmem s;
   __device__ void operator()(const Dims& d, int b, int dl, int s0, int ns,
                              float* rows) const {
-    trip_att_pairs<false, BT>(d, *ta, s, b, s0, dl, ns, rows, d.H + PD);
+    trip_att_pairs<false, BT>(d, *ta, s, b, s0, dl, ns, att_head_group(d),
+                              rows, d.H + PD);
   }
 };
 
@@ -1532,7 +1680,7 @@ att_pos_kernel(Dims d, Args ap, Args ta, int R) {
     trip_att_void_pairs<false>(d, ta, b, 0, dl, 0, d.NL);
     return;
   }
-  const Lay L = stage_layout(d, d.heads, R, true, true);
+  const Lay L = stage_layout(d, d.heads, R, true, att_head_group(d));
   const Args& a = ap;
   const int nsrc = valid_sources(FP(T_MASK_L) + (size_t)b * d.NL, d.NL,
                                  reinterpret_cast<int*>(sm + L.misc + 3));
@@ -1586,32 +1734,50 @@ enum { PLAN_NODE, PLAN_TRIP_PRE, PLAN_TRIP_ATT, PLAN_POS, PLAN_ATT_POS,
 // them; else one.
 static int plan_nodes(const Dims& d);
 
+// Heads a group of B2 alone: all of them where q_h of all heads fits beside
+// a whole column of pairs (R = NL up to RMAX; the flagship at NL <= 48), so
+// that one pass reads each pair's pre_t tile once; else B2 + C's groups
+// over a column of R = 80 pairs (NL = 80: two passes over pre_t). Measured
+// on the H100 at NL = 80: one pass over 48 + 32 pairs a block took 6%
+// longer than two over 80, its products on fewer rows a weight pass costing
+// more than the second read of pre_t saves.
+static int trip_att_heads(const Dims& d) {
+  const int R = imin(d.NL, RMAX);
+  return stage_layout(d, 0, R, false, d.heads).total * sizeof(float) <=
+                 kMaxSmem
+             ? d.heads
+             : att_head_group(d);
+}
+
 // Dynamic shared memory of a block of kernel `which` with R source rows a
 // pass (stage A: with G destination nodes a block).
 static size_t plan_bytes(int which, const Dims& d, int R, int G = 1) {
   int floats = 0;
   switch (which) {
     case PLAN_NODE:
-      floats = stage_layout(d, d.H, R, true, false, G).total; break;
+      floats = stage_layout(d, d.H, R, true, 0, G).total; break;
     case PLAN_TRIP_PRE: floats = pre_layout(d, R).total; break;
     case PLAN_TRIP_ATT:
-      floats = stage_layout(d, 0, R, false, true).total; break;
+      floats = stage_layout(d, 0, R, false, trip_att_heads(d)).total; break;
     case PLAN_POS:
-      floats = stage_layout(d, d.heads, R, true, false).total; break;
-    default: floats = stage_layout(d, d.heads, R, true, true).total; break;
+      floats = stage_layout(d, d.heads, R, true, 0).total; break;
+    default:
+      floats = stage_layout(d, d.heads, R, true, att_head_group(d)).total;
+      break;
   }
   return (size_t)floats * sizeof(float);
 }
 
 // Source rows a pass: all NL up to RMAX if the block's shared memory allows,
-// else the largest count that fits, evened out over the passes. 0 if
-// nothing fits.
+// else the largest count that fits, evened out over the passes and rounded
+// up to whole 16-row tensor-core tiles where that still fits (80 as 48 +
+// 32, not 40 + 40). 0 if nothing fits.
 static int plan_rows(int which, const Dims& d, int G = 1) {
   int R = d.NL < RMAX ? d.NL : RMAX;
   while (R > 1 && plan_bytes(which, d, R, G) > kMaxSmem) R -= R > 8 ? 8 : 1;
   if (plan_bytes(which, d, R, G) > kMaxSmem) return 0;
-  const int np = (d.NL + R - 1) / R;
-  return (d.NL + np - 1) / np;
+  const int np = (d.NL + R - 1) / R, even = (d.NL + np - 1) / np;
+  return np > 1 && ((even + 15) & ~15) <= R ? (even + 15) & ~15 : even;
 }
 
 static int plan_nodes(const Dims& d) {
@@ -1690,7 +1856,7 @@ static int stage_trip_att(const void* const* p, int np, const int* dims,
   cudaFuncSetAttribute(trip_att_kernel<BT>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   trip_att_kernel<BT><<<dim3((d.NL + R - 1) / R, d.NL, d.B), NT, bytes, st>>>(
-      d, a, R);
+      d, a, R, trip_att_heads(d));
   return (int)cudaGetLastError();
 }
 

@@ -9,7 +9,9 @@ merged ones): max abs/rel error against the plain version on
 the same inputs, kernel and plain times (CUDA events), and the H100 bound
 from the bytes the function moves and the float32 operations it needs on
 the slots the case's masks leave (`flops`; `flops_all_slots` is the count
-if no slot were masked).
+if no slot were masked): `bound_ms` with every operation at the FMA rate,
+`bound_tc_ms` with the matrix products (`flops_products`) at the tensor
+cores' 3xTF32 rate.
 `check_kernels(case, kernels=BF16_KERNELS)` does the same for the forms of
 rows 2, 3, 5 and 6 whose inter-stage blocks pre_t and q_z are bf16
 (`fused_block_dtype`); `flagship_case(cutoff='hybrid')` gives the kNN
@@ -30,9 +32,11 @@ from . import pallas_triplet as pt
 from .knn import knn_neighbors
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, float32 rate outside the
-# tensor cores (the kernels use plain FMA)
+# tensor cores, and the effective float32 rate of error-compensated 3xTF32
+# on them (495 TFLOP/s of TF32, three products for one)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+TF32X3_FLOPS_PER_S = 495e12 / 3
 
 KERNELS = (
     ("stage_node",
@@ -198,14 +202,26 @@ def slot_counts(t: Dict) -> Dict[str, int]:
 
 
 def _work(name: str, c: Dict, n: Dict[str, int] = None):
-    """(bytes, float32 operations) one call needs: every input read once
+    """(bytes, float32 operations) one call needs (`_work_split`, its
+    products and the rest together)."""
+    by, products, rest = _work_split(name, c, n)
+    return by, products + rest
+
+
+def _work_split(name: str, c: Dict, n: Dict[str, int] = None):
+    """(bytes, product operations, other operations) one call needs: every
+    input read once
     and every output written once, at the tensors' full sizes; the
     operations of the products and the attention on the slots `n` that
     this call's masks leave (`slot_counts`, the default), so the bound is
     the work the data needs whatever the kernel does with masked slots.
     Work that no mask voids is counted in full: the node projections, new_h
     for every row (stage A), q_z for every pair (stage B1). The blocks
-    pre_t and q_z count 2 bytes an element in the `_bf16` forms."""
+    pre_t and q_z count 2 bytes an element in the `_bf16` forms. The
+    products are the matrix products whose width is a multiple of 4, which
+    the kernels run on the tensor cores; the rest (single-row products,
+    value columns of a width that is not, angle encodings, scores, softmax
+    weights and pools) runs on the FMA pipes."""
     d, B = c["d"], c["B"]
     bb = 2 if name.endswith("_bf16") else 4    # bytes a block element
     sfx = "_bf16" if bb == 2 else ""
@@ -214,16 +230,18 @@ def _work(name: str, c: Dict, n: Dict[str, int] = None):
     if n is None:
         n = slot_counts(c["t"])
     f4 = 4
+    tc = lambda cols: cols % 4 == 0
     if name.startswith("stage_node_pre"):
         # A + B1 with h, x and hb read once (the weights of the two differ)
-        (b1, f1), (b2, f2) = (_work(k, c, n) for k in (
+        (b1, p1, r1), (b2, p2, r2) = (_work_split(k, c, n) for k in (
             "stage_node", "stage_triplet_pre" + sfx))
-        return b1 + b2 - (B * N * (H + 3) + B * NL * NL * H) * f4, f1 + f2
+        return (b1 + b2 - (B * N * (H + 3) + B * NL * NL * H) * f4,
+                p1 + p2, r1 + r2)
     if name.startswith("stage_att_pos"):
         # B2 + C with hb_new written once and not read back
-        (b1, f1), (b2, f2) = (_work(k, c, n) for k in (
+        (b1, p1, r1), (b2, p2, r2) = (_work_split(k, c, n) for k in (
             "stage_triplet_att" + sfx, "stage_pos"))
-        return b1 + b2 - B * NL * NL * H * f4, f1 + f2
+        return b1 + b2 - B * NL * NL * H * f4, p1 + p2, r1 + r2
     wbytes = sum(v.numel() for v in c["w"].values()) * f4
     tab = (B * N * K * (4 + 4 + 16 + 4) + B * NL * (3 + K8) * 8
            + B * NP * 12 + B * NL * 4)
@@ -232,28 +250,32 @@ def _work(name: str, c: Dict, n: Dict[str, int] = None):
         nv = H if node else nh
         edges = n["edges"] if node else n["edges_lig"]
         rows = B * N if node else n["lig_rows"]    # C updates ligand atoms
-        fl = 2 * B * N * H * 10 * H                  # node projections
-        fl += 2 * edges * (93 * 2 * H + H * H + H * nv)
-        fl += 2 * rows * (H * H) * 2                 # query tail (+ lin_W)
-        fl += 2 * n["pairs"] * (H * 2 * H + H * H + H * nv)
-        fl += 2 * n["lig_rows"] * H * H              # bond-grid query
-        fl += 4 * (edges + n["pairs"]) * H           # scores + pooling
+        mm = [2 * B * N * H * 10 * H,                # node projections
+              2 * edges * (93 * 2 * H + H * H),      # edge k | v, k layers
+              2 * n["pairs"] * (H * 2 * H + H * H)]  # the same, bond grid
+        fma = [2 * rows * (H * H) * 2,               # query tail (+ lin_W)
+               2 * n["lig_rows"] * H * H,            # bond-grid query
+               4 * (edges + n["pairs"]) * H]         # scores + pooling
+        # the value layers: H columns (A) or one a head (C)
+        (mm if tc(nv) else fma).append(2 * (edges + n["pairs"]) * H * nv)
         by = (B * N * H * f4 + B * N * 3 * f4 + B * NL * NL * H * f4 + tab
               + wbytes + (B * N * H * f4 if node else B * N * 3 * f4))
-        return by, fl
+        return by, sum(mm), sum(fma)
     if name.startswith("stage_triplet_pre"):
-        fl = (2 * B * NL * H * (2 * Wt + H) + 2 * n["trip_src"] * H * Wt
-              + 2 * n["pairs"] * 20 * Wt + 2 * B * NL * NL * H * H
-              + 2 * n["trips"] * 13 * Wt)
+        # node projections and q_z's layer; then a_kj and a_ji (Wt columns)
+        mm = [2 * B * NL * H * (2 * Wt + H), 2 * B * NL * NL * H * H]
+        fma = [2 * n["trips"] * 13 * Wt]             # angle encodings
+        (mm if tc(Wt) else fma).extend(
+            [2 * n["trip_src"] * H * Wt, 2 * n["pairs"] * 20 * Wt])
         by = (B * N * H * f4 + B * N * 3 * f4 + B * NL * NL * H * f4
               + B * NL * K8 * 4 + wbytes
               + B * NL * NL * (K8 * Wt + H) * bb)
-        return by, fl
-    fl = (2 * n["pairs"] * H * nh * Wt + 4 * n["trips"] * nh * Wt
-          + 2 * n["pairs"] * nh * Wt * H)
+        return by, sum(mm), sum(fma)
+    # per-head queries and the output layer; scores and pools per triplet
+    mm = 2 * n["pairs"] * H * nh * Wt + 2 * n["pairs"] * nh * Wt * H
     by = (B * NL * NL * ((K8 * Wt + H) * bb + 2 * H * f4) + B * NL * K8 * 8
           + B * NL * 4 + wbytes)
-    return by, fl
+    return by, mm, 4 * n["trips"] * nh * Wt
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -269,9 +291,12 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _row(name, source, replaces, ok, got, ref, kern, plain, by, fl, reps):
+def _row(name, source, replaces, ok, got, ref, kern, plain, by, fl, reps,
+         products=0):
     """One result row: errors of `got` against `ref` (tuples of tensors),
-    both times, and the bound from `by` bytes and `fl` operations."""
+    both times, the bound from `by` bytes and `fl` operations, all at the
+    FMA rate (`bound_ms`), and the bound with the `products` of them at the
+    3xTF32 rate of the tensor cores (`bound_tc_ms`)."""
     tol = TOLERANCE[name]
     tols = OUTPUT_TOL.get(name, (tol,) * len(got))
     blocks = BLOCK_OUTPUTS.get(name, ())
@@ -294,6 +319,8 @@ def _row(name, source, replaces, ok, got, ref, kern, plain, by, fl, reps):
         share is None or share <= BLOCK_MISMATCH_SHARE)
     t_bytes = by / HBM_BYTES_PER_S * 1e3
     t_ops = fl / FP32_FLOPS_PER_S * 1e3
+    t_tc = (products / TF32X3_FLOPS_PER_S
+            + (fl - products) / FP32_FLOPS_PER_S) * 1e3
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "ok": ok,
@@ -302,7 +329,8 @@ def _row(name, source, replaces, ok, got, ref, kern, plain, by, fl, reps):
                                                          max(1, reps // 2)),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bytes": by, "flops": fl, "library_ms": None,
+        "bound_tc_ms": max(t_bytes, t_tc), "bytes": by, "flops": fl,
+        "flops_products": products, "library_ms": None,
         "block_mismatch_share": share,
     }
 
@@ -435,9 +463,9 @@ def check_kernels(c: Dict, reps: int = 5, kernels=KERNELS) -> List[Dict]:
             i = 0 if name.startswith("stage_triplet_pre") else 1
             got = (*got[:i], got[i][valid.expand_as(got[i])], *got[i + 1:])
             ref = (*ref[:i], ref[i][valid.expand_as(ref[i])], *ref[i + 1:])
-        by, fl = _work(name, c, slots)
+        by, products, rest = _work_split(name, c, slots)
         row = _row(name, SOURCE, replaces, True, got, ref, kern, plain, by,
-                   fl, reps)
+                   products + rest, reps, products)
         row["flops_all_slots"] = _work(name, c, every)[1]
         rows.append(row)
     return rows

@@ -108,6 +108,32 @@ def test_wrappers_count_launches(cuda, setting):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["flagship_nl48", "ragged", "empty_graph"])
+def test_node_kernel_skips_padded_destinations(cuda, shape):
+    """NaN bond features towards every padded ligand slot leave stage A's
+    kernel output finite and change none of its bits: it runs no bond grid
+    there (one that did would pool 0 * NaN = NaN). It and the merged A +
+    B1's new_h stay within 1e-4 of the plain version on the unfilled
+    features, padded rows included."""
+    case = kc.flagship_case(device=cuda, seed=3, **SHAPES[shape])
+    w, t, d, h, x = case["w"], case["t"], case["d"], case["h"], case["x"]
+    ml = t["mask_l"]
+    assert (ml == 0).any()
+    hb = case["hb"].clone()
+    pad = (ml == 0)[:, None, :, None].expand_as(hb)
+    hb[pad] = float("nan")
+    before = ls.stage_node(w, h, x, case["hb"], t, d)
+    after = ls.stage_node(w, h, x, hb, t, d)
+    merged = ls.stage_node_pre(w, h, x, hb, t, d)[0]
+    torch.cuda.synchronize()
+    assert torch.isfinite(after).all() and torch.isfinite(merged).all()
+    assert torch.equal(after, before)
+    ref = ls.stage_node_plain(w, h, x, case["hb"], t, d)
+    torch.testing.assert_close(after, ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(merged, ref, atol=1e-4, rtol=1e-4)
+
+
 # the stages that store or read the blocks pre_t and q_z have a bf16 form
 BF16_FORMS = ("stage_triplet_pre", "stage_triplet_att", "stage_node_pre",
               "stage_att_pos")

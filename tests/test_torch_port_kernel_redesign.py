@@ -65,6 +65,29 @@ def test_merged_work_is_the_parts_less_the_shared_traffic(flagship_weights):
         w["stage_triplet_att"][1] + w["stage_pos"][1])
 
 
+# the product operations among them (`kc._work_split`): what `mm` runs on
+# the tensor cores at the flagship widths
+PRODUCTS = {
+    ("stage_node", 80): 24540872704, ("stage_triplet_pre", 80): 3884974080,
+    ("stage_triplet_att", 80): 26843545600, ("stage_pos", 80): 14868807680,
+}
+
+
+@pytest.mark.parametrize("name", [k for k, _ in kc.KERNELS + kc.BF16_KERNELS])
+@pytest.mark.parametrize("nl", [80, 48])
+def test_products_and_the_rest_make_the_work(flagship_weights, name, nl):
+    """The tensor-core bound's split adds up to the FMA bound's operations,
+    row by row, and its products are the matrix products alone."""
+    d = dataclasses.replace(FLAGSHIP, NL=nl)
+    c = dict(d=d, B=16, w=flagship_weights)
+    every = kc.all_slots(d, 16)
+    by, products, rest = kc._work_split(name, c, every)
+    assert (by, products + rest) == kc._work(name, c, every)
+    assert 0 < rest < products
+    if (name, nl) in PRODUCTS:
+        assert products == PRODUCTS[(name, nl)]
+
+
 @pytest.fixture(scope="module")
 def ragged_case():
     return kc.flagship_case(B=3, NP=10, NL=13, H=16, heads=2, Wt=8, K=7,
