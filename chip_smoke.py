@@ -8,8 +8,10 @@ Phases (any failure exits non-zero and prints no result):
 1. build: compiles the hand-written CUDA kernels from
    phoregen_tpu_torch/csrc/ with nvcc (sm_90a), one nvcc per source, all
    started together, and counts the tensor-core (HMMA) instructions in the
-   SASS of `node_kernel` and `trip_att_kernel` (`cuobjdump -sass`), which
-   must hold some: their products run in 3xTF32 on the tensor cores;
+   SASS of `node_kernel`, `trip_att_kernel`, `trip_pre_kernel`, `pos_kernel`
+   and `att_pos_kernel` (`cuobjdump -sass`), which must each hold some:
+   their products (and B1's angle-encoding product) run in 3xTF32 on the
+   tensor cores;
 2. kernels: holds each kernel against its plain PyTorch version on the
    card and times both with CUDA events: the four layer-stack kernels and
    the two merged ones (A + B1, B2 + C) at flagship shapes (B=16, NP=96,
@@ -283,10 +285,15 @@ def gpu_name_power() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+# the layer-stack kernels whose SASS must hold tensor-core instructions
+HMMA_KERNELS = ("node_kernel", "trip_att_kernel", "trip_pre_kernel",
+                "pos_kernel", "att_pos_kernel")
+
+
 def hmma_counts(lib_path: str) -> dict:
     """{kernel function (mangled name): HMMA instructions in its SASS} of
-    the layer-stack kernels that run stage A and stage B2 (cuobjdump from
-    the toolkit that built them)."""
+    the layer-stack kernels of HMMA_KERNELS (cuobjdump from the toolkit
+    that built them)."""
     from phoregen_tpu_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     res = subprocess.run([tool, "-sass", lib_path], capture_output=True,
@@ -297,8 +304,8 @@ def hmma_counts(lib_path: str) -> dict:
     for line in res.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            fn = m.group(1) if re.search(r"node_kernel|trip_att_kernel",
-                                         m.group(1)) else None
+            fn = m.group(1) if re.search(
+                r"\d(" + "|".join(HMMA_KERNELS) + ")", m.group(1)) else None
             if fn:
                 counts[fn] = 0
         elif fn and "HMMA" in line:
@@ -1916,9 +1923,10 @@ def main():
     hmma = hmma_counts(paths["layer_stack"])
     print(f"[sass] HMMA instructions (cuobjdump -sass): " + ", ".join(
         f"{k} {v}" for k, v in sorted(hmma.items())), flush=True)
-    if not any("node_kernel" in k and v for k, v in hmma.items()) or not any(
-            "trip_att_kernel" in k and v for k, v in hmma.items()):
-        fail(f"node_kernel or trip_att_kernel holds no HMMA: {hmma}")
+    bare = [k for k in HMMA_KERNELS if not any(
+        re.search(r"\d" + k, fn) and v for fn, v in hmma.items())]
+    if bare:
+        fail(f"{bare} hold no HMMA: {hmma}")
     if only is not None:
         solo = {"ddp": lambda: phase_ddp(root, ls, pt),
                 "shard": lambda: phase_shard(root, ls, pt),

@@ -18,17 +18,35 @@
 // Design notes (what differs from the TPU kernels, and why):
 // - Parallelism. The Pallas kernels run grid (B,) — one graph per step,
 //   right for one TPU core. Here A runs one block per (graph, two nodes), C
-//   and B2 + C one block per (graph, ligand destination), B1 one block per
-//   (graph, j), B2 one block per (graph, j, chunk of i), 512 threads each,
-//   one block an SM (launch bounds 512 x 1, up to 128 registers a thread).
-//   A takes two nodes a block so that its kNN edge products run on 2 * K =
-//   64 rows a weight pass instead of 32 (measured on the H100: 9% off stage
-//   A at NL=80 and 48); the bond-grid attention of a ligand node then runs
-//   once for each of the two, and not at all for a padded ligand slot (its
-//   pool would add exact zeros). B2 + C has no room for a second
-//   destination.
+//   one block per (graph, two ligand destinations), B2 + C one per (graph,
+//   ligand destination), B2 one per (graph, j, chunk of i), 512 threads
+//   each, one block an SM (launch bounds 512 x 1, up to 128 registers a
+//   thread); B1 one block per (graph, j) of 256 threads, two blocks an SM.
+//   A and C take two nodes a block (plan_nodes: where the bond grid's rows
+//   a pass do not shrink beside them) so that their kNN edge products run
+//   on 2 * K = 64 rows a weight pass instead of 32 (measured on the H100:
+//   9% off stage A; C's in PERF.md); the bond-grid attention of a node then
+//   runs once for each of the two, and not at all for a padded ligand slot
+//   (its pool would add exact zeros; C keeps a padded slot's position).
+//   B2 + C has no room for a second destination.
+// - Stage C folds its queries into its key layers: a score is
+//   (LN(pre_k) @ k2W + k2b) . q over a head's columns = LN(pre_k) @ W_kq +
+//   b_kq with W_kq = k2W's head slices times q's, exact algebra. The key
+//   layer (H x H, used only in that dot) becomes H x heads, and with the
+//   value layer's heads columns one product (mm_fold) replaces the two on
+//   both the kNN edges and the bond grid, in one weight pass: 4.4 M to
+//   about 3.1 M multiply-adds a destination at NL=80. The queries and
+//   W_kq, b_kq of every ligand row come from one grid-wide phase
+//   (pos_query_kernel: the queries as one product over 16 rows, each
+//   thread's k2W slice read once for all of them); a block copies its own
+//   by cp.async (load_fold). Made inside C's blocks, the single-row query
+//   products and two k2W reads a destination, chains of L2 round trips,
+//   took 12% of C's block cycles and its LayerNorms and softmaxes slowed
+//   beside them (PERF.md).
 // - One product routine, `mm`, serves every matrix product of the six
-//   kernels and `rows_gemm`. Products whose width is a multiple of 4 run
+//   kernels and `rows_gemm` but two: C's folded layer (`mm_fold`, the same
+//   tiles on a weight that lies in shared memory) and B1's encoding
+//   product. Products whose width is a multiple of 4 run
 //   on the tensor cores in error-compensated 3xTF32 (`mm_tc`): warp-level
 //   mma.sync m16n8k8 TF32 tiles, each operand split in registers into a
 //   TF32 hi and lo part, three products (lo.hi + hi.lo + hi.hi) into a
@@ -68,17 +86,29 @@
 //   graph's last atom only, not on the padding behind it.
 // - Shared memory of B2 + C at the flagship (NL=80): rows 41 KB | q_h 81 KB
 //   (then C's first-layer tile) | q_z 41 KB, then 16 pre_t tile buffers
-//   64 KB, then C's k tile | weight ring 17 KB (between a group's two
-//   products it holds the warps' softmax weights) | scores, values, query:
-//   15 KB; 223,824 bytes, one block an SM. ls_launch_plan reports it. The
+//   64 KB, then C's folded product's tile and weight | weight ring 17 KB
+//   (between a group's two products it holds the warps' softmax weights) |
+//   scores, values, query: 15 KB; 223,840 bytes, one block an SM.
+//   ls_launch_plan reports it. The
 //   kNN edge attention of the same destination runs first and lies over the
 //   same regions.
 // - Wide phases: edge features over (edge, rbf) pairs; each softmax a warp
 //   per head with lanes over sources; pools and closing sums split over the
-//   block or a warp. B1's pre_t phase gives a thread one (i, k8) triplet
-//   with all Wt features (the angle and its encoding are computed once a
-//   triplet, LayerNorm needs no shuffles) and stages a warp's 32 triplets
-//   through shared memory for 512-byte stores.
+//   block or a warp.
+// - B1 (bound by its pre_t write) runs two blocks of 256 threads an SM, its
+//   q_z rows in passes small enough for that (48 at NL=80: 92 KB a block),
+//   so that one block's stores overlap another's products; the q_z rows and
+//   their node terms come in by cp.async, the node terms as the product's
+//   starting sum. Its pre_t phase gives a lane one (i, k8) triplet: the
+//   angle (atan2f, as the reference) and 11 distinct encodings from three
+//   sincosf (2a and 3a by the double- and triple-angle identities; band 1
+//   appears twice among the reference's 13, its t_Wang rows are summed).
+//   A warp's 32 triplets go as a [32][16] tile through mma.sync m16n8k8 in
+//   3xTF32 against the merged t_Wang, split once into registers, starting
+//   from a_kj + a_ji; the weight's columns are permuted so that a quad of
+//   lanes holds a triplet's Wt features, four consecutive a lane: the
+//   LayerNorm takes two shuffles and a lane stores 16 bytes at a time.
+//   Every slot of pre_t and q_z is written, padded ones included.
 // - Gathers load by index (nbr_idx, trip_idx, lig3_idx) instead of the
 //   TPU's one-hot selection matmuls. The node projections that neighbours
 //   gather (h @ [e_Wn_h|q_W0|b_Wn], ...) are a grid-wide phase: each stage
@@ -121,12 +151,12 @@
 #define LN_EPS_F 1e-6f
 #define CROSS_SQ_EPS_F 1e-12f
 #define NRBF 20
-#define NANG 13
 #define FE 93     // [edge type x rbf (80) | edge type (4) | dire (9)]
 #define FEP 100   // row pitch of the edge-feature tile; columns 93..95 are 0
 #define NT 512    // threads per block
 #define NW 16     // warps per block
-#define LOG_NW 4
+#define NT1 256   // threads per block of stage B1 (two blocks an SM)
+#define NW1 8
 #define KS 16     // weight rows per staged slice
 #define NCMAX 128 // columns per staged pass
 #define PD 4      // pad of shared-memory row pitches
@@ -137,8 +167,6 @@
 __constant__ float c_rbf_off[NRBF] = {
     0.0f, 1.0f, 1.25f, 1.5f, 1.75f, 2.0f, 2.25f, 2.5f, 2.75f, 3.0f,
     3.5f, 4.0f, 4.5f, 5.0f, 5.5f, 6.0f, 7.0f, 8.0f, 9.0f, 10.0f};
-// angular encoding frequency bands for num_ang = 3: [1, 2, 3, 1, 1/2, 1/3]
-__constant__ float c_bands[6] = {1.0f, 2.0f, 3.0f, 1.0f, 0.5f, 0.33333334f};
 #define RBF_COEFF (-0.5f)  // -0.5 / (offset[1] - offset[0])^2
 
 struct Dims {
@@ -297,6 +325,7 @@ struct StageMap {
   int ldw, kk0, step, cl, pitch;
 };
 
+template <int NTH>
 __device__ __forceinline__ StageMap stage_map(const WSrc& ws, int c0, int nc,
                                               int pitch) {
   const int n4 = nc >> 2, tid = threadIdx.x;
@@ -304,9 +333,9 @@ __device__ __forceinline__ StageMap stage_map(const WSrc& ws, int c0, int nc,
   int q;
   if ((n4 & (n4 - 1)) == 0) {
     const int l = __ffs(n4) - 1;
-    m.step = NT >> l; q = tid >> l;
+    m.step = NTH >> l; q = tid >> l;
   } else {
-    m.step = NT / n4; q = tid / n4;
+    m.step = NTH / n4; q = tid / n4;
   }
   m.kk0 = q < m.step ? q : 1 << 20;  // spare threads stage nothing
   m.cl = (tid - q * n4) * 4;
@@ -416,8 +445,8 @@ __device__ __forceinline__ void split_b(const float* wb, int pitch, int tq,
   }
 }
 
-// The tensor-core form of `mm`. The block's warps form wm rows x wn columns
-// of warps; a warp owns TM x TN tiles of 16 rows x 8 columns (m16n8k8
+// The tensor-core form of `mm`. The block's NWS warps form wm rows x wn
+// columns of warps; a warp owns TM x TN tiles of 16 rows x 8 columns (m16n8k8
 // fragments: lane (gr, tq) = (lane / 4, lane % 4) holds A elements
 // (gr | gr + 8, tq | tq + 4) of a tile, weight elements (tq | tq + 4, gr)
 // and outputs (gr | gr + 8, 2 tq | 2 tq + 1)). A pass covers wn * TN * 8
@@ -433,16 +462,18 @@ __device__ __forceinline__ void split_b(const float* wb, int pitch, int tq,
 // loads A by element and reads its columns from Kd on as 0; the ring's
 // rows there are 0 as well, so nothing that lies in shared memory beyond
 // the matrix reaches a stored value.
-template <int TM, int TN>
+template <int TM, int TN, int NWS>
 __device__ __noinline__ void mm_tc(const float* A, int lda, int M, WSrc ws,
                                    int Kd, int Nc,
                                    const float* __restrict__ bias, float* out,
                                    int ldo, bool accumulate, float* ring,
                                    int lwm) {
+  constexpr int LNW = NWS == 16 ? 4 : NWS == 8 ? 3 : NWS == 4 ? 2 : 0;
+  static_assert(NWS == 1 << LNW, "a power-of-two warp count");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gr = lane >> 2, tq = lane & 3;
-  const int wm = 1 << lwm, wn = NW >> lwm;
-  const int wc = warp & (wn - 1), wr = warp >> (LOG_NW - lwm);
+  const int wm = 1 << lwm, wn = NWS >> lwm;
+  const int wc = warp & (wn - 1), wr = warp >> (LNW - lwm);
   const int cw = wn * TN * 8;
   // ldmatrix: lane l addresses row l % 8 (+ 8 for matrices 1 and 3) and
   // column + 4 for matrices 2 and 3 of a tile
@@ -453,7 +484,7 @@ __device__ __noinline__ void mm_tc(const float* A, int lda, int M, WSrc ws,
     const int pitch = ((nc + 31) & ~31) + 8;
     int ks = 8;  // slice rows: a multiple of 8, up to 64, as the ring holds
     while (ks < 64 && (ks + 8) * pitch <= RING_HALF) ks += 8;
-    const StageMap sp = stage_map(ws, c0, nc, pitch);
+    const StageMap sp = stage_map<NWS * 32>(ws, c0, nc, pitch);
     const int wcol = wc * TN * 8;
     const bool col_live = wcol < nc;
     for (int m0 = 0; m0 < M; m0 += wm * TM * 16) {
@@ -535,12 +566,129 @@ __device__ __noinline__ void mm_tc(const float* A, int lda, int M, WSrc ws,
   }
 }
 
+// The tensor-core product of stage C's folded second layer (mm_fold): the
+// weight W [up8(Kd)][pitch] lies in shared memory (made by load_fold, rows
+// from Kd on zero, pitch 8 or 24 mod 32 so that a warp's fragment loads
+// fall on 32 banks) and is read in place, no ring and no barrier inside;
+// the columns from nsplit on (a multiple of 16, so that no warp's tiles
+// straddle it) read A from A + aoff. Otherwise as mm_tc, 16 warps. Kept
+// apart from mm_tc: the same branches inside it made the ring-path products
+// of stages A and B2 15-33% slower on the H100, and streaming the folds
+// through mm's ring instead (two products, keys and values) made stage C
+// 7-8% slower (PERF.md).
+template <int TM, int TN>
+__device__ __noinline__ void mm_tc_sh(const float* A, int lda, int M,
+                                      const float* W, int pitch, int Kd,
+                                      int Nc, float* out, int ldo, int lwm,
+                                      int nsplit, int aoff) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gr = lane >> 2, tq = lane & 3;
+  const int wm = 1 << lwm, wn = NW >> lwm;
+  const int wc = warp & (wn - 1), wr = warp >> (4 - lwm);
+  const int cw = wn * TN * 8;
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8, lcol = (lane >> 4) * 4;
+  for (int c0 = 0; c0 < Nc; c0 += cw) {
+    const int wcol = c0 + wc * TN * 8;
+    if (wcol >= Nc) continue;
+    const float* Aw = wcol >= nsplit ? A + aoff : A;
+    const uint32_t a_sh = (uint32_t)__cvta_generic_to_shared(Aw);
+    const float* wb = W + wcol + gr;
+    for (int m0 = 0; m0 < M; m0 += wm * TM * 16) {
+      const int mb = m0 + wr * TM * 16;
+      const int live = imin(TM, (M - mb + 15) >> 4);
+      if (live <= 0) continue;
+      float acc[TM][TN][4];
+      uint32_t aa[TM];
+#pragma unroll
+      for (int r = 0; r < TM; ++r) {
+#pragma unroll
+        for (int n = 0; n < TN; ++n)
+          acc[r][n][0] = acc[r][n][1] = acc[r][n][2] = acc[r][n][3] = 0.f;
+        aa[r] = a_sh + (uint32_t)(imin(mb + r * 16 + lrow, M - 1) * lda +
+                                  lcol) * 4u;
+      }
+      const int kf = Kd & ~7;
+#pragma unroll 2
+      for (int kk = 0; kk < kf; kk += 8) {
+        uint32_t bh[TN][2], bl[TN][2];
+        split_b<TN>(wb + kk * pitch, pitch, tq, bh, bl);
+#pragma unroll
+        for (int r = 0; r < TM; ++r) {
+          uint32_t a[4];
+          ldmatrix_x4(a, aa[r] + (uint32_t)kk * 4u);
+          tile_step<TN>(a, bh, bl, acc[r]);
+        }
+      }
+      if (kf < Kd) {  // the k-step that runs past Kd
+        uint32_t bh[TN][2], bl[TN][2];
+        split_b<TN>(wb + kf * pitch, pitch, tq, bh, bl);
+        const int ka = kf + tq;
+#pragma unroll
+        for (int r = 0; r < TM; ++r) {
+          const float* ar = Aw + imin(mb + r * 16 + gr, M - 1) * lda;
+          const float* ar8 = Aw + imin(mb + r * 16 + gr + 8, M - 1) * lda;
+          uint32_t a[4];
+          a[0] = ka < Kd ? __float_as_uint(ar[ka]) : 0u;
+          a[1] = ka < Kd ? __float_as_uint(ar8[ka]) : 0u;
+          a[2] = ka + 4 < Kd ? __float_as_uint(ar[ka + 4]) : 0u;
+          a[3] = ka + 4 < Kd ? __float_as_uint(ar8[ka + 4]) : 0u;
+          tile_step<TN>(a, bh, bl, acc[r]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < TN; ++n) {
+        const int c = wcol + n * 8 + 2 * tq;
+        if (c >= Nc) continue;
+#pragma unroll
+        for (int r = 0; r < TM; ++r) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = mb + r * 16 + gr + 8 * h;
+            if (r >= live || row >= M) continue;
+            *reinterpret_cast<float2*>(out + (size_t)row * ldo + c) =
+                make_float2(acc[r][n][2 * h], acc[r][n][2 * h + 1]);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// The tile shape (TM, TN) and the warps' grid (2^LWM rows of warps) of a
+// product of M rows and Nc columns on NWS warps (see mm).
+template <int NWS>
+__device__ __forceinline__ void mm_shape(int M, int Nc, int& TM, int& TN,
+                                         int& LWM) {
+  constexpr int LNW = NWS == 16 ? 4 : NWS == 8 ? 3 : NWS == 4 ? 2 : 0;
+  // every divisor below is a power of two once the loops are unrolled
+  const int ntm = (M + 15) >> 4, ntn = (Nc + 7) >> 3;
+  int best = 1 << 30;
+  TM = TN = 1;
+  LWM = 0;
+#pragma unroll
+  for (int tn = 1; tn <= 2; ++tn) {
+#pragma unroll
+    for (int lwm = 0; lwm <= LNW; ++lwm) {
+      const int wm = 1 << lwm, wn = NWS >> lwm;
+      const int tm = imin(5, (ntm + wm - 1) >> lwm);
+      const int cols = (ntn + wn * tn - 1) / (wn * tn);   // column passes
+      const int rows =                                     // row passes
+          ntm <= wm * tm ? 1 : (ntm + wm * tm - 1) / (wm * tm);
+      const int live = imin(tm, ntm);                     // busiest warp
+      const int cost = cols * rows * (live * (1 + 8 + 12 * tn) + tn * 6);
+      if (cost < best) { best = cost; TM = tm; TN = tn; LWM = lwm; }
+    }
+  }
+}
+
 // out[m*ldo + c] (= or +=) bias[c] + sum_k A[m*lda + k] * W(k, c) for
 // m < M, c < Nc. A lies in shared memory, 16-byte aligned, with lda % 4 ==
 // 0; its columns from Kd on are not read. `out` lies in shared or device
 // memory with 16-byte aligned rows; `ring` is RING_FLOATS of shared memory.
-// Every thread of the block must call it; A must be complete (a barrier)
-// before the call, and a barrier ends it.
+// NWS: the block's warps (16, or 8 in stage B1). Every thread of the block
+// must call it; A must be complete (a barrier) before the call, and a
+// barrier ends it.
 //
 // Every product whose width is a multiple of 4 runs on the tensor cores in
 // 3xTF32 (mm_tc): each operand x is split in registers into TF32 parts
@@ -561,6 +709,7 @@ __device__ __noinline__ void mm_tc(const float* A, int lda, int M, WSrc ws,
 // quarter's tensor core, which four warps share, for several cycles).
 // Plain weights of widths that are no multiple of 4 (value heads) take
 // mm_narrow.
+template <int NWS = NW>
 __device__ __noinline__ void mm(const float* A, int lda, int M, WSrc ws,
                                 int Kd, int Nc, const float* bias, float* out,
                                 int ldo, bool accumulate, float* ring) {
@@ -568,25 +717,39 @@ __device__ __noinline__ void mm(const float* A, int lda, int M, WSrc ws,
     mm_narrow(A, lda, M, ws.W, ws.ldw, Kd, Nc, bias, out, ldo);
     return;
   }
-  // every divisor below is a power of two once the loops are unrolled
-  const int ntm = (M + 15) >> 4, ntn = (Nc + 7) >> 3;
-  int best = 1 << 30, TM = 1, TN = 1, LWM = 0;
-#pragma unroll
-  for (int tn = 1; tn <= 2; ++tn) {
-#pragma unroll
-    for (int lwm = 0; lwm <= LOG_NW; ++lwm) {
-      const int wm = 1 << lwm, wn = NW >> lwm;
-      const int tm = imin(5, (ntm + wm - 1) >> lwm);
-      const int cols = (ntn + wn * tn - 1) / (wn * tn);   // column passes
-      const int rows =                                     // row passes
-          ntm <= wm * tm ? 1 : (ntm + wm * tm - 1) / (wm * tm);
-      const int live = imin(tm, ntm);                     // busiest warp
-      const int cost = cols * rows * (live * (1 + 8 + 12 * tn) + tn * 6);
-      if (cost < best) { best = cost; TM = tm; TN = tn; LWM = lwm; }
-    }
+  int TM, TN, LWM;
+  mm_shape<NWS>(M, Nc, TM, TN, LWM);
+#define MM_TC(T, N)                                                         \
+  mm_tc<T, N, NWS>(A, lda, M, ws, Kd, Nc, bias, out, ldo, accumulate, ring, \
+                   LWM)
+  switch (TN * 8 + TM) {
+    case 9: MM_TC(1, 1); break;
+    case 10: MM_TC(2, 1); break;
+    case 11: MM_TC(3, 1); break;
+    case 12: MM_TC(4, 1); break;
+    case 13: MM_TC(5, 1); break;
+    case 17: MM_TC(1, 2); break;
+    case 18: MM_TC(2, 2); break;
+    case 19: MM_TC(3, 2); break;
+    case 20: MM_TC(4, 2); break;
+    default: MM_TC(5, 2);
   }
+#undef MM_TC
+}
+
+// out[m*ldo + c] = sum_k A'[m*lda + k] * W[k*pitch + c] for m < M, c < Nc
+// (Nc % 4 == 0), A' = A for c < nsplit and A + aoff from there on: stage
+// C's key and value layers in one product on the folded weight W that
+// load_fold copied into shared memory (see mm_tc_sh). 16 warps; W and A must
+// be complete before the call, and a barrier ends it.
+__device__ __noinline__ void mm_fold(const float* A, int lda, int M,
+                                     const float* W, int pitch, int Kd,
+                                     int Nc, float* out, int ldo, int nsplit,
+                                     int aoff) {
+  int TM, TN, LWM;
+  mm_shape<NW>(M, Nc, TM, TN, LWM);
 #define MM_TC(T, N) \
-  mm_tc<T, N>(A, lda, M, ws, Kd, Nc, bias, out, ldo, accumulate, ring, LWM)
+  mm_tc_sh<T, N>(A, lda, M, W, pitch, Kd, Nc, out, ldo, LWM, nsplit, aoff)
   switch (TN * 8 + TM) {
     case 9: MM_TC(1, 1); break;
     case 10: MM_TC(2, 1); break;
@@ -765,6 +928,26 @@ __host__ __device__ inline int edge_chunk(int KE) {
   return nc > 1 ? (KE + nc - 1) / nc : KE;
 }
 
+// Stage C's folded second layer of one attention (see load_fold): one
+// product of nc columns on the LayerNorm'd first-layer tile, score columns
+// [g * heads, (g + 1) * heads) for each of its G destinations (the query
+// folded into the key layer) and value columns [voff, voff + heads), voff
+// a multiple of 16 so that no warp's tiles straddle the two inputs. The
+// weight lies in shared memory [up8(H)][pitch] (pitch 8 or 24 mod 32, past
+// nc rounded up to 16), its bias row [up4(nc)] after it.
+struct Fold {
+  int voff, nc, pitch, floats;
+};
+
+__host__ __device__ inline Fold fold_geom(const Dims& d, int G) {
+  Fold f;
+  f.voff = (G * d.heads + 15) & ~15;
+  f.nc = f.voff + up4(d.heads);
+  f.pitch = ((f.nc + 15) & ~15) + 8;
+  f.floats = ((d.H + 7) & ~7) * f.pitch + up4(f.nc);
+  return f;
+}
+
 // Shared memory of stages A, C and B2 (+ C), in floats from the block's
 // base. Regions that are never live together lie over one another:
 //   rows: the R source rows of the bond grid (B2's output tile) | the kNN
@@ -772,23 +955,26 @@ __host__ __device__ inline int edge_chunk(int KE) {
 //         KE edges of the block's G nodes, see edge_chunk)
 //   u1:   first-layer tile [R or KC][2H+PD] | B2's q_h / pooled
 //         [R][hg*Wt+PD] (hg heads a group; 0: no B2)
-//   u2:   second-layer tile (bond k [R][H+PD], edge k|v [KC][2H+PD]) |
-//         B2's q_z [R][H+PD] while a head group's queries are made, then
-//         its per-warp pre_t tiles [K8*Wt]
+//   u2:   second-layer tile (stage A: bond k [R][H+PD], edge k|v
+//         [KC][2H+PD]; stage C (fold): the folded product's tile [R or
+//         KC][nc] and its weight) | B2's q_z [R][H+PD] while a head group's
+//         queries are made, then its per-warp pre_t tiles [K8*Wt]
 // then the weight ring (between B2's two products of a head group it holds
 // the warps' softmax weights [32][4]) and what lives through the whole
 // block. Stage A's bond values [NL][H] lie in `rows` (free once the first
 // layer has read them) when one pass takes all NL sources, else in vall.
 // When the edges take more than one pass, their values [KE][up4(vcols)]
 // are kept in vall until the edge attention's pool has read them (the bond
-// grid's attention comes after it); in one pass they stay in u2.
+// grid's attention comes after it); in one pass they stay in u2. Stage C
+// (fold) keeps the edge values [KE][heads] in vall, then the bond grid's.
 struct Lay {
   int R, KC, vsep, ldv, rows, u1, u2, ring, vall, scb, sc, qt, qv, outv, rel,
       emask, ew, dist, d3, src, wp, misc, total;
 };
 
 __host__ __device__ inline Lay stage_layout(const Dims& d, int vcols, int R,
-                                            bool edge, int hg, int G = 1) {
+                                            bool edge, int hg, int G = 1,
+                                            bool fold = false) {
   // K: the edge rows of the block's G destination nodes, KC a pass of them
   const int H = d.H, K = edge ? G * d.K : 0, PH = H + PD, PP = 2 * H + PD;
   const int KC = edge_chunk(K);
@@ -797,10 +983,16 @@ __host__ __device__ inline Lay stage_layout(const Dims& d, int vcols, int R,
   int o = 0;
   L.R = R;
   L.KC = KC;
-  L.vsep = K > KC;
-  L.ldv = L.vsep ? up4(vcols) : PP;
+  L.vsep = fold || K > KC;
+  L.ldv = fold ? d.heads : L.vsep ? up4(vcols) : PP;
   const int u0 = imax(R * PH, KC * FEP);
-  int u1 = edge ? imax(R, KC) * PP : 0, u2 = edge ? imax(R * PH, KC * PP) : 0;
+  int u1 = edge ? imax(R, KC) * PP : 0, u2 = 0;
+  if (edge && fold) {
+    const Fold fe = fold_geom(d, G), fb = fold_geom(d, 1);
+    u2 = imax(KC * fe.nc + fe.floats, R * fb.nc + fb.floats);
+  } else if (edge) {
+    u2 = imax(R * PH, KC * PP);
+  }
   if (hg) {
     u1 = imax(u1, R * (hg * d.Wt + PD));
     u2 = imax(u2, imax(R * PH, nw * d.K8 * d.Wt));
@@ -811,7 +1003,7 @@ __host__ __device__ inline Lay stage_layout(const Dims& d, int vcols, int R,
   L.ring = o; o += RING_FLOATS;
   L.vall = o;
   o += imax(edge && !(vcols == H && R >= d.NL) ? up4(d.NL * vcols) : 0,
-            L.vsep ? K * L.ldv : 0);
+            L.vsep ? up4(K * L.ldv) : 0);
   L.scb = o; o += edge ? up4(d.NL * d.heads) : 0;
   L.sc = o; o += up4(K * d.heads);
   const int hk = up4(imax(G * H, K));
@@ -825,7 +1017,7 @@ __host__ __device__ inline Lay stage_layout(const Dims& d, int vcols, int R,
   L.d3 = o; o += up4(3 * K);
   L.src = o; o += up4(K);
   L.wp = o; o += edge ? up4(d.NL) : 0;
-  L.misc = o; o += 4;
+  L.misc = o; o += 8;  // [0, 3G): stage C's edge moves; [7]: int slot
   L.total = o;
   return L;
 }
@@ -856,6 +1048,54 @@ struct EdgeMask {
   __device__ float operator()(int k) const { return m[k]; }
 };
 
+// Stage C's query fold: the scores of an attention are
+//   (LN(pre_k) @ k2W + k2b) . q / sqrt(dh) summed over a head's dh columns
+//   = LN(pre_k) @ W_kq + b_kq,  W_kq[c][h] = k2W[c][h-slice] . q[h-slice]
+//   / sqrt(dh), b_kq[h] = k2b[h-slice] . q[h-slice] / sqrt(dh),
+// exact algebra (the JAX stage's `xqk @ hm`, `pqk @ hm`). So the key layer,
+// an H x H product whose only use is that dot, becomes an H x heads one,
+// and the value layer's heads columns go beside it: one product of f.nc
+// columns (fold_geom) replaces the two. pos_query_kernel forms W_kq and
+// b_kq once for every ligand destination and both attentions, F[row][a]
+// [H+1][heads] (row H: b_kq). load_fold issues the cp.async copies of the
+// product's weight into wf: the score columns of the G destinations from
+// Fq (the first one's F; destinations 2 (H+1) heads floats apart), the
+// value columns from v2W, the bias row (b_kq | v2b) after the matrix, and
+// zeros in the rows from H to the next multiple of 8. It does not wait: the
+// copies are complete after the thread's next cp_async_wait and a barrier
+// (the next mm's first slice).
+__device__ void load_fold(int H, int NH, const Fold& f, const float* Fq,
+                          int G, const float* __restrict__ v2W,
+                          const float* __restrict__ v2b, float* wf) {
+  const int tid = threadIdx.x, nt = blockDim.x, Hp = (H + 7) & ~7;
+  const int H1 = H + 1;
+  float* bf = wf + Hp * f.pitch;
+  if ((NH & 3) == 0) {
+    const int N4 = NH >> 2;
+    for (int idx = tid; idx < G * H1 * N4; idx += nt) {
+      const int g = idx / (H1 * N4), r = idx - g * H1 * N4, c = r / N4;
+      const int h = (r - c * N4) * 4;
+      cp_async16((c < H ? wf + c * f.pitch : bf) + g * NH + h,
+                 Fq + (size_t)g * 2 * H1 * NH + c * NH + h);
+    }
+    for (int idx = tid; idx < H * N4; idx += nt) {
+      const int c = idx / N4, h = (idx - c * N4) * 4;
+      cp_async16(wf + c * f.pitch + f.voff + h, v2W + c * NH + h);
+    }
+  } else {
+    for (int idx = tid; idx < G * H1 * NH; idx += nt) {
+      const int g = idx / (H1 * NH), r = idx - g * H1 * NH, c = r / NH;
+      (c < H ? wf + c * f.pitch : bf)[g * NH + r - c * NH] =
+          Fq[(size_t)g * 2 * H1 * NH + r];
+    }
+    for (int idx = tid; idx < H * NH; idx += nt)
+      wf[(idx / NH) * f.pitch + f.voff + idx % NH] = __ldg(v2W + idx);
+  }
+  for (int h = tid; h < NH; h += nt) bf[f.voff + h] = __ldg(v2b + h);
+  for (int idx = tid; idx < (Hp - H) * f.pitch; idx += nt)
+    wf[H * f.pitch + idx] = 0.f;
+}
+
 // Shared first half of stages A and C for the G destination nodes n0,
 // n0 + 1, ... of graph b (their K edges each are consecutive rows of the
 // tables and of every tile here, KE = G * K rows in all, so that one pass
@@ -864,7 +1104,11 @@ struct EdgeMask {
 // second layers (v has Nv columns, scaled by e_w), the node queries and the
 // masked per-head softmax over each node's K edges. The tiles take KC edge
 // rows a pass (all KE in one pass up to ECMAX); the node queries come
-// first. Leaves alpha in sc[KE][heads] and v in s.v[KE][s.ldv].
+// first. Stage C passes Fq (its queries folded into the key layer, see
+// load_fold; Nv = heads): no query here, and the key and value layers are
+// one product on the folded weight of the G destinations, the scores and
+// values copied out of its tile per row's own destination. Leaves alpha in
+// sc[KE][heads] and v in s.v[KE][s.ldv].
 __device__ void edge_attention(
     const Dims& d, const Args& a, const EdgeSmem& s, int b, int n0, int G,
     const float* xb, const float* P, int PW, int lo, int ln_row,
@@ -872,7 +1116,8 @@ __device__ void edge_attention(
     const float* dire_b, const float* e_ln_s, const float* e_ln_b,
     const float* k2W, const float* k2b, const float* v2W, const float* v2b,
     int Nv, int qcol, const float* q_b0, const float* q_ln_s,
-    const float* q_ln_b, const float* q_W1, const float* q_b1) {
+    const float* q_ln_b, const float* q_W1, const float* q_b1,
+    const float* Fq) {
   const int N = d.NP + d.NL, K = d.K, H = d.H, NH = d.heads, dh = H / NH;
   const int KE = G * K, PP = 2 * H + PD;
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -902,13 +1147,21 @@ __device__ void edge_attention(
     }
     for (int c = 0; c < 3; ++c) s.d3[r * 3 + c] = d3[c];
   }
-  for (int idx = tid; idx < G * H; idx += nt)
-    s.qt[idx] = Pn[(idx / H) * PW + qcol + idx % H] + q_b0[idx % H];
-  __syncthreads();
-  ln_rows(s.qt, H, G, H, q_ln_s, q_ln_b, true);
-  __syncthreads();
-  for (int g = 0; g < G; ++g)
-    vec_mat(s.qt + g * H, q_W1, H, H, H, q_b1, s.qv + g * H, s.ring);
+  const bool fold = Fq != nullptr;
+  const Fold f = fold_geom(d, G);
+  float* wf = s.kv + s.KC * f.nc;  // the folded weight, after its tile
+  if (fold) {
+    load_fold(H, NH, f, Fq, G, v2W, v2b, wf);
+    __syncthreads();
+  } else {
+    for (int idx = tid; idx < G * H; idx += nt)
+      s.qt[idx] = Pn[(idx / H) * PW + qcol + idx % H] + q_b0[idx % H];
+    __syncthreads();
+    ln_rows(s.qt, H, G, H, q_ln_s, q_ln_b, true);
+    __syncthreads();
+    for (int g = 0; g < G; ++g)
+      vec_mat(s.qt + g * H, q_W1, H, H, H, q_b1, s.qv + g * H, s.ring);
+  }
   for (int c0 = 0; c0 < KE; c0 += s.KC) {
     const int kc = imin(s.KC, KE - c0);
     // features over (edge, rbf) pairs, then the 16 closing columns of a
@@ -951,24 +1204,38 @@ __device__ void edge_attention(
     ln_rows(s.pre + H, PP, kc, H, e_ln_s + (ln_row + 1) * H,
             e_ln_b + (ln_row + 1) * H, true);
     __syncthreads();
-    mm(s.pre, PP, kc, wmat(k2W, H), H, H, k2b, s.kv, PP, false, s.ring);
-    mm(s.pre + H, PP, kc, wmat(v2W, Nv), H, Nv, v2b, s.v + c0 * s.ldv,
-       s.ldv, false, s.ring);
-    for (int idx = tid; idx < kc * NH; idx += nt) {
-      const int k = idx / NH, hh = idx % NH;
-      const float* qv = s.qv + ((c0 + k) / K) * H;
-      float acc = 0.f;
-      for (int c = 0; c < dh; ++c)
-        acc += s.kv[k * PP + hh * dh + c] * qv[hh * dh + c];
-      s.sc[c0 * NH + idx] = acc / sqrtf((float)dh);
+    if (fold) {
+      mm_fold(s.pre, PP, kc, wf, f.pitch, H, f.nc, s.kv, f.nc, f.voff, H);
+      const float* bf = wf + ((H + 7) & ~7) * f.pitch;
+      for (int idx = tid; idx < kc * NH; idx += nt) {
+        const int k = idx / NH, hh = idx - k * NH, ke = c0 + k;
+        const int col = (ke / K) * NH + hh;
+        const float* t = s.kv + k * f.nc;
+        s.sc[ke * NH + hh] = t[col] + bf[col];
+        s.v[ke * s.ldv + hh] = (t[f.voff + hh] + bf[f.voff + hh]) * s.ew[ke];
+      }
+    } else {
+      mm(s.pre, PP, kc, wmat(k2W, H), H, H, k2b, s.kv, PP, false, s.ring);
+      mm(s.pre + H, PP, kc, wmat(v2W, Nv), H, Nv, v2b, s.v + c0 * s.ldv,
+         s.ldv, false, s.ring);
+      for (int idx = tid; idx < kc * NH; idx += nt) {
+        const int k = idx / NH, hh = idx % NH;
+        const float* qv = s.qv + ((c0 + k) / K) * H;
+        float acc = 0.f;
+        for (int c = 0; c < dh; ++c)
+          acc += s.kv[k * PP + hh * dh + c] * qv[hh * dh + c];
+        s.sc[c0 * NH + idx] = acc / sqrtf((float)dh);
+      }
     }
     __syncthreads();
   }
-  for (int idx = tid; idx < KE * Nv; idx += nt) {
-    const int k = idx / Nv, c = idx % Nv;
-    s.v[k * s.ldv + c] *= s.ew[k];
+  if (!fold) {
+    for (int idx = tid; idx < KE * Nv; idx += nt) {
+      const int k = idx / Nv, c = idx % Nv;
+      s.v[k * s.ldv + c] *= s.ew[k];
+    }
+    __syncthreads();
   }
-  __syncthreads();
   for (int g = 0; g < G; ++g)
     softmax_heads(s.sc + g * K * NH, K, NH, EdgeMask{s.emask + g * K});
   __syncthreads();
@@ -1007,21 +1274,30 @@ struct PairMask {
 // second layers (k: H columns into kv, v: Nv columns into vall[s][ldv],
 // which may be `rows` itself when one pass takes all sources), the query
 // (already in qv) and scores into scb[s][heads]; then the masked softmax
-// over s.
+// over s. Stage C passes Fq (the destination's query folded into the key
+// layer, see load_fold): the key and value layers are one product on it,
+// copied in each pass (`load_rows` may use the region it lies in); the
+// query in qv is then not read.
 template <class Rows>
 __device__ void bond_attention(
     const Dims& d, const Args& a, const EdgeSmem& s, int R, int nsrc,
     float* rows, float* vall, int ldv, float* scb, int b, int dl,
     const Rows& load_rows, const float* P, int PW, int dcol, int scol,
     const float* W1, const float* b1, const float* ln_s, const float* ln_b, const float* k2W,
-    const float* k2b, const float* v2W, const float* v2b, int Nv) {
+    const float* k2b, const float* v2W, const float* v2b, int Nv,
+    const float* Fq) {
   const int N = d.NP + d.NL, NL = d.NL, H = d.H, NH = d.heads, dh = H / NH;
   const int PH = H + PD, PP = 2 * H + PD;
   const int tid = threadIdx.x, nt = blockDim.x;
   const float* Pn = P + ((size_t)b * N + d.NP + dl) * PW;
+  const bool fold = Fq != nullptr;
+  const Fold f = fold_geom(d, 1);
+  float* wf = s.kv + R * f.nc;  // the folded weight, after its tile
   for (int s0 = 0; s0 < nsrc; s0 += R) {
     const int ns = imin(R, nsrc - s0);
     load_rows(d, b, dl, s0, ns, rows);
+    // the fold's copies complete at the first-layer product's first wait
+    if (fold) load_fold(H, NH, f, Fq, 1, v2W, v2b, wf);
     mm(rows, PH, ns, wmat(W1, 2 * H), H, 2 * H, b1, s.pre, PP, false, s.ring);
     for (int idx = tid; idx < ns * (H >> 1); idx += nt) {
       const int sr = idx / (H >> 1), c = (idx % (H >> 1)) * 4;
@@ -1037,15 +1313,26 @@ __device__ void bond_attention(
     ln_rows(s.pre, PP, ns, H, ln_s, ln_b, true);
     ln_rows(s.pre + H, PP, ns, H, ln_s + H, ln_b + H, true);
     __syncthreads();
-    mm(s.pre, PP, ns, wmat(k2W, H), H, H, k2b, s.kv, PH, false, s.ring);
-    mm(s.pre + H, PP, ns, wmat(v2W, Nv), H, Nv, v2b, vall + s0 * ldv, ldv,
-       false, s.ring);
-    for (int idx = tid; idx < ns * NH; idx += nt) {
-      const int sr = idx / NH, hh = idx % NH;
-      float acc = 0.f;
-      for (int c = 0; c < dh; ++c)
-        acc += s.kv[sr * PH + hh * dh + c] * s.qv[hh * dh + c];
-      scb[(s0 + sr) * NH + hh] = acc / sqrtf((float)dh);
+    if (fold) {
+      mm_fold(s.pre, PP, ns, wf, f.pitch, H, f.nc, s.kv, f.nc, f.voff, H);
+      const float* bf = wf + ((H + 7) & ~7) * f.pitch;
+      for (int idx = tid; idx < ns * NH; idx += nt) {
+        const int sr = idx / NH, hh = idx - sr * NH;
+        const float* t = s.kv + sr * f.nc;
+        scb[(s0 + sr) * NH + hh] = t[hh] + bf[hh];
+        vall[(s0 + sr) * ldv + hh] = t[f.voff + hh] + bf[f.voff + hh];
+      }
+    } else {
+      mm(s.pre, PP, ns, wmat(k2W, H), H, H, k2b, s.kv, PH, false, s.ring);
+      mm(s.pre + H, PP, ns, wmat(v2W, Nv), H, Nv, v2b, vall + s0 * ldv, ldv,
+         false, s.ring);
+      for (int idx = tid; idx < ns * NH; idx += nt) {
+        const int sr = idx / NH, hh = idx % NH;
+        float acc = 0.f;
+        for (int c = 0; c < dh; ++c)
+          acc += s.kv[sr * PH + hh * dh + c] * s.qv[hh * dh + c];
+        scb[(s0 + sr) * NH + hh] = acc / sqrtf((float)dh);
+      }
     }
     __syncthreads();
   }
@@ -1090,7 +1377,7 @@ __device__ void node_body(const Dims& d, const Args& a, float* sm, int R,
                  FP(NA_DIRE_W), FP(NA_DIRE_B), FP(NA_E_LN_S), FP(NA_E_LN_B),
                  FP(NA_E_K2), FP(NA_E_B2), FP(NA_E_K2) + H * H,
                  FP(NA_E_B2) + H, H, 4 * H, FP(NA_Q_B0), FP(NA_Q_LN_S),
-                 FP(NA_Q_LN_B), qW1, FP(NA_Q_B1));
+                 FP(NA_Q_LN_B), qW1, FP(NA_Q_B1), nullptr);
   for (int g = 0; g < G; ++g)
     pool_cols(s.sc + g * d.K * NH, NH, s.v + g * d.K * s.ldv, s.ldv, d.K, H,
               dh, outv + g * H, false, s.ring);
@@ -1108,11 +1395,12 @@ __device__ void node_body(const Dims& d, const Args& a, float* sm, int R,
       vec_mat(s.qt, qW1 + H * H, H, H, H, FP(NA_Q_B1) + H, s.qv, s.ring);
       if (nsrc < 0)
         nsrc = valid_sources(ml, d.NL,
-                             reinterpret_cast<int*>(sm + L.misc + 3));
+                             reinterpret_cast<int*>(sm + L.misc + 7));
       bond_attention(d, a, s, R, nsrc, rows, vall, ldv, scb, b, dl,
                      HbColumnRows{FP(NA_HB)}, P, PW, 6 * H, 8 * H, FP(NA_B_W),
                      FP(NA_B_B), FP(NA_B_LN_S), FP(NA_B_LN_B), FP(NA_B_K2),
-                     FP(NA_B_B2), FP(NA_B_K2) + H * H, FP(NA_B_B2) + H, H);
+                     FP(NA_B_B2), FP(NA_B_K2) + H * H, FP(NA_B_B2) + H, H,
+                     nullptr);
       pool_cols(scb, NH, vall, ldv, nsrc, H, dh, outv + g * H, true, s.ring);
     }
   }
@@ -1142,74 +1430,82 @@ enum {
   PA_P_XK2B, PA_P_XV2, PA_P_XV2B, PA_COUNT
 };
 
-// Stage C for ligand destination dl of graph b (phore rows are copied by
-// the host entry). `load_rows` gives the new bond features towards dl of the
-// first nsrc sources (see bond_attention, valid_sources).
+// Stage C's scratch PA_P holds the node projections [B*N][10H], then the
+// folded queries of pos_query_kernel F [B*NL][2][H+1][heads].
+__device__ __forceinline__ float* pos_folds(const Dims& d, const Args& a) {
+  return OUTP(PA_P) + (size_t)d.B * (d.NP + d.NL) * 10 * d.H;
+}
+
+// Stage C for the G ligand destinations dl0, dl0 + 1, ... of graph b, all
+// holding an atom (phore rows are copied by the host entry, padded
+// destinations by pos_padded). `load_rows` gives the new bond features
+// towards a destination of the first nsrc sources (see bond_attention,
+// valid_sources). The kNN edge attention of all G runs at once (G * K rows
+// a weight pass), then the bond-grid attention of each. Both take their
+// queries folded into the key layer (load_fold, pos_query_kernel).
 template <class Rows>
 __device__ void pos_body(const Dims& d, const Args& a, float* sm,
-                         const Lay& L, int b, int dl, int nsrc,
+                         const Lay& L, int b, int dl0, int G, int nsrc,
                          const Rows& load_rows) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int NP = d.NP, N = NP + d.NL, H = d.H, NH = d.heads;
-  const int n = NP + dl;
+  const int NP = d.NP, N = NP + d.NL, H = d.H, NH = d.heads, K = d.K;
   const int PW = 10 * H;
   const EdgeSmem s = edge_smem(sm, L, d.H);
   float *rows = sm + L.rows, *vall = sm + L.vall, *scb = sm + L.scb;
-  float *outv = sm + L.outv, *wp = sm + L.wp, *dxe = sm + L.misc;  // [3]
+  float *outv = sm + L.outv, *wp = sm + L.wp, *dxe = sm + L.misc;  // [3G]
   const float* xb = FP(PA_X) + (size_t)b * N * 3;
   const float* P = FP(PA_P);
-  // stage A's q slots 0/1 are node queries; stage C reads slots 2/3
-  const float* qW1 = FP(PA_Q_W1) + 2 * H * H;
-  const float* qb1 = FP(PA_Q_B1) + 2 * H;
-  const float* qb0 = FP(PA_Q_B0) + 2 * H;
-  const float* qls = FP(PA_Q_LN_S) + 2 * H;
-  const float* qlb = FP(PA_Q_LN_B) + 2 * H;
-  edge_attention(d, a, s, b, n, 1, xb, P, PW, 2 * H, 2, FP(PA_E_W), FP(PA_E_B),
-                 FP(PA_DIRE_W), FP(PA_DIRE_B), FP(PA_E_LN_S), FP(PA_E_LN_B),
-                 FP(PA_E_XK2), FP(PA_E_XK2B), FP(PA_E_XV2), FP(PA_E_XV2B),
-                 NH, 4 * H, qb0, qls, qlb, qW1, qb1);
+  // F of destination dl, attention 0 (kNN edges) or 1 (bond grid)
+  const size_t fstride = (size_t)(H + 1) * NH;
+  const float* F0 =
+      pos_folds(d, a) + ((size_t)b * d.NL + dl0) * 2 * fstride;
+  edge_attention(d, a, s, b, NP + dl0, G, xb, P, PW, 2 * H, 2, FP(PA_E_W),
+                 FP(PA_E_B), FP(PA_DIRE_W), FP(PA_DIRE_B), FP(PA_E_LN_S),
+                 FP(PA_E_LN_B), FP(PA_E_XK2), FP(PA_E_XK2B), FP(PA_E_XV2),
+                 FP(PA_E_XV2B), NH, 4 * H, nullptr, nullptr, nullptr,
+                 nullptr, nullptr, F0);
   // w_e[k] = mean over heads of alpha * xv; dx_edge = sum_k w_e[k] rel[k]
-  if (tid < d.K) {
+  for (int k = tid; k < G * K; k += nt) {
     float we = 0.f;
     for (int hh = 0; hh < NH; ++hh)
-      we += s.sc[tid * NH + hh] * s.v[tid * s.ldv + hh];
-    outv[tid] = we / NH;
+      we += s.sc[k * NH + hh] * s.v[k * s.ldv + hh];
+    outv[k] = we / NH;
   }
-  const float* Pn = P + ((size_t)b * N + n) * PW;
-  if (tid < H) s.qt[tid] = Pn[5 * H + tid] + qb0[H + tid];
   __syncthreads();
-  if (warp < 3) {
+  if (warp < 3 * G) {
+    const int g = warp / 3, c = warp - 3 * g;
     float acc = 0.f;
-    for (int k = lane; k < d.K; k += 32) acc += outv[k] * s.rel[k * 3 + warp];
+    for (int k = lane; k < K; k += 32)
+      acc += outv[g * K + k] * s.rel[(g * K + k) * 3 + c];
     acc = warp_sum(acc);
     if (lane == 0) dxe[warp] = acc;
   }
-  ln_rows(s.qt, H, 1, H, qls + H, qlb + H, true);
-  __syncthreads();
-  vec_mat(s.qt, qW1 + H * H, H, H, H, qb1 + H, s.qv, s.ring);
-  bond_attention(d, a, s, L.R, nsrc, rows, vall, NH, scb, b, dl, load_rows, P,
-                 PW,
-                 6 * H, 8 * H, FP(PA_P_W), FP(PA_P_B), FP(PA_P_LN_S),
-                 FP(PA_P_LN_B), FP(PA_P_XK2), FP(PA_P_XK2B), FP(PA_P_XV2),
-                 FP(PA_P_XV2B), NH);
-  for (int sr = tid; sr < nsrc; sr += nt) {
-    float w = 0.f;
-    for (int hh = 0; hh < NH; ++hh)
-      w += scb[sr * NH + hh] * vall[sr * NH + hh];
-    wp[sr] = w / NH;
-  }
-  __syncthreads();
-  if (warp < 3) {
-    const float* pl = xb + (size_t)NP * 3;
-    float acc = 0.f;
-    for (int sr = lane; sr < nsrc; sr += 32)
-      acc += wp[sr] * (pl[dl * 3 + warp] - pl[sr * 3 + warp]);
-    acc = warp_sum(acc);
-    if (lane == 0) {
-      const float md = FP(T_MASK_L)[(size_t)b * d.NL + dl];
-      const size_t o = ((size_t)b * N + n) * 3 + warp;
-      OUTP(PA_OUT)[o] = FP(PA_X)[o] + (dxe[warp] + acc) * md;
+  for (int g = 0; g < G; ++g) {
+    const int dl = dl0 + g, n = NP + dl;
+    bond_attention(d, a, s, L.R, nsrc, rows, vall, NH, scb, b, dl, load_rows,
+                   P, PW, 6 * H, 8 * H, FP(PA_P_W), FP(PA_P_B),
+                   FP(PA_P_LN_S), FP(PA_P_LN_B), FP(PA_P_XK2), FP(PA_P_XK2B),
+                   FP(PA_P_XV2), FP(PA_P_XV2B), NH,
+                   F0 + (2 * g + 1) * fstride);
+    for (int sr = tid; sr < nsrc; sr += nt) {
+      float w = 0.f;
+      for (int hh = 0; hh < NH; ++hh)
+        w += scb[sr * NH + hh] * vall[sr * NH + hh];
+      wp[sr] = w / NH;
+    }
+    __syncthreads();
+    if (warp < 3) {
+      const float* pl = xb + (size_t)NP * 3;
+      float acc = 0.f;
+      for (int sr = lane; sr < nsrc; sr += 32)
+        acc += wp[sr] * (pl[dl * 3 + warp] - pl[sr * 3 + warp]);
+      acc = warp_sum(acc);
+      if (lane == 0) {
+        const float md = FP(T_MASK_L)[(size_t)b * d.NL + dl];
+        const size_t o = ((size_t)b * N + n) * 3 + warp;
+        OUTP(PA_OUT)[o] = FP(PA_X)[o] + (dxe[3 * g + warp] + acc) * md;
+      }
     }
   }
 }
@@ -1224,15 +1520,107 @@ __device__ bool pos_padded(const Dims& d, const Args& a, int b, int dl) {
   return true;
 }
 
-__global__ void __launch_bounds__(NT, 1) pos_kernel(Dims d, Args a, int R) {
+// Stage C, G ligand destinations a block (plan_nodes): pos_body runs on
+// both of two when both hold an atom, else on the one that does; a padded
+// destination only keeps its position.
+__global__ void __launch_bounds__(NT, 1)
+pos_kernel(Dims d, Args a, int R, int G) {
   extern __shared__ float sm[];
-  if (pos_padded(d, a, blockIdx.y, blockIdx.x)) return;
-  const Lay L = stage_layout(d, d.heads, R, true, 0);
-  const int nsrc =
-      valid_sources(FP(T_MASK_L) + (size_t)blockIdx.y * d.NL, d.NL,
-                    reinterpret_cast<int*>(sm + L.misc + 3));
-  pos_body(d, a, sm, L, blockIdx.y, blockIdx.x, nsrc,
-           HbColumnRows{FP(PA_HB)});
+  const int b = blockIdx.y, dl0 = blockIdx.x * G;
+  const int ng = imin(G, d.NL - dl0);
+  int first = 0, filled = 0;
+  for (int g = ng - 1; g >= 0; --g)
+    if (!pos_padded(d, a, b, dl0 + g)) {
+      first = dl0 + g;
+      ++filled;
+    }
+  if (!filled) return;
+  const Lay L = stage_layout(d, d.heads, R, true, 0, G, true);
+  const int nsrc = valid_sources(FP(T_MASK_L) + (size_t)b * d.NL, d.NL,
+                                 reinterpret_cast<int*>(sm + L.misc + 7));
+  pos_body(d, a, sm, L, b, first, filled, nsrc, HbColumnRows{FP(PA_HB)});
+}
+
+// Stage C's queries and their folds (load_fold), a grid-wide phase between
+// rows_gemm and stage C's main kernel: block (x, a) takes QROWS ligand rows
+// and attention a (0: kNN edges, query slot 2; 1: bond grid, slot 3): q =
+// relu(LN(P[row][(4+a)H..] + q_b0)) @ q_W1 + q_b1 for all of them in one
+// product, then F[row][a][c][h] = k2W[c][h-slice] . q[row][h-slice] /
+// sqrt(dh) and F[row][a][H][h] = k2b[h-slice] . q[row][h-slice] / sqrt(dh)
+// with each thread's dh weights of (c, h) read once for the block's rows.
+// This replaces two single-row products and two reads of k2W a destination
+// in stage C's blocks, where each was a chain of L2 round trips. A padded
+// row (ml 0) gets no fold: stage C reads none of its.
+#define QROWS 16
+template <int DH>
+__device__ void fold_rows(int H, int NH, const float* q, int ldq, int nr,
+                          const float* ml, const float* __restrict__ k2W,
+                          const float* __restrict__ k2b, float* F,
+                          size_t fstride) {
+  constexpr int DL = DH ? DH : 1;
+  const int dh = H / NH, H1 = H + 1;
+  const float inv = 1.f / sqrtf((float)dh);
+  for (int idx = threadIdx.x; idx < H1 * NH; idx += blockDim.x) {
+    const int c = idx / NH, h = idx - c * NH;
+    const float* kr = (c < H ? k2W + (size_t)c * H : k2b) + h * dh;
+    float kv[DL];
+    if (DH) {
+#pragma unroll
+      for (int e = 0; e < DL; e += 4) {
+        const float4 k4 = __ldg(reinterpret_cast<const float4*>(kr + e));
+        kv[e] = k4.x; kv[e + 1] = k4.y; kv[e + 2] = k4.z; kv[e + 3] = k4.w;
+      }
+    }
+    for (int r = 0; r < nr; ++r) {
+      if (ml[r] == 0.f) continue;
+      const float* qh = q + r * ldq + h * dh;
+      float acc = 0.f;
+      if (DH) {
+#pragma unroll
+        for (int e = 0; e < DL; ++e) acc += kv[e] * qh[e];
+      } else {
+        for (int e = 0; e < dh; ++e) acc += __ldg(kr + e) * qh[e];
+      }
+      F[r * fstride + idx] = acc * inv;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(NT, 1) pos_query_kernel(Dims d, Args a) {
+  extern __shared__ float sm[];  // z [QROWS][H+PD] | q [QROWS][H+PD] | ring
+  const int H = d.H, NH = d.heads, PH = H + PD, PW = 10 * H;
+  const int at = blockIdx.y, r0 = blockIdx.x * QROWS;
+  const int nr = imin(QROWS, d.B * d.NL - r0);
+  const int slot = 2 + at;
+  float *z = sm, *q = sm + QROWS * PH, *ring = sm + 2 * QROWS * PH;
+  const float* qb0 = FP(PA_Q_B0) + slot * H;
+  for (int idx = threadIdx.x; idx < nr * H; idx += blockDim.x) {
+    const int r = idx / H, c = idx - r * H, row = r0 + r;
+    const int b = row / d.NL, dl = row - b * d.NL;
+    z[r * PH + c] =
+        FP(PA_P)[((size_t)b * (d.NP + d.NL) + d.NP + dl) * PW + (4 + at) * H +
+                 c] +
+        qb0[c];
+  }
+  __syncthreads();
+  ln_rows(z, PH, nr, H, FP(PA_Q_LN_S) + slot * H, FP(PA_Q_LN_B) + slot * H,
+          true);
+  __syncthreads();
+  mm(z, PH, nr, wmat(FP(PA_Q_W1) + (size_t)slot * H * H, H), H, H,
+     FP(PA_Q_B1) + slot * H, q, PH, false, ring);
+  const float* k2W = FP(at ? PA_P_XK2 : PA_E_XK2);
+  const float* k2b = FP(at ? PA_P_XK2B : PA_E_XK2B);
+  const size_t fstride = (size_t)2 * (H + 1) * NH;
+  float* F =
+      pos_folds(d, a) + (size_t)r0 * fstride + (size_t)at * (H + 1) * NH;
+  const float* ml = FP(T_MASK_L) + r0;  // [B][NL]: ligand row r0 + r
+  // dh == 8: the flagship's (and every release config's) head width, its
+  // weights and queries in 16-byte loads. The one generic loop (dh a
+  // runtime bound) made stage C 1.8-2.6% slower on the H100 (PERF.md).
+  if (H / NH == 8)
+    fold_rows<8>(H, NH, q, PH, nr, ml, k2W, k2b, F, fstride);
+  else
+    fold_rows<0>(H, NH, q, PH, nr, ml, k2W, k2b, F, fstride);
 }
 
 // --------------------------------------- stage B1: triplet pre-features
@@ -1243,11 +1631,29 @@ enum {
   TP_TQ_WHB, TP_TQ_B0, TP_TQ_LN_S, TP_TQ_LN_B, TP_COUNT
 };
 
+// The reference's angle encodings are [a, sin(f a), cos(f a)] over the bands
+// f = [1, 2, 3, 1, 1/2, 1/3] (num_ang = 3): band 1 twice, so the 13 take 11
+// distinct values. B1 computes those 11 from three sincosf (a, a/2, a/3;
+// 2a and 3a by the double- and triple-angle identities) and multiplies
+// them by t_Wang with the two rows of each duplicate summed: c_enc_rows
+// holds the rows of t_Wang behind each of the 11 (-1: none).
+#define NENC 11
+__constant__ int c_enc_rows[NENC][2] = {{0, -1}, {1, 4},  {2, -1}, {3, -1},
+                                        {5, -1}, {6, -1}, {7, 10}, {8, -1},
+                                        {9, -1}, {11, -1}, {12, -1}};
+#define ELD 20  // row pitch of a warp's encoding tile [32][16] (ldmatrix)
+
+// Row pitch of B1's a_kj tile: 16 mod 32 floats, so that the pre_t phase's
+// 16-byte reads of 8 consecutive sources (4 lanes a source) fall on 32
+// banks.
+__host__ __device__ inline int akj_pitch(int Wt) { return Wt <= 16 ? 16 : 48; }
+
 // Shared memory of stage B1 (floats). `x` holds the gathered bond rows
 // [max(K8, R)][H+PD] and the q_z tile [R][H+PD], and afterwards the
-// per-warp staging tiles [32][Wt] of the pre_t phase.
+// warps' encoding tiles [32][ELD] of the pre_t phase; wang: the merged
+// t_Wang [NENC][Wt]; lnsb: LayerNorm scale [32] | bias [32].
 struct PreLay {
-  int R, posl, rf, aji, akj, x, qp, wang, lnsb, ring, tidx, total;
+  int R, AP, posl, rf, aji, akj, x, qp, wang, lnsb, ring, tidx, total;
 };
 
 __host__ __device__ inline PreLay pre_layout(const Dims& d, int R) {
@@ -1255,50 +1661,62 @@ __host__ __device__ inline PreLay pre_layout(const Dims& d, int R) {
   PreLay L;
   int o = 0;
   L.R = R;
+  L.AP = akj_pitch(d.Wt);
   L.posl = o; o += up4(d.NL * 3);
   L.rf = o; o += d.NL * NRBF;
   L.aji = o; o += d.NL * d.Wt;
-  L.akj = o; o += d.K8 * (d.Wt + PD);
+  L.akj = o; o += d.K8 * L.AP;
   L.x = o; L.qp = o + RB * PH;
-  o += imax(RB * PH + R * PH, (NT / 32) * 32 * d.Wt);
-  L.wang = o; o += up4(NANG * d.Wt);
-  L.lnsb = o; o += 2 * d.Wt;
+  o += imax(RB * PH + R * PH, NW1 * 32 * ELD);
+  L.wang = o; o += up4(NENC * d.Wt);
+  L.lnsb = o; o += 64;
   L.ring = o; o += RING_FLOATS;
   L.tidx = o; o += up4(d.K8);
   L.total = o;
   return L;
 }
 
-// Stage B1 for ligand atom j of graph b. PB points at the graph's first
-// ligand row of the node projections h @ nodeB_W (columns [0, 2Wt+H) of
-// rows of pitch PBW). BT: element type of pre_t and q_z (see Blk).
+// Stage B1 for ligand atom j of graph b, NT1 threads. PB points at the
+// graph's first ligand row of the node projections h @ nodeB_W (columns
+// [0, 2Wt+H) of rows of pitch PBW). BT: element type of pre_t and q_z (see
+// Blk).
 template <class BT>
 __device__ void trip_pre_body(const Dims& d, const Args& a, float* sm, int R,
                               int b, int j, const float* PB, int PBW) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int NL = d.NL, NP = d.NP, N = NP + NL, H = d.H, K8 = d.K8, Wt = d.Wt;
-  const int PH = H + PD, AP = Wt + PD, H4 = H >> 2, W4 = Wt >> 2;
+  const int PH = H + PD, H4 = H >> 2;
   const PreLay L = pre_layout(d, R);
+  const int AP = L.AP;
   float* posl = sm + L.posl;
   float* rf = sm + L.rf;      // [NL][20] rbf of |pos_j - pos_i|
   float* aji = sm + L.aji;    // [NL][Wt]
-  float* akj = sm + L.akj;    // [K8][Wt+PD]
+  float* akj = sm + L.akj;    // [K8][AP]
   float* rows = sm + L.x;     // [max(K8, R)][H+PD]
   float* qp = sm + L.qp;      // [R][H+PD]
-  float* wang = sm + L.wang;  // [13][Wt]
-  float* lnsb = sm + L.lnsb;  // LayerNorm scale | bias
+  float* wang = sm + L.wang;  // [NENC][Wt]
+  float* lnsb = sm + L.lnsb;  // LayerNorm scale [32] | bias [32]
   float* ring = sm + L.ring;
   int* tidx = reinterpret_cast<int*>(sm + L.tidx);
   const float* hb = FP(TP_HB);
 
   for (int idx = tid; idx < NL * 3; idx += nt)
     posl[idx] = FP(TP_X)[((size_t)b * N + NP) * 3 + idx];
-  for (int idx = tid; idx < NANG * Wt; idx += nt)
-    wang[idx] = FP(TP_T_WANG)[idx];
   for (int idx = tid; idx < 2 * Wt; idx += nt)
-    lnsb[idx] = idx < Wt ? FP(TP_T_LN_S)[idx] : FP(TP_T_LN_B)[idx - Wt];
+    lnsb[idx < Wt ? idx : 32 + idx - Wt] =
+        idx < Wt ? FP(TP_T_LN_S)[idx] : FP(TP_T_LN_B)[idx - Wt];
+  for (int idx = tid; idx < NENC * Wt; idx += nt) {
+    const int e = idx / Wt, f = idx - e * Wt, r1 = c_enc_rows[e][1];
+    wang[idx] = FP(TP_T_WANG)[c_enc_rows[e][0] * Wt + f] +
+                (r1 >= 0 ? FP(TP_T_WANG)[r1 * Wt + f] : 0.f);
+  }
   if (tid < K8) tidx[tid] = IP(TP_TRIP_IDX)[((size_t)b * NL + j) * K8 + tid];
   __syncthreads();
+  for (int idx = tid; idx < K8 * H4; idx += nt) {
+    const int k8 = idx / H4, c = (idx % H4) * 4;
+    cp_async16(rows + k8 * PH + c,
+               hb + (((size_t)b * NL + tidx[k8]) * NL + j) * H + c);
+  }
   for (int idx = tid; idx < NL * NRBF; idx += nt) {
     const int i = idx / NRBF, q = idx % NRBF;
     float r2 = 0.f;
@@ -1309,16 +1727,12 @@ __device__ void trip_pre_body(const Dims& d, const Args& a, float* sm, int R,
     const float df = sqrtf(r2 + 1e-12f) - c_rbf_off[q];
     rf[idx] = expf(RBF_COEFF * (df * df));
   }
-  for (int idx = tid; idx < K8 * H4; idx += nt) {
-    const int k8 = idx / H4, c = (idx % H4) * 4;
-    st4(rows + k8 * PH + c,
-        ld4(hb + (((size_t)b * NL + tidx[k8]) * NL + j) * H + c));
-  }
+  cp_async_wait();
   __syncthreads();
-  mm(rf, NRBF, NL, wmat(FP(TP_T_WJI), Wt), NRBF, Wt, nullptr, aji, Wt, false,
-     ring);
-  mm(rows, PH, K8, wmat(FP(TP_T_WHB), Wt), H, Wt, nullptr, akj, AP, false,
-     ring);
+  mm<NW1>(rf, NRBF, NL, wmat(FP(TP_T_WJI), Wt), NRBF, Wt, nullptr, aji, Wt,
+          false, ring);
+  mm<NW1>(rows, PH, K8, wmat(FP(TP_T_WHB), Wt), H, Wt, nullptr, akj, AP,
+          false, ring);
   // a_kj[m, j] for the K8 frozen sources m of j: + rbf(|pos_m - pos_j|) @
   // t_Wr + t_b + (h_m @ t_Wn[:, :Wt]) + (h_j @ t_Wn[:, Wt:]); the rbf row
   // of (m, j) is rf[m], the distance being symmetric
@@ -1330,23 +1744,22 @@ __device__ void trip_pre_body(const Dims& d, const Args& a, float* sm, int R,
     akj[k8 * AP + w] +=
         acc + FP(TP_T_B)[w] + PB[m * PBW + w] + PB[j * PBW + Wt + w];
   }
-  // q_z[j, i] = relu(LN(hb[j, i] @ tq_Whb + h_i @ tq_Wi + tq_b0))
+  // q_z[j, i] = relu(LN(hb[j, i] @ tq_Whb + h_i @ tq_Wi + tq_b0)): the rows
+  // of hb and of the node term h_i @ tq_Wi come in by cp.async, the node
+  // term is the product's starting sum
   for (int i0 = 0; i0 < NL; i0 += R) {
     const int ni = imin(R, NL - i0);
     __syncthreads();
     for (int idx = tid; idx < ni * H4; idx += nt) {
       const int i = idx / H4, c = (idx % H4) * 4;
-      st4(rows + i * PH + c,
-          ld4(hb + (((size_t)b * NL + j) * NL + i0 + i) * H + c));
+      cp_async16(rows + i * PH + c,
+                 hb + (((size_t)b * NL + j) * NL + i0 + i) * H + c);
+      cp_async16(qp + i * PH + c, PB + (size_t)(i0 + i) * PBW + 2 * Wt + c);
     }
+    cp_async_wait();
     __syncthreads();
-    mm(rows, PH, ni, wmat(FP(TP_TQ_WHB), H), H, H, nullptr, qp, PH, false,
-       ring);
-    for (int idx = tid; idx < ni * H; idx += nt) {
-      const int i = idx / H, c = idx % H;
-      qp[i * PH + c] += PB[(i0 + i) * PBW + 2 * Wt + c] + FP(TP_TQ_B0)[c];
-    }
-    __syncthreads();
+    mm<NW1>(rows, PH, ni, wmat(FP(TP_TQ_WHB), H), H, H, FP(TP_TQ_B0), qp, PH,
+            true, ring);
     ln_rows(qp, PH, ni, H, FP(TP_TQ_LN_S), FP(TP_TQ_LN_B), true);
     __syncthreads();
     for (int idx = tid; idx < ni * H4; idx += nt) {
@@ -1358,82 +1771,157 @@ __device__ void trip_pre_body(const Dims& d, const Args& a, float* sm, int R,
   }
   __syncthreads();
   // pre_t[j, i, k8, :] = relu(LN(a_kj[m, j] + a_ji[j, i] + enc(angle) @
-  // t_Wang)). A thread takes one triplet (i, k8) with all Wt features: the
-  // angle and its 13 encodings once, LayerNorm sums in registers. A warp's
-  // 32 triplets are consecutive in pre_t: their values go through the warp's
-  // staging tile (rows rotated by the triplet against bank conflicts) and
-  // out as 16-byte stores, 512 bytes an instruction.
+  // t_Wang)), on the tensor cores: a warp takes 32 consecutive triplets
+  // (i, k8) of pre_t, each lane computes one triplet's angle and its 11
+  // encodings into row `lane` of the warp's tile [32][16] (5 zero columns),
+  // and the tile goes through mma.sync m16n8k8 in 3xTF32 (as mm_tc) against
+  // the merged t_Wang, split once into registers. The sums start from
+  // a_kj + a_ji. The weight's columns are permuted so that in the
+  // accumulators lane (gr, tq) holds features 16 q + 4 tq .. + 3 (q = 0, 1)
+  // of rows gr, gr + 8, gr + 16 and gr + 24: a quad holds a row's Wt
+  // features, its LayerNorm needs two shuffles, and every lane stores 16
+  // bytes at a time. Features from Wt on (Wt < 32) have zero weights and
+  // start from 0, so they add nothing to the LayerNorm sums; they are not
+  // stored.
   const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
+  const int gr = lane >> 2, tq = lane & 3;
   const int ntask = NL * K8;
-  float* stw = rows + warp * 32 * Wt;
+  // i = t / K8 as one multiply-high (exact for t < 2^32 / K8^2)
+  const uint32_t magic = K8 > 1 ? 0xffffffffu / (uint32_t)K8 + 1u : 0u;
+#define TRIP_I(t) (K8 > 1 ? (int)__umulhi((uint32_t)(t), magic) : (t))
+  uint32_t bh[2][4][2], bl[2][4][2];
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+#pragma unroll
+    for (int n8 = 0; n8 < 4; ++n8) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int e = 8 * ks + tq + 4 * h;
+        const int f = 16 * (n8 >> 1) + 4 * (gr >> 1) + 2 * (n8 & 1) + (gr & 1);
+        const float w = e < NENC && f < Wt ? wang[e * Wt + f] : 0.f;
+        split_tf32(__float_as_uint(w), bh[ks][n8][h], bl[ks][n8][h]);
+      }
+    }
+  }
+  float* et = rows + warp * 32 * ELD;
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8, lcol = (lane >> 4) * 4;
+  const uint32_t et_sh =
+      (uint32_t)__cvta_generic_to_shared(et + lrow * ELD + lcol);
   BT* outp = reinterpret_cast<BT*>(const_cast<void*>(a.p[TP_PRE_T])) +
              ((size_t)b * NL + j) * NL * K8 * Wt;
   for (int t0 = warp * 32; t0 < ntask; t0 += nw * 32) {
-    const int t = t0 + lane;
-    float mu = 0.f, rs = 0.f;
-    if (t < ntask) {
-      const int i = t / K8, k8 = t % K8, m = tidx[k8];
-      float dot = 0.f, njsq = 0.f, nksq = 0.f;
-      for (int c = 0; c < 3; ++c) {
-        const float rj = posl[j * 3 + c] - posl[i * 3 + c];
-        const float rk = posl[m * 3 + c] - posl[i * 3 + c];
-        dot += rj * rk;
-        njsq += rj * rj;
-        nksq += rk * rk;
-      }
-      const float cross =
-          sqrtf(fmaxf(njsq * nksq - dot * dot, CROSS_SQ_EPS_F));
-      const float ang = atan2f(cross, dot);
-      float enc[NANG];
-      enc[0] = ang;
+    {
+      const int t = t0 + lane;
+      float e[16];
 #pragma unroll
-      for (int e = 0; e < 6; ++e) {
-        enc[1 + e] = sinf(ang * c_bands[e]);
-        enc[7 + e] = cosf(ang * c_bands[e]);
-      }
-      float s1 = 0.f, s2 = 0.f;
-      for (int c4 = 0; c4 < W4; ++c4) {
-        const float4 k4 = ld4(akj + k8 * AP + c4 * 4);
-        const float4 j4 = ld4(aji + i * Wt + c4 * 4);
-        float4 ea = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-        for (int e = 0; e < NANG; ++e) {
-          const float4 w4 = ld4(wang + e * Wt + c4 * 4);
-          ea.x += enc[e] * w4.x; ea.y += enc[e] * w4.y;
-          ea.z += enc[e] * w4.z; ea.w += enc[e] * w4.w;
+      for (int q = 0; q < 16; ++q) e[q] = 0.f;
+      if (t < ntask) {
+        const int i = TRIP_I(t), k8 = t - i * K8, m = tidx[k8];
+        float dot = 0.f, njsq = 0.f, nksq = 0.f;
+        for (int c = 0; c < 3; ++c) {
+          const float rj = posl[j * 3 + c] - posl[i * 3 + c];
+          const float rk = posl[m * 3 + c] - posl[i * 3 + c];
+          dot += rj * rk;
+          njsq += rj * rj;
+          nksq += rk * rk;
         }
-        const float4 v = make_float4(k4.x + j4.x + ea.x, k4.y + j4.y + ea.y,
-                                     k4.z + j4.z + ea.z, k4.w + j4.w + ea.w);
-        s1 += v.x + v.y + v.z + v.w;
-        s2 += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
-        st4(stw + lane * Wt + rot4(c4, lane, W4) * 4, v);
+        const float cross =
+            sqrtf(fmaxf(njsq * nksq - dot * dot, CROSS_SQ_EPS_F));
+        const float ang = atan2f(cross, dot);
+        float s1, c1, s2, c2, s3, c3;
+        sincosf(ang, &s1, &c1);
+        sincosf(ang * 0.5f, &s2, &c2);
+        sincosf(ang * 0.33333334f, &s3, &c3);
+        e[0] = ang;
+        e[1] = s1;
+        e[2] = 2.f * s1 * c1;                 // sin 2a
+        e[3] = s1 * (3.f - 4.f * s1 * s1);    // sin 3a
+        e[4] = s2;
+        e[5] = s3;
+        e[6] = c1;
+        e[7] = 1.f - 2.f * s1 * s1;           // cos 2a
+        e[8] = c1 * (4.f * c1 * c1 - 3.f);    // cos 3a
+        e[9] = c2;
+        e[10] = c3;
       }
-      mu = s1 / Wt;
-      rs = rsqrtf(s2 / Wt - mu * mu + LN_EPS_F);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        st4(et + lane * ELD + 4 * q,
+            make_float4(e[4 * q], e[4 * q + 1], e[4 * q + 2], e[4 * q + 3]));
     }
     __syncwarp();
-    const int nout = imin(32, ntask - t0) * W4;
-    for (int q0 = 0; q0 < nout; q0 += 32) {
-      const int q = q0 + lane, tl = imin(q / W4, 31), c4 = q % W4;
-      const float m_ = __shfl_sync(0xffffffffu, mu, tl);
-      const float r_ = __shfl_sync(0xffffffffu, rs, tl);
-      if (q < nout) {
-        const float4 v = ld4(stw + tl * Wt + rot4(c4, tl, W4) * 4);
-        const float4 ls = ld4(lnsb + c4 * 4), lb = ld4(lnsb + Wt + c4 * 4);
-        float4 y;
-        y.x = fmaxf((v.x - m_) * r_ * ls.x + lb.x, 0.f);
-        y.y = fmaxf((v.y - m_) * r_ * ls.y + lb.y, 0.f);
-        y.z = fmaxf((v.z - m_) * r_ * ls.z + lb.z, 0.f);
-        y.w = fmaxf((v.w - m_) * r_ * ls.w + lb.w, 0.f);
-        Blk<BT>::st(outp + (size_t)t0 * Wt + q * 4, y);
+    float acc[2][4][4];
+#pragma unroll
+    for (int rt = 0; rt < 2; ++rt) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int t = t0 + rt * 16 + hr * 8 + gr;
+        const int i = TRIP_I(t), k8 = t - i * K8;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int f = 16 * q + 4 * tq;
+          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (t < ntask && f < Wt) {
+            const float4 kv = ld4(akj + k8 * AP + f);
+            const float4 jv = ld4(aji + i * Wt + f);
+            v = make_float4(kv.x + jv.x, kv.y + jv.y, kv.z + jv.z,
+                            kv.w + jv.w);
+          }
+          acc[rt][2 * q][2 * hr] = v.x;
+          acc[rt][2 * q][2 * hr + 1] = v.y;
+          acc[rt][2 * q + 1][2 * hr] = v.z;
+          acc[rt][2 * q + 1][2 * hr + 1] = v.w;
+        }
+      }
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        uint32_t af[4];
+        ldmatrix_x4(af, et_sh + (uint32_t)(rt * 16 * ELD + ks * 8) * 4u);
+        tile_step<4>(af, bh[ks], bl[ks], acc[rt]);
       }
     }
-    __syncwarp();
+#pragma unroll
+    for (int rt = 0; rt < 2; ++rt) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float s = 0.f, s2 = 0.f;
+#pragma unroll
+        for (int n8 = 0; n8 < 4; ++n8) {
+          const float v0 = acc[rt][n8][2 * hr], v1 = acc[rt][n8][2 * hr + 1];
+          s += v0 + v1;
+          s2 += v0 * v0 + v1 * v1;
+        }
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        s2 += __shfl_xor_sync(0xffffffffu, s2, 1);
+        s += __shfl_xor_sync(0xffffffffu, s, 2);
+        s2 += __shfl_xor_sync(0xffffffffu, s2, 2);
+        const float mu = s / Wt;
+        const float rs = rsqrtf(s2 / Wt - mu * mu + LN_EPS_F);
+        const int t = t0 + rt * 16 + hr * 8 + gr;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int f = 16 * q + 4 * tq;
+          if (t >= ntask || f >= Wt) continue;
+          const float4 ls = ld4(lnsb + f), lb = ld4(lnsb + 32 + f);
+          float4 y;
+          y.x = fmaxf((acc[rt][2 * q][2 * hr] - mu) * rs * ls.x + lb.x, 0.f);
+          y.y = fmaxf((acc[rt][2 * q][2 * hr + 1] - mu) * rs * ls.y + lb.y,
+                      0.f);
+          y.z = fmaxf((acc[rt][2 * q + 1][2 * hr] - mu) * rs * ls.z + lb.z,
+                      0.f);
+          y.w = fmaxf((acc[rt][2 * q + 1][2 * hr + 1] - mu) * rs * ls.w + lb.w,
+                      0.f);
+          Blk<BT>::st(outp + (size_t)t * Wt + f, y);
+        }
+      }
+    }
+    __syncwarp();  // the tile is free for the warp's next triplets
   }
+#undef TRIP_I
 }
 
 template <class BT>
-__global__ void __launch_bounds__(NT, 1)
+__global__ void __launch_bounds__(NT1, 2)
 trip_pre_kernel(Dims d, Args a, int R, const float* P0, int gstride, int PW) {
   extern __shared__ float sm[];
   const int b = blockIdx.y;
@@ -1642,7 +2130,7 @@ trip_att_kernel(Dims d, Args a, int R, int HG) {
   const float* ml = FP(TA_MASK_L) + (size_t)b * d.NL;
   // the pairs (j, i) with an atom in slot i; none if j itself is padding
   const int nsrc =
-      valid_sources(ml, d.NL, reinterpret_cast<int*>(sm + L.misc + 3));
+      valid_sources(ml, d.NL, reinterpret_cast<int*>(sm + L.misc + 7));
   const int nv = ml[j] != 0.f ? imax(0, imin(np, nsrc - i0)) : 0;
   if (nv > 0)
     trip_att_pairs<true, BT>(d, a, att_smem(d, sm, L), b, j, i0, nv, HG,
@@ -1680,12 +2168,14 @@ att_pos_kernel(Dims d, Args ap, Args ta, int R) {
     trip_att_void_pairs<false>(d, ta, b, 0, dl, 0, d.NL);
     return;
   }
-  const Lay L = stage_layout(d, d.heads, R, true, att_head_group(d));
+  const Lay L =
+      stage_layout(d, d.heads, R, true, att_head_group(d), 1, true);
   const Args& a = ap;
   const int nsrc = valid_sources(FP(T_MASK_L) + (size_t)b * d.NL, d.NL,
-                                 reinterpret_cast<int*>(sm + L.misc + 3));
+                                 reinterpret_cast<int*>(sm + L.misc + 7));
   trip_att_void_pairs<false>(d, ta, b, 0, dl, nsrc, d.NL);
-  pos_body(d, ap, sm, L, b, dl, nsrc, AttRows<BT>{&ta, att_smem(d, sm, L)});
+  pos_body(d, ap, sm, L, b, dl, 1, nsrc,
+           AttRows<BT>{&ta, att_smem(d, sm, L)});
 }
 
 // ------------------------------------------------------------ host entries
@@ -1704,6 +2194,9 @@ static Args read_args(const void* const* p, int n) {
 }
 
 static const size_t kMaxSmem = 232448;
+// the most a block may take for two blocks an SM (228 KB, 1 KB reserved a
+// block): stage B1's plan
+static const size_t kTwoBlockSmem = 233472 / 2 - 1024;
 
 static bool dims_ok(const Dims& d) {
   return d.H % d.heads == 0 && d.H % 4 == 0 && d.Wt % 4 == 0 && d.H <= NT &&
@@ -1729,10 +2222,10 @@ static int launch_rows_gemm(const float* X, int ldx, int rows, int rpb,
 enum { PLAN_NODE, PLAN_TRIP_PRE, PLAN_TRIP_ATT, PLAN_POS, PLAN_ATT_POS,
        PLAN_COUNT };
 
-// Destination nodes a block of stage A: two, so that the kNN edge products
-// run on 2 * K rows a weight pass, where the whole NL rows still fit beside
-// them; else one.
-static int plan_nodes(const Dims& d);
+// Destination nodes a block of stage A (PLAN_NODE) or stage C (PLAN_POS):
+// two, so that the kNN edge products run on 2 * K rows a weight pass, where
+// the bond grid's rows a pass do not shrink beside them; else one.
+static int plan_nodes(const Dims& d, int which = 0);
 
 // Heads a group of B2 alone: all of them where q_h of all heads fits beside
 // a whole column of pairs (R = NL up to RMAX; the flagship at NL <= 48), so
@@ -1750,7 +2243,7 @@ static int trip_att_heads(const Dims& d) {
 }
 
 // Dynamic shared memory of a block of kernel `which` with R source rows a
-// pass (stage A: with G destination nodes a block).
+// pass (stages A and C: with G destination nodes a block).
 static size_t plan_bytes(int which, const Dims& d, int R, int G = 1) {
   int floats = 0;
   switch (which) {
@@ -1760,28 +2253,40 @@ static size_t plan_bytes(int which, const Dims& d, int R, int G = 1) {
     case PLAN_TRIP_ATT:
       floats = stage_layout(d, 0, R, false, trip_att_heads(d)).total; break;
     case PLAN_POS:
-      floats = stage_layout(d, d.heads, R, true, 0).total; break;
+      floats = stage_layout(d, d.heads, R, true, 0, G, true).total; break;
     default:
-      floats = stage_layout(d, d.heads, R, true, att_head_group(d)).total;
+      floats = stage_layout(d, d.heads, R, true, att_head_group(d), 1,
+                            true).total;
       break;
   }
   return (size_t)floats * sizeof(float);
 }
 
-// Source rows a pass: all NL up to RMAX if the block's shared memory allows,
-// else the largest count that fits, evened out over the passes and rounded
-// up to whole 16-row tensor-core tiles where that still fits (80 as 48 +
-// 32, not 40 + 40). 0 if nothing fits.
-static int plan_rows(int which, const Dims& d, int G = 1) {
+// Source rows a pass within `cap` bytes a block: all NL up to RMAX if they
+// fit, else the largest count that fits, evened out over the passes and
+// rounded up to whole 16-row tensor-core tiles where that still fits (80
+// as 48 + 32, not 40 + 40). 0 if nothing fits.
+static int plan_rows_in(int which, const Dims& d, int G, size_t cap) {
   int R = d.NL < RMAX ? d.NL : RMAX;
-  while (R > 1 && plan_bytes(which, d, R, G) > kMaxSmem) R -= R > 8 ? 8 : 1;
-  if (plan_bytes(which, d, R, G) > kMaxSmem) return 0;
+  while (R > 1 && plan_bytes(which, d, R, G) > cap) R -= R > 8 ? 8 : 1;
+  if (plan_bytes(which, d, R, G) > cap) return 0;
   const int np = (d.NL + R - 1) / R, even = (d.NL + np - 1) / np;
   return np > 1 && ((even + 15) & ~15) <= R ? (even + 15) & ~15 : even;
 }
 
-static int plan_nodes(const Dims& d) {
-  return plan_rows(PLAN_NODE, d, 2) == plan_rows(PLAN_NODE, d, 1) ? 2 : 1;
+// Source rows a pass of kernel `which`. Stage B1 takes its q_z rows in
+// passes small enough for two blocks an SM (NT1 threads each), so that one
+// block's stores overlap another's products; where nothing fits that, one.
+static int plan_rows(int which, const Dims& d, int G = 1) {
+  if (which == PLAN_TRIP_PRE) {
+    const int R = plan_rows_in(which, d, G, kTwoBlockSmem);
+    if (R) return R;
+  }
+  return plan_rows_in(which, d, G, kMaxSmem);
+}
+
+static int plan_nodes(const Dims& d, int which) {
+  return plan_rows(which, d, 2) == plan_rows(which, d, 1) ? 2 : 1;
 }
 
 static int launch_node(const Dims& d, const Args& a, int PW,
@@ -1806,8 +2311,21 @@ static int launch_trip_pre(const Dims& d, const Args& a, const float* P0,
   const size_t bytes = plan_bytes(PLAN_TRIP_PRE, d, R);
   cudaFuncSetAttribute(trip_pre_kernel<BT>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  trip_pre_kernel<BT><<<dim3(d.NL, d.B), NT, bytes, st>>>(d, a, R, P0,
-                                                           gstride, PW);
+  trip_pre_kernel<BT><<<dim3(d.NL, d.B), NT1, bytes, st>>>(d, a, R, P0,
+                                                            gstride, PW);
+  return (int)cudaGetLastError();
+}
+
+// Stage C's queries and folds for every ligand row (pos_query_kernel),
+// after rows_gemm has made the node projections P.
+static int launch_pos_query(const Dims& d, const Args& a, cudaStream_t st) {
+  const size_t bytes =
+      ((size_t)2 * QROWS * (d.H + PD) + RING_FLOATS) * sizeof(float);
+  cudaFuncSetAttribute(pos_query_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)bytes);
+  pos_query_kernel<<<dim3((d.B * d.NL + QROWS - 1) / QROWS, 2), NT, bytes,
+                      st>>>(d, a);
   return (int)cudaGetLastError();
 }
 
@@ -1924,6 +2442,8 @@ static int stage_att_pos(const void* const* p, int np, const int* dims,
   rc = launch_rows_gemm(FP(PA_NEW_H), d.H, d.B * N, d.B * N, 0, 0, d.H,
                         FP(PA_W), 10 * d.H, OUTP(PA_P), st);
   if (rc) return rc;
+  rc = launch_pos_query(d, a, st);
+  if (rc) return rc;
   const int R = plan_rows(PLAN_ATT_POS, d);
   if (!R) return (int)cudaErrorInvalidValue;
   const size_t bytes = plan_bytes(PLAN_ATT_POS, d, R);
@@ -1935,16 +2455,35 @@ static int stage_att_pos(const void* const* p, int np, const int* dims,
 
 extern "C" {
 
-// For `dims`: source rows a pass and dynamic shared memory (bytes) a block
-// of node_kernel, trip_pre_kernel, trip_att_kernel, pos_kernel and
-// att_pos_kernel, as out[2 * i] and out[2 * i + 1] (rows 0: does not fit).
+// For `dims`: of node_kernel, trip_pre_kernel, trip_att_kernel, pos_kernel
+// and att_pos_kernel (i = 0 .. 4), source rows a pass out[4 i] (0: does not
+// fit), dynamic shared memory a block in bytes out[4 i + 1], destination
+// nodes a block out[4 i + 2] (stages A and C; 1 for the others) and the
+// blocks an SM holds at once out[4 i + 3] (the occupancy API: registers,
+// threads and shared memory; 0 where nothing fits).
 int ls_launch_plan(const int* dims, int* out) {
   const Dims d = read_dims(dims);
   if (!dims_ok(d)) return (int)cudaErrorInvalidValue;
+  const void* kern[PLAN_COUNT] = {
+      (const void*)node_kernel, (const void*)trip_pre_kernel<float>,
+      (const void*)trip_att_kernel<float>, (const void*)pos_kernel,
+      (const void*)att_pos_kernel<float>};
   for (int i = 0; i < PLAN_COUNT; ++i) {
-    const int G = i == PLAN_NODE ? plan_nodes(d) : 1;
-    out[2 * i] = plan_rows(i, d, G);
-    out[2 * i + 1] = out[2 * i] ? (int)plan_bytes(i, d, out[2 * i], G) : 0;
+    const int G = i == PLAN_NODE || i == PLAN_POS ? plan_nodes(d, i) : 1;
+    const int R = plan_rows(i, d, G);
+    const size_t bytes = R ? plan_bytes(i, d, R, G) : 0;
+    int blocks = 0;
+    if (R) {
+      cudaFuncSetAttribute(kern[i], cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+      const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, kern[i], i == PLAN_TRIP_PRE ? NT1 : NT, bytes);
+      if (e != cudaSuccess) return (int)e;
+    }
+    out[4 * i] = R;
+    out[4 * i + 1] = (int)bytes;
+    out[4 * i + 2] = G;
+    out[4 * i + 3] = blocks;
   }
   return 0;
 }
@@ -1976,12 +2515,14 @@ int ls_stage_pos(const void* const* p, int np, const int* dims, void* stream) {
   rc = launch_rows_gemm(FP(PA_NEW_H), d.H, d.B * N, d.B * N, 0, 0, d.H,
                         FP(PA_W), 10 * d.H, OUTP(PA_P), st);
   if (rc) return rc;
-  const int R = plan_rows(PLAN_POS, d);
+  rc = launch_pos_query(d, a, st);
+  if (rc) return rc;
+  const int G = plan_nodes(d, PLAN_POS), R = plan_rows(PLAN_POS, d, G);
   if (!R) return (int)cudaErrorInvalidValue;
-  const size_t bytes = plan_bytes(PLAN_POS, d, R);
+  const size_t bytes = plan_bytes(PLAN_POS, d, R, G);
   cudaFuncSetAttribute(pos_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)bytes);
-  pos_kernel<<<dim3(d.NL, d.B), NT, bytes, st>>>(d, a, R);
+  pos_kernel<<<dim3((d.NL + G - 1) / G, d.B), NT, bytes, st>>>(d, a, R, G);
   return (int)cudaGetLastError();
 }
 

@@ -129,9 +129,11 @@ def _random_tree(spec, g: torch.Generator, device):
 
 def flagship_case(B=16, NP=96, NL=80, H=128, heads=16, Wt=32, K=32,
                   trip_k=32, seed=0, device="cuda",
-                  empty_first=False, cutoff="knn") -> Dict:
+                  empty_first=False, cutoff="knn", lig_mask=None) -> Dict:
     """One layer's inputs; `empty_first` leaves graph 0 without a valid
-    ligand atom (all its ligand rows are padding). `cutoff` 'hybrid' builds
+    ligand atom (all its ligand rows are padding); `lig_mask` ([B, NL]
+    bool) sets which ligand slots hold an atom, in place of the first
+    n_lig of each graph. `cutoff` 'hybrid' builds
     the kNN table of the hybrid cutoff (`ops/knn.py::hybrid_neighbors`:
     ligand rows take every ligand slot and their K nearest phore points,
     NL + K columns) in place of the K nearest neighbours."""
@@ -149,8 +151,9 @@ def flagship_case(B=16, NP=96, NL=80, H=128, heads=16, Wt=32, K=32,
         n_lig[0] = 0
     n_ph = torch.randint(NP // 2, NP + 1, (B,), generator=g)
     ar_l, ar_p = torch.arange(NL), torch.arange(NP)
-    node_mask = torch.cat([ar_p[None] < n_ph[:, None],
-                           ar_l[None] < n_lig[:, None]], 1).to(device)
+    lig = ar_l[None] < n_lig[:, None] if lig_mask is None \
+        else torch.as_tensor(lig_mask, dtype=torch.bool).cpu()
+    node_mask = torch.cat([ar_p[None] < n_ph[:, None], lig], 1).to(device)
     if cutoff == "hybrid":
         nbr_idx, nbr_mask = hybrid_neighbors(x, node_mask, NP, K)
     else:

@@ -625,6 +625,14 @@ def stage_triplet_att(w, hb, pre_t, q_z, t, d: StackDims):
     return out
 
 
+def _pos_scratch(d: StackDims, B: int, device):
+    """Stage C's scratch: the node projections [B * N, 10 H], then the
+    queries folded into the key layers [B * NL, 2, H + 1, heads] (one per
+    ligand row and attention)."""
+    return torch.empty(B * d.N * 10 * d.H
+                       + B * d.NL * 2 * (d.H + 1) * d.heads, device=device)
+
+
 def stage_pos(w, new_h, x, hb_new, t, d: StackDims):
     """Stage C; CUDA kernel for CUDA tensors, plain version on the CPU."""
     if not new_h.is_cuda:
@@ -632,7 +640,7 @@ def stage_pos(w, new_h, x, hb_new, t, d: StackDims):
     B = new_h.shape[0]
     _check_shapes(d, B, t, h=new_h, x=x, hb=hb_new)
     out = torch.empty_like(x)
-    P = torch.empty(B * d.N, 10 * d.H, device=x.device, dtype=torch.float32)
+    P = _pos_scratch(d, B, x.device)
     named = ([("new_h", new_h), ("x", x), ("hb", hb_new), ("out", out),
               ("P", P)] + [(k, t[k]) for k in _TABLE_ARGS]
              + [(k, w[k]) for k in _POS_W])
@@ -678,7 +686,7 @@ def stage_att_pos(w, hb, pre_t, q_z, new_h, x, t, d: StackDims):
     _check_shapes(d, B, t, h=new_h, x=x, hb=hb, pre_t=pre_t, q_z=q_z)
     hb_new = torch.empty_like(hb)
     x_new = torch.empty_like(x)
-    P = torch.empty(B * d.N, 10 * d.H, device=x.device, dtype=torch.float32)
+    P = _pos_scratch(d, B, x.device)
     named = ([("new_h", new_h), ("x", x), ("hb", hb), ("x_new", x_new),
               ("P", P)] + [(k, t[k]) for k in _TABLE_ARGS]
              + [(k, w[k]) for k in _POS_W]

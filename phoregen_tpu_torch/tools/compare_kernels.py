@@ -11,7 +11,8 @@ layer_stack.cu` or `csrc/triplet_pool.cu`, with the same C entries and
 pointer slots, e.g. the parent commit's) and the tree's own source with
 `nvcc -Xptxas -v`, prints each kernel's registers, stack, spills and static
 shared memory, and the launch plan where the build exports one
-(`ls_launch_plan`: source rows a pass and dynamic shared memory a block;
+(`ls_launch_plan`: source rows a pass, dynamic shared memory a block,
+destination nodes a block and blocks an SM;
 `tp_launch_plan`: dynamic shared memory, resident blocks an SM, threads and
 target atoms a block). It checks both builds against the plain versions,
 then times every kernel in the order other, this, this, other, so that both
@@ -83,20 +84,33 @@ def build(source: str, out: str, library: str):
     return lib, usage
 
 
-def layer_stack_plans(lib, args):
+PLAN_KERNELS = ("node_kernel", "trip_pre_kernel", "trip_att_kernel",
+                "pos_kernel", "att_pos_kernel")
+
+
+def launch_plan(lib, dims):
+    """{kernel: (source rows a pass, dynamic shared memory a block in bytes,
+    destination nodes a block, blocks an SM)} from `ls_launch_plan` for
+    `dims` (B, NP, NL, K, K8, H, heads, Wt); None if it refuses them."""
     plan = lib.ls_launch_plan
     plan.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    plan.restype = ctypes.c_int
+    out = (ctypes.c_int * (4 * len(PLAN_KERNELS)))()
+    if plan((ctypes.c_int * 8)(*dims), out):
+        return None
+    return {k: tuple(out[4 * i:4 * i + 4])
+            for i, k in enumerate(PLAN_KERNELS)}
+
+
+def layer_stack_plans(lib, args):
     for nl in args.nl:
-        dims = (ctypes.c_int * 8)(args.batch, 96, nl, 32, 32, 128, 16, 32)
-        out = (ctypes.c_int * 10)()
-        if plan(dims, out):
+        plan = launch_plan(lib, (args.batch, 96, nl, 32, 32, 128, 16, 32))
+        if plan is None:
             raise SystemExit("ls_launch_plan refused the flagship dims")
         print(f"[this] B={args.batch} NL={nl} source rows a pass, dynamic "
-              f"shared memory a block: " + ", ".join(
-                  f"{k} {out[2 * i]} rows {out[2 * i + 1]} B" for i, k in
-                  enumerate(("node_kernel", "trip_pre_kernel",
-                             "trip_att_kernel", "pos_kernel",
-                             "att_pos_kernel"))))
+              f"shared memory a block, destinations a block, blocks an SM: "
+              + ", ".join(f"{k} {r} rows {by} B G={g} {n}/SM"
+                          for k, (r, by, g, n) in plan.items()))
 
 
 def triplet_pool_plans(libs, args):

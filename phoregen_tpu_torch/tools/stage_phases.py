@@ -14,8 +14,11 @@ nvcc, runs each of `--kernels` `--reps` times at the flagship widths
 and its cycles as a share of those of the sites called by a kernel itself
 (`*_kernel`, `rows_gemm`); the sites nest: an `edge_attention` holds its
 `mm`s. What a kernel does outside its stamped calls (reading the masks, a
-padded block's copy) is left out of the total. The package's own source
-holds no timing code; this copy exists only for the run.
+padded block's copy) is left out of the total. Each outermost `for`
+statement of `LOOP_BODIES` is stamped too, reported as callee `for` (in B1,
+the q_z passes and the pre_t phase; loops that a warp runs on its own are
+timed on warp 0). The package's own source holds no timing code; this
+copy exists only for the run.
 """
 from __future__ import annotations
 
@@ -33,11 +36,14 @@ from ..ops import kernel_check as kc
 from .compare_kernels import build
 
 # callees whose statement-form calls are stamped
-SITES = ("mm", "vec_mat", "pool_cols", "ln_rows", "softmax_heads",
-         "edge_attention", "bond_attention", "load_rows", "node_body",
-         "trip_att_pairs", "trip_att_void_pairs", "trip_pre_body",
-         "pos_body")
+SITES = ("mm", "mm_fold", "load_fold", "vec_mat", "pool_cols", "ln_rows",
+         "softmax_heads", "edge_attention", "bond_attention", "load_rows",
+         "node_body", "trip_att_pairs", "trip_att_void_pairs",
+         "trip_pre_body", "pos_body")
 MAX_SITES = 256
+# functions whose outermost loops main() stamps: the phases of stage B1 and
+# stage C that run no stamped call
+LOOP_BODIES = ("trip_pre_body", "pos_body")
 
 PRELUDE = f"""
 __device__ unsigned long long g_site_cycles[{MAX_SITES}];
@@ -95,11 +101,85 @@ def _enclosing(src: str, pos: int) -> str:
     return name
 
 
-def instrument(src: str):
-    """(stamped source, [(site index, callee, line, enclosing function)])."""
+def _body_span(src: str, name: str):
+    """(start, end) of the braces of function `name`'s definition."""
+    m = re.search(r"^(?:__device__|__global__)[^;{]*?\b" + name + r"\(",
+                  src, re.M)
+    if not m:
+        raise ValueError(f"no definition of {name}")
+    open_ = src.index("{", _close_paren(src, m.end() - 1))
+    depth = 0
+    for j in range(open_, len(src)):
+        depth += {"{": 1, "}": -1}.get(src[j], 0)
+        if depth == 0:
+            return open_, j + 1
+    raise ValueError("unbalanced braces")
+
+
+def _statement_end(src: str, i: int) -> int:
+    """Index just past the statement that starts at src[i] (a `for` whose
+    body is a block or one statement)."""
+    j = _close_paren(src, src.index("(", i))
+    k = j + len(src[j:]) - len(src[j:].lstrip())
+    if src[k] == "{":
+        depth = 0
+        for e in range(k, len(src)):
+            depth += {"{": 1, "}": -1}.get(src[e], 0)
+            if depth == 0:
+                return e + 1
+        raise ValueError("unbalanced braces")
+    if src.startswith("for", k) and not src[k + 3].isalnum():
+        return _statement_end(src, k)
+    depth = 0
+    for e in range(k, len(src)):
+        depth += {"(": 1, ")": -1}.get(src[e], 0)
+        if src[e] == ";" and depth == 0:
+            return e + 1
+    raise ValueError("unterminated statement")
+
+
+def _outer_loops(src: str, name: str):
+    """[(start, end)] of the `for` statements at the top level of function
+    `name`'s body (comments skipped)."""
+    start, end = _body_span(src, name)
+    spans, depth, i = [], 0, start
+    while i < end:
+        if src.startswith("//", i):
+            i = src.index("\n", i)
+            continue
+        c = src[i]
+        if c in "{}":
+            depth += 1 if c == "{" else -1
+        elif depth == 1 and src.startswith("for", i) and \
+                not src[i - 1].isalnum() and src[i - 1] != "_" and \
+                not (src[i + 3].isalnum() or src[i + 3] == "_"):
+            e = _statement_end(src, i)
+            spans.append((i, e))
+            i = e
+            continue
+        i += 1
+    return spans
+
+
+def instrument(src: str, loops=()):
+    """(stamped source, [(site index, callee, line, enclosing function)]);
+    `loops`: functions whose outermost `for` statements are stamped too
+    (callee `for`)."""
+    sites = []
+    if loops:
+        spans = sorted((s, e, name) for name in loops
+                       for s, e in _outer_loops(src, name))
+        out, pos = [], 0
+        for s, e, name in spans:
+            i = len(sites)
+            sites.append((i, "for", src.count("\n", 0, s) + 1, name))
+            out += [src[pos:s], "{ SITE_BEGIN ", src[s:e],
+                    f" SITE_END({i}) }}"]
+            pos = e
+        src = "".join(out + [src[pos:]])
     call = re.compile(r"(?<![\w.>])(" + "|".join(SITES)
                       + r")(<[^;(){}]*>)?\(")
-    out, sites, pos = [], [], 0
+    out, pos = [], 0
     for m in call.finditer(src):
         if m.start() < pos:
             continue
@@ -145,7 +225,7 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
     with open(args.source) as f:
-        stamped, sites = instrument(f.read())
+        stamped, sites = instrument(f.read(), LOOP_BODIES)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "layer_stack_stamped.cu")
         with open(path, "w") as f:

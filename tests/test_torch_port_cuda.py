@@ -134,6 +134,96 @@ def test_node_kernel_skips_padded_destinations(cuda, shape):
     torch.testing.assert_close(merged, ref, atol=1e-4, rtol=1e-4)
 
 
+def _plan(d, B=2):
+    """`ls_launch_plan` of the library for dims `d`: {kernel: (rows a pass,
+    bytes a block, destinations a block, blocks an SM)}."""
+    from phoregen_tpu_torch.ops import _build
+    from phoregen_tpu_torch.tools.compare_kernels import launch_plan
+    return launch_plan(_build.load(), (B, d.NP, d.NL, d.K, d.K8, d.H,
+                                       d.heads, d.Wt))
+
+
+def _lig_holes(B, NL, every=3):
+    """A ligand mask with every `every`-th slot padded (slot 0 included), so
+    that pairs of destinations hold a padded and a filled one each way."""
+    m = torch.ones(B, NL, dtype=torch.bool)
+    m[:, ::every] = False
+    return m
+
+
+POS_SHAPES = {
+    # an odd NL: the last block of two destinations holds one
+    "odd_nl": dict(B=2, NP=10, NL=21, H=32, heads=4, Wt=16, K=7, trip_k=5),
+    # heads not a multiple of 4, dh = 6 (the fold's scalar dot)
+    "heads6": dict(B=2, NP=8, NL=13, H=36, heads=6, Wt=8, K=5, trip_k=4),
+    # heads not a multiple of 4, dh = 8
+    "heads2": dict(B=3, NP=6, NL=9, H=16, heads=2, Wt=8, K=4, trip_k=3),
+    "flagship_nl80": dict(B=2, NP=96, NL=80, trip_k=32),
+    "flagship_nl48": dict(B=2, NP=96, NL=48, trip_k=32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("holes", [False, True], ids=["prefix", "holes"])
+@pytest.mark.parametrize("shape", sorted(POS_SHAPES))
+def test_pos_kernel_two_destinations(cuda, shape, holes):
+    """Stage C takes two destinations a block where `ls_launch_plan` says
+    they fit, with the query folded into its key layers: it and B2 + C (one
+    destination a block) agree with the plain versions within 1e-4 on odd
+    NL (a last block of one destination), on heads that are no multiple of
+    4, and with a padded destination beside a filled one (every third
+    ligand slot padded: pairs padded | filled and filled | padded)."""
+    cfg = dict(POS_SHAPES[shape])
+    if holes:
+        cfg["lig_mask"] = _lig_holes(cfg["B"], cfg["NL"])
+    case = kc.flagship_case(device=cuda, seed=7, **cfg)
+    plan = _plan(case["d"], case["B"])
+    assert plan["pos_kernel"][2] == 2 and plan["att_pos_kernel"][2] == 1
+    rows = kc.check_kernels(case, reps=1, kernels=[
+        k for k in kc.KERNELS if k[0] in ("stage_pos", "stage_att_pos")])
+    bad = [(r["name"], r["max_abs_err"]) for r in rows if not r["ok"]]
+    assert not bad, bad
+    # a padded destination keeps its position exactly
+    w, t, d = case["w"], case["t"], case["d"]
+    calls = kc.stage_calls(case)
+    out = calls["stage_pos"][0]()
+    pad = t["mask_l"] == 0
+    assert torch.equal(out[:, d.NP:][pad], case["x"][:, d.NP:][pad])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["flagship_nl80", "ragged", "small"])
+def test_pos_kernel_on_hybrid_tables(cuda, shape):
+    """Stage C (two destinations a block where they fit) and B2 + C on the
+    hybrid cutoff's table (NL + K sources a ligand row, the edge tiles in
+    several passes), with and without padded slots between filled ones."""
+    for holes in (False, True):
+        cfg = dict(HYBRID_SHAPES[shape])
+        if holes:
+            cfg["lig_mask"] = _lig_holes(cfg["B"], cfg["NL"], every=4)
+        case = kc.flagship_case(device=cuda, seed=8, cutoff="hybrid", **cfg)
+        rows = kc.check_kernels(case, reps=1, kernels=[
+            k for k in kc.KERNELS if k[0] in ("stage_pos", "stage_att_pos")])
+        bad = [(r["name"], r["max_abs_err"]) for r in rows if not r["ok"]]
+        assert not bad, (holes, bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nl", [80, 48])
+def test_launch_plan_reports_groups_and_residency(cuda, nl):
+    """`ls_launch_plan` at the flagship widths: stages A and C two
+    destinations a block, B2 + C one; stage B1 two blocks an SM, the
+    others one (512 threads at 128 registers fill an SM's registers)."""
+    d = ls.StackDims(NP=96, NL=nl, K=32, K8=32, H=128, heads=16, Wt=32)
+    plan = _plan(d, 16)
+    assert {k: v[2] for k, v in plan.items()} == {
+        "node_kernel": 2, "trip_pre_kernel": 1, "trip_att_kernel": 1,
+        "pos_kernel": 2, "att_pos_kernel": 1}
+    assert plan["trip_pre_kernel"][3] >= 2
+    assert all(v[3] == 1 for k, v in plan.items() if k != "trip_pre_kernel")
+    assert all(v[0] > 0 and 0 < v[1] <= 232448 for v in plan.values())
+
+
 # the stages that store or read the blocks pre_t and q_z have a bf16 form
 BF16_FORMS = ("stage_triplet_pre", "stage_triplet_att", "stage_node_pre",
               "stage_att_pos")
@@ -274,7 +364,7 @@ def test_dim_rules_agree_with_the_kernel_library(cuda):
     for d in cases:
         dims = (ctypes.c_int * 8)(2, d.NP, d.NL, d.K, d.K8, d.H, d.heads,
                                   d.Wt)
-        out = (ctypes.c_int * 10)()
+        out = (ctypes.c_int * 20)()
         try:
             ls._check_dims(d)
             python_takes = True

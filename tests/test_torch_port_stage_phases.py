@@ -45,3 +45,24 @@ def test_stamps_are_all_that_changes(source):
     lines = source.splitlines()
     for _, callee, line, _ in sites:
         assert re.search(r"(?<![\w.>])" + callee + r"\b", lines[line - 1])
+
+
+@pytest.mark.parametrize("body", sp.LOOP_BODIES)
+def test_outer_loops_are_stamped(source, body):
+    """`instrument(src, loops)` stamps the outermost `for` statements of
+    stage B1's and stage C's bodies, nested call sites still stamped inside
+    them, and taking the stamps off gives the source back."""
+    stamped, sites = sp.instrument(source, (body,))
+    loops = [(i, line) for i, callee, line, encl in sites if callee == "for"]
+    assert loops and all(encl == body for _, c, _, encl in sites
+                         if c == "for")
+    assert {c for _, c, _, _ in sites} >= set(sp.SITES) - {"pos_body",
+                                                          "trip_pre_body"}
+    lines = source.splitlines()
+    for _, line in loops:
+        assert lines[line - 1].lstrip().startswith("for (")
+    plain = stamped.replace(sp.PRELUDE, "")[:-len(sp.READER)]
+    while "{ SITE_BEGIN " in plain:   # innermost stamps first
+        plain = re.sub(r"\{ SITE_BEGIN ((?:(?!\{ SITE_BEGIN ).)*?) "
+                       r"SITE_END\(\d+\) \}", r"\1", plain, flags=re.S)
+    assert plain == source
