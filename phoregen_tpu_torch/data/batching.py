@@ -3,7 +3,9 @@
 Counterpart of `phoregen_tpu/data/batching.py`: each sample is padded to a
 static (ligand bucket, max phore) shape on the host in numpy; bonds live on
 the dense [NL, NL] grid. `PhoreGraphBatch.to(device)` moves a host batch
-to torch tensors.
+to torch tensors. `SLOTS` counts the ligand slots that padding to a bucket
+made and those of them that hold atoms (`replicate_phore`, and the
+loader's batch assembly), from host counts only.
 """
 from __future__ import annotations
 
@@ -12,6 +14,15 @@ from typing import List, Sequence
 
 import numpy as np
 import torch
+from torch.profiler import record_function
+
+# ligand slots made by padding to a bucket, and those holding atoms
+SLOTS = {"lig_real": 0, "lig_slots": 0}
+
+
+def reset_slot_counts() -> None:
+    for k in SLOTS:
+        SLOTS[k] = 0
 
 
 @dataclasses.dataclass
@@ -58,9 +69,10 @@ class PhoreGraphBatch:
         return m[:, :, None] & m[:, None, :] & ~eye
 
     def to(self, device) -> "PhoreGraphBatch":
-        return PhoreGraphBatch(**{
-            f.name: torch.as_tensor(np.asarray(getattr(self, f.name))).to(
-                device) for f in dataclasses.fields(self)})
+        with record_function("data.to_device"):
+            return PhoreGraphBatch(**{
+                f.name: torch.as_tensor(np.asarray(getattr(self, f.name)))
+                .to(device) for f in dataclasses.fields(self)})
 
 
 def pick_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -126,4 +138,6 @@ def replicate_phore(sample: dict, n_graphs: int,
         s["lig_mask"][:n] = True
         s["bond_type"] = np.zeros((n_lig, n_lig), np.int32)
         out.append(s)
+        SLOTS["lig_real"] += n
+    SLOTS["lig_slots"] += n_graphs * n_lig
     return collate(out)

@@ -18,10 +18,12 @@ import dataclasses
 from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
+from torch.profiler import record_function
 
 from ..config import Config
 from ..parallel import group
-from .batching import PhoreGraphBatch, collate, pad_sample, pick_bucket
+from .batching import (SLOTS, PhoreGraphBatch, collate, pad_sample,
+                       pick_bucket)
 from .transforms import add_phore_noise
 
 
@@ -124,23 +126,26 @@ class PhoreDataLoader:
         """Pad and collate the members `rows` of the batch `idxs`. The
         augmentation noise is drawn for every member in order, so a
         rank's rows are those of the whole batch."""
-        tcfg = self.config.train
-        members = [self.samples[i] for i in idxs]
-        n_lig = pick_bucket(max(m.n_atoms for m in members), self.buckets)
-        keep = range(len(members))[rows]
-        padded = []
-        for j, m in enumerate(members):
-            ppos, pnorm = m.phore_pos, m.phore_norm
-            if self.augment and tcfg.add_phore_noise:
-                ppos, pnorm = add_phore_noise(
-                    rng, ppos, pnorm, tcfg.phore_noise_std,
-                    tcfg.phore_norm_angle)
-            if j not in keep:
-                continue
-            padded.append(pad_sample(
-                m.lig_type, m.lig_pos, m.bond_index, m.bond_attr,
-                m.phore_x, ppos, pnorm, m.center, n_lig, self.max_phore))
-        return collate(padded)
+        with record_function("data.batch"):
+            tcfg = self.config.train
+            members = [self.samples[i] for i in idxs]
+            n_lig = pick_bucket(max(m.n_atoms for m in members), self.buckets)
+            keep = range(len(members))[rows]
+            padded = []
+            for j, m in enumerate(members):
+                ppos, pnorm = m.phore_pos, m.phore_norm
+                if self.augment and tcfg.add_phore_noise:
+                    ppos, pnorm = add_phore_noise(
+                        rng, ppos, pnorm, tcfg.phore_noise_std,
+                        tcfg.phore_norm_angle)
+                if j not in keep:
+                    continue
+                padded.append(pad_sample(
+                    m.lig_type, m.lig_pos, m.bond_index, m.bond_attr,
+                    m.phore_x, ppos, pnorm, m.center, n_lig, self.max_phore))
+                SLOTS["lig_real"] += m.n_atoms
+            SLOTS["lig_slots"] += len(padded) * n_lig
+            return collate(padded)
 
     def __iter__(self) -> Iterator[PhoreGraphBatch]:
         for batch, _ in self.iter_with_sizes():

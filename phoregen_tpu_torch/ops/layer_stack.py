@@ -53,6 +53,7 @@ from typing import Dict
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .knn import knn_neighbors
 from .rbf import (angular_encoding, angular_encoding_freq_bands,
@@ -1029,46 +1030,49 @@ class LayerStackFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_h, g_x, g_hb):
-        dims, t, keys = ctx.dims, ctx.tables, ctx.keys
-        L = len(ctx.bounds)
-        if ctx.block_dtype != torch.float32:
-            # straight through the block rounding: the layer boundaries
-            # the backward starts from are those of the float32 stack on
-            # the same inputs, not those of the rounded forward
-            packed = dict(zip(keys, ctx.values))
-            h, x, hb = ctx.bounds[0]
-            with torch.no_grad():
-                for l in range(1, L):
-                    h, x, hb = _layer(layer_weights(packed, l - 1), h, x, hb,
-                                      t, dims, True, *ctx.merges)
-                    ctx.bounds[l] = (h, x, hb)
-        g_vals = [torch.zeros_like(v) for v in ctx.values]
-        g_tab = [torch.zeros_like(t[k]) for k in _DIFF_TABLES]
-        zero = lambda g, like: torch.zeros_like(like) if g is None else g
-        for l in reversed(range(L)):
-            h, x, hb = (a.detach().requires_grad_(True)
-                        for a in ctx.bounds[l])
-            w = [v[l].detach().requires_grad_(True) for v in ctx.values]
-            tabs = [t[k].detach().requires_grad_(True) for k in _DIFF_TABLES]
-            with torch.enable_grad():
-                tl = dict(t, **dict(zip(_DIFF_TABLES, tabs)))
-                outs = _layer(dict(zip(keys, w)), h, x, hb, tl, dims, False,
-                              False, False)
-                gouts = (zero(g_h, outs[0]), zero(g_x, outs[1]),
-                         zero(g_hb, outs[2]))
-                # order of `_layer`'s outputs is (h, x, hb)
-                grads = torch.autograd.grad(
-                    outs, [h, x, hb] + tabs + w, gouts, allow_unused=True)
-            g_h, g_x, g_hb = grads[:3]
-            for acc, g in zip(g_tab, grads[3:3 + len(tabs)]):
-                if g is not None:
-                    acc += g
-            for acc, g in zip(g_vals, grads[3 + len(tabs):]):
-                if g is not None:
-                    acc[l] = g
-        ctx.bounds = None
-        return (None, None, None, None, None, None, g_h, g_x, g_hb, *g_tab,
-                *g_vals)
+        with record_function("stack.backward"):
+            dims, t, keys = ctx.dims, ctx.tables, ctx.keys
+            L = len(ctx.bounds)
+            if ctx.block_dtype != torch.float32:
+                # straight through the block rounding: the layer boundaries
+                # the backward starts from are those of the float32 stack on
+                # the same inputs, not those of the rounded forward
+                packed = dict(zip(keys, ctx.values))
+                h, x, hb = ctx.bounds[0]
+                with torch.no_grad():
+                    for l in range(1, L):
+                        h, x, hb = _layer(layer_weights(packed, l - 1), h, x,
+                                          hb, t, dims, True, *ctx.merges)
+                        ctx.bounds[l] = (h, x, hb)
+            g_vals = [torch.zeros_like(v) for v in ctx.values]
+            g_tab = [torch.zeros_like(t[k]) for k in _DIFF_TABLES]
+            zero = lambda g, like: torch.zeros_like(like) if g is None else g
+            for l in reversed(range(L)):
+                h, x, hb = (a.detach().requires_grad_(True)
+                            for a in ctx.bounds[l])
+                w = [v[l].detach().requires_grad_(True) for v in ctx.values]
+                tabs = [t[k].detach().requires_grad_(True)
+                        for k in _DIFF_TABLES]
+                with torch.enable_grad():
+                    tl = dict(t, **dict(zip(_DIFF_TABLES, tabs)))
+                    outs = _layer(dict(zip(keys, w)), h, x, hb, tl, dims,
+                                  False, False, False)
+                    gouts = (zero(g_h, outs[0]), zero(g_x, outs[1]),
+                             zero(g_hb, outs[2]))
+                    # order of `_layer`'s outputs is (h, x, hb)
+                    grads = torch.autograd.grad(
+                        outs, [h, x, hb] + tabs + w, gouts,
+                        allow_unused=True)
+                g_h, g_x, g_hb = grads[:3]
+                for acc, g in zip(g_tab, grads[3:3 + len(tabs)]):
+                    if g is not None:
+                        acc += g
+                for acc, g in zip(g_vals, grads[3 + len(tabs):]):
+                    if g is not None:
+                        acc[l] = g
+            ctx.bounds = None
+            return (None, None, None, None, None, None, g_h, g_x, g_hb,
+                    *g_tab, *g_vals)
 
 
 def make_layer_stack_grad(dims: StackDims, merge_node_pre: bool = False,

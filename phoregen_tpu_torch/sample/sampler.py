@@ -34,6 +34,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..constants import MAX_ATOMS, MIN_ATOMS
 from ..data.batching import PhoreGraphBatch
@@ -267,74 +268,77 @@ class Sampler:
         sampling, or 'node_noise', 'edge_noise' normals of the continuous
         one; 'pos_noise' normals). Returns (new state, (pred_node,
         pred_pos, pred_edge))."""
-        pg = self.pg
-        mcfg = pg.config.model
-        discrete = pg.categorical_space == "discrete"
-        ts, node_tabs, edge_tabs, (cx0, cxt, std) = self.schedule()
-        draws = draws or {}
-        B = batch.lig_mask.shape[0]
-        t = torch.full((B,), int(ts[i]), dtype=torch.int64,
-                       device=batch.lig_mask.device)
-        cdt = inv["dtype"]
-        if discrete:
-            oh = torch.nn.functional.one_hot
-            h_node = oh(state["node"].long(), mcfg.num_atom_classes)
-            h_edge = oh(state["edge"].long(), mcfg.num_bond_classes)
-        else:
-            h_node, h_edge = state["node"], state["edge"]
-        with torch.no_grad():
-            preds = apply_net(
-                pg.net, inv["params"], h_node.to(cdt), state["pos"],
-                batch.lig_mask, h_edge.to(cdt), t, batch.phore_x.to(cdt),
-                batch.phore_pos, batch.phore_norm, batch.phore_mask,
-                h_phore_emb=inv["h_phore"], compute_count=False,
-                fused_packed=inv["packed"])
-        # posteriors, positions and sampling in float32
-        pred_node, pred_pos, pred_edge = (
-            None if p is None else p.float() for p in preds[:3])
-        edge, log_edge = state["edge"], state["log_edge"]
-        if discrete:
-            ti = min(i, node_tabs[0].shape[0] - 1)
-            log_node = pg.node_transition.q_v_posterior_mats(
-                torch.log_softmax(pred_node, -1), state["log_node"],
-                node_tabs[0][ti], node_tabs[1][ti], is_final)
-            node = log_sample_categorical(log_node, generator,
-                                          draws.get("node_u"))
-            if mcfg.bond_diffusion:
-                log_edge = pg.edge_transition.q_v_posterior_mats(
-                    torch.log_softmax(pred_edge, -1), log_edge,
-                    edge_tabs[0][ti], edge_tabs[1][ti], is_final)
-                edge = log_sample_categorical(log_edge, generator,
-                                              draws.get("edge_u"))
-        else:
-            # the Gaussian reverse step on the relaxed one-hots
-            def gauss_step(x, pred, tabs, noise):
-                return GaussianTransition.get_prev_with(
-                    x, pred, float(tabs[0][i]), float(tabs[1][i]),
-                    float(tabs[2][i]), is_final, generator=generator,
-                    noise=noise)
-            log_node = None
-            node = gauss_step(state["node"], pred_node, node_tabs,
-                              draws.get("node_noise"))
-            if mcfg.bond_diffusion:
-                edge = gauss_step(edge, pred_edge, edge_tabs,
-                                  draws.get("edge_noise"))
-        energy_grad = 0.0
-        if self.guidance:
-            with torch.enable_grad():
-                p = state["pos"].detach().requires_grad_(True)
-                e = self.energy(p, edge, batch, inv["phore_center"],
-                                inv.get("pool_size"))
-                # no energy term left (atom_prox alone without bonds)
-                if e.requires_grad:
-                    energy_grad, = torch.autograd.grad(e, p)
-        pos = GaussianTransition.get_prev_with(
-            state["pos"], pred_pos, float(cx0[i]), float(cxt[i]),
-            float(std[i]), is_final, energy_grad=energy_grad,
-            generator=generator, noise=draws.get("pos_noise"))
-        new = {"pos": pos, "node": node, "log_node": log_node, "edge": edge,
-               "log_edge": log_edge}
-        return new, (pred_node, pred_pos, pred_edge)
+        with record_function("sample.step"):
+            pg = self.pg
+            mcfg = pg.config.model
+            discrete = pg.categorical_space == "discrete"
+            ts, node_tabs, edge_tabs, (cx0, cxt, std) = self.schedule()
+            draws = draws or {}
+            B = batch.lig_mask.shape[0]
+            t = torch.full((B,), int(ts[i]), dtype=torch.int64,
+                           device=batch.lig_mask.device)
+            cdt = inv["dtype"]
+            if discrete:
+                oh = torch.nn.functional.one_hot
+                h_node = oh(state["node"].long(), mcfg.num_atom_classes)
+                h_edge = oh(state["edge"].long(), mcfg.num_bond_classes)
+            else:
+                h_node, h_edge = state["node"], state["edge"]
+            with torch.no_grad(), record_function("sample.network"):
+                preds = apply_net(
+                    pg.net, inv["params"], h_node.to(cdt), state["pos"],
+                    batch.lig_mask, h_edge.to(cdt), t, batch.phore_x.to(cdt),
+                    batch.phore_pos, batch.phore_norm, batch.phore_mask,
+                    h_phore_emb=inv["h_phore"], compute_count=False,
+                    fused_packed=inv["packed"])
+            with record_function("sample.posterior"):
+                # posteriors, positions and sampling in float32
+                pred_node, pred_pos, pred_edge = (
+                    None if p is None else p.float() for p in preds[:3])
+                edge, log_edge = state["edge"], state["log_edge"]
+                if discrete:
+                    ti = min(i, node_tabs[0].shape[0] - 1)
+                    log_node = pg.node_transition.q_v_posterior_mats(
+                        torch.log_softmax(pred_node, -1), state["log_node"],
+                        node_tabs[0][ti], node_tabs[1][ti], is_final)
+                    node = log_sample_categorical(log_node, generator,
+                                                  draws.get("node_u"))
+                    if mcfg.bond_diffusion:
+                        log_edge = pg.edge_transition.q_v_posterior_mats(
+                            torch.log_softmax(pred_edge, -1), log_edge,
+                            edge_tabs[0][ti], edge_tabs[1][ti], is_final)
+                        edge = log_sample_categorical(log_edge, generator,
+                                                      draws.get("edge_u"))
+                else:
+                    # the Gaussian reverse step on the relaxed one-hots
+                    def gauss_step(x, pred, tabs, noise):
+                        return GaussianTransition.get_prev_with(
+                            x, pred, float(tabs[0][i]), float(tabs[1][i]),
+                            float(tabs[2][i]), is_final, generator=generator,
+                            noise=noise)
+                    log_node = None
+                    node = gauss_step(state["node"], pred_node, node_tabs,
+                                      draws.get("node_noise"))
+                    if mcfg.bond_diffusion:
+                        edge = gauss_step(edge, pred_edge, edge_tabs,
+                                          draws.get("edge_noise"))
+            energy_grad = 0.0
+            if self.guidance:
+                with torch.enable_grad(), record_function("sample.guidance"):
+                    p = state["pos"].detach().requires_grad_(True)
+                    e = self.energy(p, edge, batch, inv["phore_center"],
+                                    inv.get("pool_size"))
+                    # no energy term left (atom_prox alone without bonds)
+                    if e.requires_grad:
+                        energy_grad, = torch.autograd.grad(e, p)
+            with record_function("sample.position"):
+                pos = GaussianTransition.get_prev_with(
+                    state["pos"], pred_pos, float(cx0[i]), float(cxt[i]),
+                    float(std[i]), is_final, energy_grad=energy_grad,
+                    generator=generator, noise=draws.get("pos_noise"))
+            new = {"pos": pos, "node": node, "log_node": log_node,
+                   "edge": edge, "log_edge": log_edge}
+            return new, (pred_node, pred_pos, pred_edge)
 
     def sample(self, batch: PhoreGraphBatch,
                generator: Optional[torch.Generator] = None,

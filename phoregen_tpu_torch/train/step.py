@@ -25,6 +25,7 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional
 
 import torch
+from torch.profiler import record_function
 
 from ..ops.draws import BatchRows
 from ..parallel import group
@@ -59,22 +60,28 @@ def make_train_step(pg, cfg) -> Callable:
         params = list(state.net.parameters())
         state.net.zero_grad(set_to_none=True)
         gen = _generator(seed, batch.lig_pos.device, batch.num_graphs)
-        loss, metrics = pg.compute_loss(
-            batch, gen, lig_noise_std=lig_noise_std,
-            compute_dtype=tcfg.dtype, sum_over_ranks=_reduction(), **draws)
-        loss.backward()
-        group.reduce_gradients(params)
-        # the clip norm runs over ALL gradients, frozen leaves included
-        grads = [p.grad for p in params if p.grad is not None]
-        if tcfg.clip_grad and tcfg.clip_grad_mode == "queue":
-            gnorm = clip_by_queue(grads, state.grad_queue)
-        elif tcfg.clip_grad:
-            gnorm = clip_fixed(grads, tcfg.max_grad_norm)
-        else:
-            gnorm = loss.new_zeros(())
-        state.optimizer.step()
+        with record_function("train.forward"):
+            loss, metrics = pg.compute_loss(
+                batch, gen, lig_noise_std=lig_noise_std,
+                compute_dtype=tcfg.dtype, sum_over_ranks=_reduction(),
+                **draws)
+        with record_function("train.backward"):
+            loss.backward()
+            group.reduce_gradients(params)
+        with record_function("train.clip"):
+            # the clip norm runs over ALL gradients, frozen leaves included
+            grads = [p.grad for p in params if p.grad is not None]
+            if tcfg.clip_grad and tcfg.clip_grad_mode == "queue":
+                gnorm = clip_by_queue(grads, state.grad_queue)
+            elif tcfg.clip_grad:
+                gnorm = clip_fixed(grads, tcfg.max_grad_norm)
+            else:
+                gnorm = loss.new_zeros(())
+        with record_function("train.adam"):
+            state.optimizer.step()
         if tcfg.ema:
-            ema_update(state.ema_params, state.net, tcfg.ema_decay)
+            with record_function("train.ema"):
+                ema_update(state.ema_params, state.net, tcfg.ema_decay)
         state.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = gnorm

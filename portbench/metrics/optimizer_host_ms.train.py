@@ -1,0 +1,15 @@
+"""Host ms a train step spends in the program's `train.clip` (the clip
+queue), `train.adam` (`optimizer.step()`) and `train.ema` spans, over the
+traced steps. Nothing where the program has no such span. Moves
+`train_graphs_per_s`."""
+from portbench import spans
+
+
+def read(rec):
+    if rec.get("kind") != "train" or not rec.get("host"):
+        return None
+    us = spans.total_us(rec["host"], ("train.clip", "train.adam",
+                                      "train.ema"))
+    if not us:
+        return None
+    return us / rec["traced_steps"] / 1e3
