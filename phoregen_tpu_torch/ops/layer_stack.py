@@ -31,7 +31,9 @@ package's other meaning of the same key, bf16 carries and products on
 `make_layer_stack_grad` makes the stack trainable: kernels forward,
 backward by recomputing one layer at a time through the plain stages
 (`LayerStackFn`), as the JAX package's custom VJP recomputes through
-`layer_stack_xla`.
+`layer_stack_xla`; on CUDA tensors that recompute is one captured CUDA
+graph, replayed once a layer (`STACK_GRAPH` counts replays, eager
+recomputes and captures).
 
 Differences from the TPU layout, kept in the plain versions too so the two
 can be compared element for element:
@@ -267,8 +269,35 @@ def _gather_rows(v, idx):
     return out.reshape(*idx.shape, v.shape[-1])
 
 
+_RBF_OFFSETS, _RBF_COEFF = gaussian_smearing_offsets(fix_offset=True)
+# the plain stages' constant tables on the device, by (name, device, dtype):
+# a table built from numpy on every call is a host-to-device copy that
+# synchronizes, which a captured layer (`_LayerGraph`) may not hold
+_DEVICE_TABLES: Dict[tuple, torch.Tensor] = {}
+
+
+def _device_table(name: str, like: torch.Tensor, table) -> torch.Tensor:
+    """The numpy `table` on `like`'s device in `like`'s dtype, made once a
+    (name, device, dtype): the cast `gaussian_smearing` and
+    `angular_encoding` would make, so they find it done and take it as it
+    is."""
+    key = (name, like.device, like.dtype)
+    tab = _DEVICE_TABLES.get(key)
+    if tab is None:
+        tab = torch.as_tensor(table, dtype=like.dtype, device=like.device)
+        _DEVICE_TABLES[key] = tab
+    return tab
+
+
 def _rbf(dist):
-    return gaussian_smearing(dist, *gaussian_smearing_offsets(fix_offset=True))
+    return gaussian_smearing(dist, _device_table("rbf", dist, _RBF_OFFSETS),
+                             _RBF_COEFF)
+
+
+def _angular(theta, num_ang: int):
+    bands = _device_table(f"ang{num_ang}", theta,
+                          angular_encoding_freq_bands(num_ang))
+    return angular_encoding(theta, bands)
 
 
 def _qmlp(z, s, b, W1, b1):
@@ -378,8 +407,7 @@ def stage_triplet_pre_plain(w, h, x, hb, t, d: StackDims,
     nksq = (rel_ki * rel_ki).sum(-1)
     cross = torch.sqrt(torch.clamp(njsq * nksq - dot * dot,
                                    min=CROSS_SQ_EPS))
-    enc = angular_encoding(torch.atan2(cross, dot),
-                           angular_encoding_freq_bands(d.num_ang))
+    enc = _angular(torch.atan2(cross, dot), d.num_ang)
     pre = a_kj_sel[:, :, None] + a_ji[:, :, :, None] + enc @ w["t_Wang"]
     pre_t = torch.relu(_ln(pre, w["t_ln_s"], w["t_ln_b"]))
     return pre_t.to(block_dtype), q_z.to(block_dtype)
@@ -904,8 +932,7 @@ def _layer_xla2_bf16(w, h, x, hb, t, d: StackDims):
     cross = torch.sqrt(torch.clamp(
         (rel_l * rel_l).sum(-1)[..., None] * (rel_ki * rel_ki).sum(-1)
         - dot * dot, min=CROSS_SQ_EPS))
-    enc = angular_encoding(torch.atan2(cross, dot),
-                           angular_encoding_freq_bands(d.num_ang)).to(wdt)
+    enc = _angular(torch.atan2(cross, dot), d.num_ang).to(wdt)
     pre_t = (a_kj_sel[:, :, None] + rproj[..., Wt:][:, :, :, None]
              + enc @ w["t_Wang"])                          # [B,j,i,K8,Wt]
     pre_t = torch.relu(_ln(pre_t, w["t_ln_s"], w["t_ln_b"]))
@@ -986,6 +1013,115 @@ def layer_stack_xla2_bf16(packed: Dict[str, torch.Tensor], h, x, hb,
 
 _DIFF_TABLES = ("e_w", "phore_norm")
 
+# layer recomputes of `LayerStackFn.backward`: run as a replay of a captured
+# CUDA graph, or eagerly (CPU tensors); graphs captured. Host-only counts.
+STACK_GRAPH = {"captures": 0, "replays": 0, "eager": 0}
+
+
+def reset_stack_graph_counts() -> None:
+    for k in STACK_GRAPH:
+        STACK_GRAPH[k] = 0
+
+
+def _layer_grads(keys, d: StackDims, w, h, x, hb, t, cot):
+    """One layer recomputed through the plain stages under autograd and
+    pulled back from the cotangents `cot` of its outputs (h, x, hb): the
+    gradients (h, x, hb, *`_DIFF_TABLES`, *w), None where one is unused.
+    `w` is the layer's packed weights in the order of `keys`."""
+    h, x, hb = (a.detach().requires_grad_(True) for a in (h, x, hb))
+    w = [v.detach().requires_grad_(True) for v in w]
+    tabs = [t[k].detach().requires_grad_(True) for k in _DIFF_TABLES]
+    with torch.enable_grad():
+        tl = dict(t, **dict(zip(_DIFF_TABLES, tabs)))
+        outs = _layer(dict(zip(keys, w)), h, x, hb, tl, d, False, False,
+                      False)
+        return torch.autograd.grad(outs, [h, x, hb] + tabs + w, cot,
+                                   allow_unused=True)
+
+
+def _graphable(t: torch.Tensor) -> bool:
+    """Whether the recompute runs as a captured graph: on CUDA tensors."""
+    return t.is_cuda
+
+
+def _capture(fn, pool=None):
+    """`fn`'s launches captured as one CUDA graph after one warm-up on a
+    side stream, in the memory pool `pool` (another graph's `pool()`;
+    None: a new one). Returns (the graph, fn's outputs, which each replay
+    rewrites)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool):
+        outs = fn()
+    return graph, outs
+
+
+class _LayerGraph:
+    """`_layer_grads` captured once over static copies of its inputs and
+    replayed once a layer: each call copies the layer's weights, boundary
+    and cotangents into the static inputs (every value changes from step
+    to step), replays, and returns the static outputs, valid until the
+    next replay. The tables are copied in once a backward (`load_tables`).
+    `pool` is the memory pool the graph shares (`_capture`)."""
+
+    def __init__(self, keys, d: StackDims, w, bound, t, cot, pool):
+        static = lambda a: a.detach().clone()
+        self.ins = [static(a) for a in (*w, *bound, *cot)]
+        self.t = {k: static(v) for k, v in t.items()}
+        n = len(w)
+        self.graph, self.outs = _capture(lambda: _layer_grads(
+            keys, d, self.ins[:n], *self.ins[n:n + 3], self.t,
+            self.ins[n + 3:]), pool)
+        STACK_GRAPH["captures"] += 1
+
+    def load_tables(self, t):
+        for k, v in self.t.items():
+            v.copy_(t[k])
+
+    def __call__(self, w, bound, cot):
+        torch._foreach_copy_(self.ins, [*w, *bound, *cot])
+        self.graph.replay()
+        STACK_GRAPH["replays"] += 1
+        return self.outs
+
+
+# the captured layers by shape key; they and their shared memory pool are
+# held until the process exits, and each new key's capture may grow the pool
+_GRAPHS: Dict[tuple, _LayerGraph] = {}
+
+
+def _layer_graph(keys, d: StackDims, values, bound, t, cot) -> _LayerGraph:
+    """The captured layer for these shapes (captured at the first call of
+    a key, from its last layer's inputs), its tables loaded. All layer
+    graphs share one memory pool: they never replay at once, and each
+    replay's outputs are copied out before the next."""
+    sig = lambda a: (tuple(a.shape), a.dtype)
+    key = (d, keys, values[0].device,
+           tuple((tuple(v.shape[1:]), v.dtype) for v in values),
+           tuple(sig(a) for a in bound),
+           tuple((k, *sig(t[k])) for k in sorted(t)))
+    graph = _GRAPHS.get(key)
+    if graph is None:
+        pool = next(iter(_GRAPHS.values())).graph.pool() if _GRAPHS \
+            else None
+        graph = _LayerGraph(keys, d, [v[-1] for v in values], bound, t, cot,
+                            pool)
+        _GRAPHS[key] = graph
+    graph.load_tables(t)
+    return graph
+
+
+def _apply_pairs(op, dst, src):
+    """op(dst, src) over the pairs whose source is not None (a gradient
+    `allow_unused` left out)."""
+    pairs = [(a, g) for a, g in zip(dst, src) if g is not None]
+    if pairs:
+        op(*map(list, zip(*pairs)))
+
 
 class LayerStackFn(torch.autograd.Function):
     """`layer_stack` through its kernels with a backward.
@@ -994,12 +1130,17 @@ class LayerStackFn(torch.autograd.Function):
     layer-boundary (h, x, hb); backward walks the layers in reverse,
     recomputes ONE layer through the plain stages under autograd and pulls
     the cotangents back to that layer's packed weights, to h, x, hb and to
-    the differentiable tables `e_w` and `phore_norm`. Index and mask tables
-    get no gradient (the kNN sets are frozen per block). There is no
-    backward kernel, as in the JAX package, whose custom VJP recomputes
-    `layer_stack_xla`; one layer at a time keeps the recomputed
-    [B,NL,NL,K8,Wt] and per-head intermediates of a single layer live
-    instead of the whole stack's. With bf16 inter-stage blocks
+    the differentiable tables `e_w` and `phore_norm` (`_layer_grads`).
+    Index and mask tables get no gradient (the kNN sets are frozen per
+    block). There is no backward kernel, as in the JAX package, whose
+    custom VJP recomputes `layer_stack_xla`; one layer at a time keeps the
+    recomputed [B,NL,NL,K8,Wt] and per-head intermediates of a single
+    layer live instead of the whole stack's. On CUDA tensors the recompute
+    is one CUDA graph (`_LayerGraph`), captured at the first backward of
+    its shapes and replayed once a layer, so the host enqueues a few
+    copies and a replay where it would launch the recompute and its
+    backward op by op; on the CPU the same function runs eagerly
+    (`STACK_GRAPH` counts both). With bf16 inter-stage blocks
     (`block_dtype`, `fused_block_dtype`) the forward rounds pre_t and q_z to
     bf16 while the backward is that of the float32 stack on the same
     inputs: it first remakes the float32 layer boundaries (kernels with
@@ -1046,33 +1187,30 @@ class LayerStackFn(torch.autograd.Function):
                         ctx.bounds[l] = (h, x, hb)
             g_vals = [torch.zeros_like(v) for v in ctx.values]
             g_tab = [torch.zeros_like(t[k]) for k in _DIFF_TABLES]
-            zero = lambda g, like: torch.zeros_like(like) if g is None else g
+            cot = (g_h, g_x, g_hb)
+            graph = _layer_graph(keys, dims, ctx.values, ctx.bounds[-1], t,
+                                 cot) if _graphable(g_hb) else None
+            n = 3 + len(_DIFF_TABLES)
             for l in reversed(range(L)):
-                h, x, hb = (a.detach().requires_grad_(True)
-                            for a in ctx.bounds[l])
-                w = [v[l].detach().requires_grad_(True) for v in ctx.values]
-                tabs = [t[k].detach().requires_grad_(True)
-                        for k in _DIFF_TABLES]
-                with torch.enable_grad():
-                    tl = dict(t, **dict(zip(_DIFF_TABLES, tabs)))
-                    outs = _layer(dict(zip(keys, w)), h, x, hb, tl, dims,
-                                  False, False, False)
-                    gouts = (zero(g_h, outs[0]), zero(g_x, outs[1]),
-                             zero(g_hb, outs[2]))
-                    # order of `_layer`'s outputs is (h, x, hb)
-                    grads = torch.autograd.grad(
-                        outs, [h, x, hb] + tabs + w, gouts,
-                        allow_unused=True)
-                g_h, g_x, g_hb = grads[:3]
-                for acc, g in zip(g_tab, grads[3:3 + len(tabs)]):
-                    if g is not None:
-                        acc += g
-                for acc, g in zip(g_vals, grads[3 + len(tabs):]):
-                    if g is not None:
-                        acc[l] = g
+                w = [v[l] for v in ctx.values]
+                if graph is None:
+                    grads = _layer_grads(keys, dims, w, *ctx.bounds[l], t,
+                                         cot)
+                    STACK_GRAPH["eager"] += 1
+                else:
+                    grads = graph(w, ctx.bounds[l], cot)
+                # order of `_layer`'s outputs and of its inputs is (h, x, hb)
+                cot = tuple(torch.zeros_like(a) if g is None else g
+                            for g, a in zip(grads[:3], ctx.bounds[l]))
+                _apply_pairs(torch._foreach_add_, g_tab, grads[3:n])
+                _apply_pairs(torch._foreach_copy_, [a[l] for a in g_vals],
+                             grads[n:])
+            if graph is not None:
+                # the graph's outputs are rewritten by its next replay
+                cot = tuple(g.clone() for g in cot)
             ctx.bounds = None
-            return (None, None, None, None, None, None, g_h, g_x, g_hb,
-                    *g_tab, *g_vals)
+            return (None, None, None, None, None, None, *cot, *g_tab,
+                    *g_vals)
 
 
 def make_layer_stack_grad(dims: StackDims, merge_node_pre: bool = False,
