@@ -4,8 +4,10 @@ Counterpart of `phoregen_tpu/data/batching.py`: each sample is padded to a
 static (ligand bucket, max phore) shape on the host in numpy; bonds live on
 the dense [NL, NL] grid. `PhoreGraphBatch.to(device)` moves a host batch
 to torch tensors. `SLOTS` counts the ligand slots that padding to a bucket
-made and those of them that hold atoms (`replicate_phore`, and the
-loader's batch assembly), from host counts only.
+made and those of them that hold atoms, and likewise the directed triplets
+(k, j, i) of distinct ligand slots that the dense bond grid spans (B NL^3)
+and those of three atoms (n (n - 1) (n - 2) a graph) (`replicate_phore`,
+and the loader's batch assembly), from host counts only.
 """
 from __future__ import annotations
 
@@ -16,8 +18,14 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-# ligand slots made by padding to a bucket, and those holding atoms
-SLOTS = {"lig_real": 0, "lig_slots": 0}
+# ligand slots made by padding to a bucket, and those holding atoms; the
+# triplet grid's slots, and its triplets of three distinct atoms
+SLOTS = {"lig_real": 0, "lig_slots": 0, "trip_real": 0, "trip_slots": 0}
+
+
+def triplet_count(n: int) -> int:
+    """Directed triplets (k, j, i) of distinct atoms of an n-atom graph."""
+    return n * (n - 1) * (n - 2)
 
 
 def reset_slot_counts() -> None:
@@ -139,5 +147,7 @@ def replicate_phore(sample: dict, n_graphs: int,
         s["bond_type"] = np.zeros((n_lig, n_lig), np.int32)
         out.append(s)
         SLOTS["lig_real"] += n
+        SLOTS["trip_real"] += triplet_count(n)
     SLOTS["lig_slots"] += n_graphs * n_lig
+    SLOTS["trip_slots"] += n_graphs * n_lig ** 3
     return collate(out)

@@ -23,7 +23,7 @@ from torch.profiler import record_function
 from ..config import Config
 from ..parallel import group
 from .batching import (SLOTS, PhoreGraphBatch, collate, pad_sample,
-                       pick_bucket)
+                       pick_bucket, triplet_count)
 from .transforms import add_phore_noise
 
 
@@ -144,7 +144,9 @@ class PhoreDataLoader:
                     m.lig_type, m.lig_pos, m.bond_index, m.bond_attr,
                     m.phore_x, ppos, pnorm, m.center, n_lig, self.max_phore))
                 SLOTS["lig_real"] += m.n_atoms
+                SLOTS["trip_real"] += triplet_count(m.n_atoms)
             SLOTS["lig_slots"] += len(padded) * n_lig
+            SLOTS["trip_slots"] += len(padded) * n_lig ** 3
             return collate(padded)
 
     def __iter__(self) -> Iterator[PhoreGraphBatch]:

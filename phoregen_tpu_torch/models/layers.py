@@ -38,6 +38,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from ..ops.knn import knn_neighbors
 from ..ops.masked import masked_softmax
@@ -474,15 +475,16 @@ class BondUpdateTriplet(_AttentionSettings):
         """h [B,NL,H]; h_bond [B,NL,NL,H] (src, dst); pos [B,NL,3];
         node_mask [B,NL]; trip_frozen: optional (idx, mask) kNN table for
         the source restriction. Returns the bond update [B,NL,NL,H]."""
-        rel = pos[:, :, None, :] - pos[:, None, :, :]         # rel[x,i] = x - i
-        dist = torch.sqrt((rel * rel).sum(-1) + 1e-12)
-        # the distance features drop to the feature dtype (pos stays f32)
-        r_feat = gaussian_smearing(
-            dist, *gaussian_smearing_offsets(fix_offset=True)).to(h.dtype)
-        if self.mode == "factorized":
-            return self._factorized(params, h, h_bond, r_feat, pos,
-                                    node_mask, trip_frozen)
-        return self._dense(params, h, h_bond, r_feat, rel, node_mask)
+        with record_function("bond.triplet"):
+            rel = pos[:, :, None, :] - pos[:, None, :, :]  # rel[x,i] = x - i
+            dist = torch.sqrt((rel * rel).sum(-1) + 1e-12)
+            # the distance features drop to the feature dtype (pos stays f32)
+            r_feat = gaussian_smearing(
+                dist, *gaussian_smearing_offsets(fix_offset=True)).to(h.dtype)
+            if self.mode == "factorized":
+                return self._factorized(params, h, h_bond, r_feat, pos,
+                                        node_mask, trip_frozen)
+            return self._dense(params, h, h_bond, r_feat, rel, node_mask)
 
     def _dense(self, p, h, h_bond, r_feat, rel, node_mask):
         B, N, H = h.shape

@@ -270,34 +270,17 @@ def _gather_rows(v, idx):
 
 
 _RBF_OFFSETS, _RBF_COEFF = gaussian_smearing_offsets(fix_offset=True)
-# the plain stages' constant tables on the device, by (name, device, dtype):
-# a table built from numpy on every call is a host-to-device copy that
-# synchronizes, which a captured layer (`_LayerGraph`) may not hold
-_DEVICE_TABLES: Dict[tuple, torch.Tensor] = {}
 
 
-def _device_table(name: str, like: torch.Tensor, table) -> torch.Tensor:
-    """The numpy `table` on `like`'s device in `like`'s dtype, made once a
-    (name, device, dtype): the cast `gaussian_smearing` and
-    `angular_encoding` would make, so they find it done and take it as it
-    is."""
-    key = (name, like.device, like.dtype)
-    tab = _DEVICE_TABLES.get(key)
-    if tab is None:
-        tab = torch.as_tensor(table, dtype=like.dtype, device=like.device)
-        _DEVICE_TABLES[key] = tab
-    return tab
-
-
+# the tables' device copies are made once (`ops/rbf.py::_table`): a copy
+# from numpy synchronizes, which a captured layer (`_LayerGraph`) may not
+# hold
 def _rbf(dist):
-    return gaussian_smearing(dist, _device_table("rbf", dist, _RBF_OFFSETS),
-                             _RBF_COEFF)
+    return gaussian_smearing(dist, _RBF_OFFSETS, _RBF_COEFF)
 
 
 def _angular(theta, num_ang: int):
-    bands = _device_table(f"ang{num_ang}", theta,
-                          angular_encoding_freq_bands(num_ang))
-    return angular_encoding(theta, bands)
+    return angular_encoding(theta, angular_encoding_freq_bands(num_ang))
 
 
 def _qmlp(z, s, b, W1, b1):

@@ -3,6 +3,13 @@
 Counterpart of `phoregen_tpu/ops/rbf.py`: `GaussianSmearing` with the fixed
 non-uniform 20-point offset grid or a uniform grid, the linear time grid
 embedding, and the sin/cos angular encoding.
+
+The encodings take their tables (offsets, frequency bands) as numpy
+arrays or tensors. A numpy table is copied to the device once a (table,
+device, dtype) and kept (`_table`): a copy from host memory makes the host
+wait until the device has run everything queued before it, so a copy in
+every call held the sampling loop in step with the device, layer by
+layer.
 """
 from __future__ import annotations
 
@@ -10,6 +17,22 @@ import numpy as np
 import torch
 
 from ..constants import FIXED_RBF_OFFSETS
+
+# (table bytes, numpy dtype, shape, device, dtype) -> the table there
+_TABLES = {}
+
+
+def _table(table, device, dtype) -> torch.Tensor:
+    """`table` as a tensor on `device` in `dtype`; a numpy table's copy is
+    made once and kept."""
+    if isinstance(table, torch.Tensor):
+        return table.to(device=device, dtype=dtype)
+    a = np.asarray(table)
+    key = (a.tobytes(), a.dtype.str, a.shape, torch.device(device), dtype)
+    t = _TABLES.get(key)
+    if t is None:
+        t = _TABLES[key] = torch.as_tensor(a, dtype=dtype, device=device)
+    return t
 
 
 def gaussian_smearing_offsets(start: float = 0.0, stop: float = 5.0,
@@ -25,7 +48,7 @@ def gaussian_smearing_offsets(start: float = 0.0, stop: float = 5.0,
 
 def gaussian_smearing(dist: torch.Tensor, offset, coeff: float) -> torch.Tensor:
     """exp(coeff * (d - mu_k)^2) over a trailing offset axis: [...] -> [..., G]."""
-    offset = torch.as_tensor(offset, dtype=dist.dtype, device=dist.device)
+    offset = _table(offset, dist.device, dist.dtype)
     d = dist[..., None] - offset
     return torch.exp(coeff * d * d)
 
@@ -50,8 +73,8 @@ def time_smearing(t: torch.Tensor, offset, coeff, start: float,
                   stop: float) -> torch.Tensor:
     """Clamped Gaussian grid time embedding: t [...] -> [..., G]."""
     t = torch.clamp(t.to(torch.float32), start, stop)
-    offset = torch.as_tensor(offset, dtype=torch.float32, device=t.device)
-    coeff = torch.as_tensor(coeff, dtype=torch.float32, device=t.device)
+    offset = _table(offset, t.device, torch.float32)
+    coeff = _table(coeff, t.device, torch.float32)
     d = t[..., None] - offset
     return torch.exp(coeff * d * d)
 
@@ -64,7 +87,7 @@ def angular_encoding_freq_bands(num_funcs: int = 3) -> np.ndarray:
 
 def angular_encoding(x: torch.Tensor, freq_bands) -> torch.Tensor:
     """x [...] -> [..., 1 + 4*num_funcs] = [x, sin(x*f), cos(x*f)]."""
-    f = torch.as_tensor(freq_bands, dtype=x.dtype, device=x.device)
+    f = _table(freq_bands, x.device, x.dtype)
     xe = x[..., None]
     return torch.cat([xe, torch.sin(xe * f), torch.cos(xe * f)], dim=-1)
 

@@ -15,9 +15,8 @@ import torch
 
 from phoregen_tpu_torch.ops import kernel_check as kc
 from phoregen_tpu_torch.ops import layer_stack as ls
-from phoregen_tpu_torch.ops.rbf import (angular_encoding,
-                                        angular_encoding_freq_bands,
-                                        gaussian_smearing,
+from phoregen_tpu_torch.ops import rbf
+from phoregen_tpu_torch.ops.rbf import (angular_encoding_freq_bands,
                                         gaussian_smearing_offsets)
 
 SMALL = dict(B=2, NP=6, NL=8, H=16, heads=2, Wt=8, K=4, trip_k=3)
@@ -119,28 +118,30 @@ def _assert_same(got, want, rel):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
 def test_cached_tables_equal_the_numpy_built_ones(dtype):
-    """`_rbf` and `_angular` read tables made once per (device, dtype),
-    bit for bit what `gaussian_smearing` and `angular_encoding` make from
-    the numpy tables on every call (the offsets cast to the distances'
-    dtype)."""
+    """`_rbf` and `_angular` read tables made once per (table, device,
+    dtype) (`ops/rbf.py::_table`), bit for bit what the numpy tables cast
+    to the distances' dtype on every call give."""
     g = torch.Generator().manual_seed(3)
     dist = (6.0 * torch.rand(4, 7, generator=g)).to(dtype)
     theta = (3.0 * torch.rand(4, 7, generator=g)).to(dtype)
-    want_rbf = gaussian_smearing(dist,
-                                 *gaussian_smearing_offsets(fix_offset=True))
+    offsets, coeff = gaussian_smearing_offsets(fix_offset=True)
+    d = dist[..., None] - torch.as_tensor(offsets, dtype=dtype)
+    want_rbf = torch.exp(coeff * d * d)
     for num_ang in (3, 2):
-        want_ang = angular_encoding(theta,
-                                    angular_encoding_freq_bands(num_ang))
+        xf = theta[..., None] * torch.as_tensor(
+            angular_encoding_freq_bands(num_ang), dtype=dtype)
+        want_ang = torch.cat([theta[..., None], torch.sin(xf),
+                              torch.cos(xf)], -1)
         for _ in range(2):               # made, then found in the cache
             got = ls._angular(theta, num_ang)
             assert got.dtype == want_ang.dtype and torch.equal(got, want_ang)
     for _ in range(2):
         got = ls._rbf(dist)
         assert got.dtype == want_rbf.dtype and torch.equal(got, want_rbf)
-    # made by the calls above: found again without the numpy table
-    tab = ls._device_table("rbf", dist, None)
+    # made by the calls above: found again, not copied again
+    tab = rbf._table(offsets, dist.device, dtype)
     assert tab.dtype == dtype and tab.device == dist.device
-    assert tab is ls._device_table("rbf", dist, None)
+    assert tab is rbf._table(offsets, dist.device, dtype)
 
 
 def test_cpu_backward_runs_eagerly(fresh_graphs):

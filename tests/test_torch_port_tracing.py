@@ -3,7 +3,10 @@ small seeded network: a reverse step records `sample.step` with its
 four phases inside it, a train step through a fused stack (its plain
 stages here) records the five train phases and `stack.backward` inside
 the backward, the loader records `data.batch` and `data.to_device`, and
-`SLOTS` counts the ligand slots that padding made and those with atoms.
+`SLOTS` counts the ligand slots that padding made and those with atoms,
+and the triplet grid's slots and its triplets of three atoms; the bond
+update records `bond.triplet` once a layer on the module path, in both
+triplet modes.
 The spans are read back through the benchmark's own event reader
 (`portbench/trace.py`), as its traced runs read them."""
 import numpy as np
@@ -39,12 +42,14 @@ TRAIN_PHASES = ("train.forward", "train.backward", "train.clip",
                 "train.adam", "train.ema")
 
 
-def _config(fused: str):
-    """The small stack of the port's other tests, two layers."""
+def _config(fused: str, layers: int = 2, triplet_mode: str = "factorized"):
+    """The small stack of the port's other tests, two layers unless told
+    otherwise."""
     cfg = default_config("zinc_300")
     m = cfg.model
     m.hidden_dim = m.denoiser.hidden_dim = 16
-    m.denoiser.num_layers = 2
+    m.denoiser.num_layers = layers
+    m.denoiser.triplet_mode = triplet_mode
     m.denoiser.n_heads = 2
     m.denoiser.knn = 4
     m.denoiser.triplet_knn = 3
@@ -61,9 +66,9 @@ def _config(fused: str):
     return cfg.finalize()
 
 
-def _model(fused: str):
+def _model(fused: str, **kw):
     torch.manual_seed(0)
-    cfg = _config(fused)
+    cfg = _config(fused, **kw)
     return PhoreGen(cfg), cfg
 
 
@@ -108,6 +113,23 @@ def test_reverse_step_records_its_span_and_four_phases_in_order(fused):
     assert all(a[2] <= b[1] for a, b in zip(phases, phases[1:]))
 
 
+@pytest.mark.parametrize("fused,mode,want", [
+    ("none", "factorized", 6), ("none", "dense", 6),
+    ("pallas", "factorized", 0)])
+def test_bond_update_records_its_span_once_a_layer_in_the_network(
+        fused, mode, want):
+    """Six layers: six `bond.triplet` spans inside `sample.network` on the
+    module path, in both triplet modes; none on the fused stack, which
+    never calls the module."""
+    pg, _ = _model(fused, layers=6, triplet_mode=mode)
+    pg.net.eval()
+    host = _traced(_reverse_step(pg))
+    net = _one(host, "sample.network")
+    got = spans.named(host, "bond.triplet")
+    assert len(got) == want
+    assert all(_inside(b, net) for b in got)
+
+
 def test_train_step_records_five_phases_and_the_stack_backward():
     """`pallas` on the CPU runs the fused stack's plain stages forward and
     `LayerStackFn.backward` (one layer recomputed at a time) backward."""
@@ -150,10 +172,13 @@ def test_replicate_phore_counts_real_and_padded_slots():
     sample = GenerationPipeline(_model("none")[0], device="cpu") \
         .prepare_phore(parse_phore_text(PHORE_TEXT, "trace_phore"))
     b = batching.replicate_phore(sample, 2, np.asarray([3, 5]), 8)
-    assert batching.SLOTS == {"lig_real": 8, "lig_slots": 16}
+    # triplets: 3*2*1 + 5*4*3 real of 2 * 8^3 slots
+    assert batching.SLOTS == {"lig_real": 8, "lig_slots": 16,
+                              "trip_real": 66, "trip_slots": 1024}
     assert int(b.lig_mask.sum()) == 8 and b.lig_mask.size == 16
     batching.reset_slot_counts()
-    assert batching.SLOTS == {"lig_real": 0, "lig_slots": 0}
+    assert batching.SLOTS == {"lig_real": 0, "lig_slots": 0,
+                              "trip_real": 0, "trip_slots": 0}
 
 
 def test_loader_epoch_counts_the_sum_of_its_masks():
@@ -163,9 +188,14 @@ def test_loader_epoch_counts_the_sum_of_its_masks():
     loader = PhoreDataLoader(ds, cfg, 3, shuffle=True, seed=2,
                              drop_last=False)
     batching.reset_slot_counts()
-    real = slots = 0
+    real = slots = trip_real = trip_slots = 0
     for b in loader:
         real += int(b.lig_mask.sum())
         slots += b.lig_mask.size
-    assert batching.SLOTS == {"lig_real": real, "lig_slots": slots}
+        n = b.lig_mask.sum(1).astype(np.int64)
+        trip_real += int((n * (n - 1) * (n - 2)).sum())
+        trip_slots += b.lig_mask.shape[0] * b.lig_mask.shape[1] ** 3
+    assert batching.SLOTS == {"lig_real": real, "lig_slots": slots,
+                              "trip_real": trip_real,
+                              "trip_slots": trip_slots}
     assert 0 < real < slots
