@@ -27,7 +27,10 @@ Phases (any failure exits non-zero and prints no result):
    pool at B=16, 16 heads, Wt=32 for N=48 and N=80 and at Wt=18, 36 heads
    (two launches), N=48, with padded slots, within 5e-4 on the unmasked
    (j, i) pairs (masked ones must be exactly 0); see
-   ops/kernel_check.py::TOLERANCE for why;
+   ops/kernel_check.py::TOLERANCE for why; and the dense triplet bond
+   update (the layer's prologue and `csrc/dense_triplet.cu`) against the
+   layer's plain `_dense` at B=16, H=128, 16 heads, N=48 and N=80 with
+   N/2..N atoms, on every output slot within 1e-5 of the largest value;
 3. main path 1, the fused layer stack (`fused_stack='pallas'`): loads
    release/flagship_r4 with the port's own msgpack reader and samples one
    batch of 16 molecules for tests/fixtures/phores/P03211_merge.phore
@@ -100,7 +103,9 @@ Phases (any failure exits non-zero and prints no result):
    widths (H 128, 16 heads, 6 layers, kNN 32) with `triplet_mode: dense`,
    seeded weights under the upstream names and an EasyDict pickled
    beside them, written with torch.save, imported exactly and sampled
-   through the CLI (100 steps, batch 16); ms/step and peak memory;
+   through the CLI (100 steps, batch 16): every dense layer call through
+   the dense triplet kernel (100 x 6 launches), none through `_dense`;
+   ms/step and peak memory;
 11. [continuous], [no-bond]: flagship_r4's configuration with
    `categorical_space: continuous` (through `pallas2`) or `bond_diffusion:
    false` (through `pallas`) and seeded random weights: a 100-step chain
@@ -200,16 +205,19 @@ PATH_KERNELS = {
     "shard": ("stage_node", "stage_triplet_pre", "stage_triplet_att",
               "stage_pos"),
     "filelist": ("stage_node_pre", "stage_att_pos"),
-    # flagship_r4 as it is (kNN triplets, module path) and the dense
-    # reference form: no kernel
+    # flagship_r4 as it is (kNN triplets, module path): no kernel
     "cli": (),
-    "pt": (),
+    # the dense reference form: the dense triplet bond update's kernel
+    "pt": ("dense_triplet",),
 }
 # shapes of the kernel rows beyond the flagship's kNN table at NL = 80, 48:
 # the hybrid cutoff's table (NL + 32 sources a ligand row), and the pool
 # at widths no multiple of 4 and more heads than one launch takes
 HYBRID_NL = 80
 ODD_POOL = dict(N=48, heads=36, Wt=18)
+# the dense triplet bond update's rows: B=16 graphs of N/2..N atoms in the
+# NL=48 bucket that [pt] samples in, and in the NL=80 one
+DENSE_NL = (48, 80)
 # [cli]: the sample.sh recipe through `python -m phoregen_tpu_torch.cli.sample`
 CLI_BATCH = 30
 CLI_GUIDANCE = [{"type": "atom_prox", "min_d": 1.0, "max_d": 3.0},
@@ -333,9 +341,10 @@ def print_row(r, shape: str) -> None:
 def phase_kernels(kc):
     """Rows of the six layer-stack kernels and of the four bf16-block forms
     for each NL, of the four kNN-table kernels on the hybrid cutoff's table,
-    and the triplet pool's rows for each N and at odd widths. Returns
-    {shape label: rows} for the stack and {shape label: row} for the
-    pool."""
+    the triplet pool's rows for each N and at odd widths, and the dense
+    triplet bond update's for each N of DENSE_NL. Returns {shape label:
+    rows} for the stack and {shape label: row} for the pool and for the
+    dense layer."""
     import torch
     stack = {}
     for nl in STACK_NL:
@@ -365,12 +374,28 @@ def phase_kernels(kc):
     for label, r in pool.items():
         print_row(r, label)
     torch.cuda.empty_cache()
+    dense = {}
+    for n in DENSE_NL:
+        label = f"B=16 N={n}"
+        dense[label] = kc.check_dense_triplet(
+            kc.dense_case(B=16, N=n, device="cuda", seed=0), reps=5)
+        r = dense[label]
+        print(f"[kernels] dense_triplet {label}: max_abs_err="
+              f"{r['max_abs_err']:.3e} max_rel_err={r['max_rel_err']:.3e} "
+              f"ms={r['ms']:.4f} (the prologue and the kernel; the kernel "
+              f"alone {r['kernel_ms']:.4f}) plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']} at the TF32 "
+              f"peak; {r['bytes'] / 1e6:.1f} MB, {r['flops'] / 1e9:.2f} "
+              f"G operations on the real atoms) tol={r['tol']:g} of the "
+              f"largest value ok={r['ok']}", flush=True)
+        torch.cuda.empty_cache()
     bad = [(r["name"], label) for label, rs in stack.items() for r in rs
-           if not r["ok"]] + [(r["name"], label) for label, r in pool.items()
+           if not r["ok"]] + [(r["name"], label) for label, r in
+                              list(pool.items()) + list(dense.items())
                               if not r["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
-    return stack, pool
+    return stack, pool, dense
 
 
 def phase_main(root, label, ls, pt, steps=NUM_STEPS):
@@ -399,15 +424,14 @@ def phase_main(root, label, ls, pt, steps=NUM_STEPS):
     phore = parse_phore_file(os.path.join(
         root, "tests", "fixtures", "phores", "P03211_merge.phore"))
     with tempfile.TemporaryDirectory() as out_dir:
-        ls.reset_launch_counts()
-        pt.reset_launch_counts()
+        _reset_launches(ls, pt)
         torch.cuda.synchronize()
         t0 = time.time()
         res = pipe.generate(phore, num_samples=BATCH, out_dir=out_dir,
                             max_batches=1)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = dict(ls.LAUNCHES, **pt.LAUNCHES)
+        launches = _launches(ls, pt)
         mol_dir = os.path.join(out_dir, res["name"])
         sdfs = [f for f in os.listdir(mol_dir) if f.endswith(".sdf")]
     per_kernel = steps * dcfg.num_layers * dcfg.num_blocks
@@ -548,8 +572,7 @@ def phase_train(root, ls, pt):
             run.train_step(state, 0, batches[nl][-1])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        ls.reset_launch_counts()
-        pt.reset_launch_counts()
+        _reset_launches(ls, pt)
         ms = {}
         step = 0
         t_all = time.time()
@@ -566,7 +589,7 @@ def phase_train(root, ls, pt):
             torch.cuda.synchronize()
             ms[nl] = (time.time() - t0) * 1e3 / TRAIN_STEPS_PER_BUCKET
         wall = time.time() - t_all
-        launches = dict(ls.LAUNCHES, **pt.LAUNCHES)
+        launches = _launches(ls, pt)
         peak = torch.cuda.max_memory_allocated()
         per_kernel = step * dcfg.num_layers * dcfg.num_blocks
         print(f"{tag} fused_stack={dcfg.fused_stack} train.dtype="
@@ -646,8 +669,7 @@ def phase_train_bf16(root, ls, pt):
                 run.train_step(state, 0, batches[nl][-1])
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            ls.reset_launch_counts()
-            pt.reset_launch_counts()
+            _reset_launches(ls, pt)
             ms, step, t_all = {}, 0, time.time()
             for nl in TRAIN_BUCKETS:
                 t0 = time.time()
@@ -663,7 +685,7 @@ def phase_train_bf16(root, ls, pt):
                 torch.cuda.synchronize()
                 ms[nl] = (time.time() - t0) * 1e3 / BF16_TRAIN_STEPS_PER_BUCKET
             wall = time.time() - t_all
-            launches = dict(ls.LAUNCHES, **pt.LAUNCHES)
+            launches = _launches(ls, pt)
             peak = torch.cuda.max_memory_allocated()
             per_kernel = step * dcfg.num_layers * dcfg.num_blocks
             print(f"{tag} fused_stack={dcfg.fused_stack} "
@@ -704,8 +726,17 @@ def phase_train_bf16(root, ls, pt):
     return launches_p2
 
 
+def _reset_launches(ls, pt):
+    """Zero the launch counts of every kernel library."""
+    from phoregen_tpu_torch.ops import dense_triplet
+    for mod in (ls, pt, dense_triplet):
+        mod.reset_launch_counts()
+
+
 def _launches(ls, pt):
-    return dict(ls.LAUNCHES, **pt.LAUNCHES)
+    """The launch counts of every kernel since `_reset_launches`."""
+    from phoregen_tpu_torch.ops import dense_triplet
+    return dict(ls.LAUNCHES, **pt.LAUNCHES, **dense_triplet.LAUNCHES)
 
 
 def _want_only(label, launches, per_kernel):
@@ -770,8 +801,7 @@ def phase_cli(root, ls, pt, dev="cuda", steps=0, batch=CLI_BATCH,
                 "--recon_workers", "2", "--device", dev, "--seed", "2024"]
         print(f"{tag} python -m phoregen_tpu_torch.cli.sample "
               + " ".join(argv), flush=True)
-        ls.reset_launch_counts()
-        pt.reset_launch_counts()
+        _reset_launches(ls, pt)
         if dev == "cuda":
             torch.cuda.synchronize()
         t0 = time.time()
@@ -947,11 +977,14 @@ def phase_pt(root, ls, pt, dev="cuda", steps=PT_STEPS, batch=BATCH,
     port's import must equal the tree the weights were made from, leaf by
     leaf. The count head is set to a narrow interval ([0.25, 0.5] of the
     normalised count: 22-41 atoms) so that the batch lands in the NL=48
-    bucket. Returns the launch counts."""
+    bucket. Every dense layer call runs the dense triplet kernel (steps x
+    layers launches), none the plain `_dense`. Returns the launch
+    counts."""
     import numpy as np
     import torch
     import yaml
     from phoregen_tpu_torch.cli import sample as cli
+    from phoregen_tpu_torch.models import layers
     from phoregen_tpu_torch.config import load_config
     from phoregen_tpu_torch.models.phoregen import PhoreGen, init_params
     from phoregen_tpu_torch.utils.checkpoint import (flatten_tree,
@@ -1011,8 +1044,8 @@ def phase_pt(root, ls, pt, dev="cuda", steps=PT_STEPS, batch=BATCH,
                 "--num_samples", str(batch), "--batch_size", str(batch),
                 "--max_batches", "1", "--sample_steps", str(steps),
                 "--device", dev]
-        ls.reset_launch_counts()
-        pt.reset_launch_counts()
+        _reset_launches(ls, pt)
+        layers.DENSE_TRIP.update(kernel=0, plain=0)
         if dev == "cuda":
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -1020,7 +1053,15 @@ def phase_pt(root, ls, pt, dev="cuda", steps=PT_STEPS, batch=BATCH,
         peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
     launches = _launches(ls, pt)
     pipe, res = out["pipeline"], out["results"][0]
-    _want_only("pt", launches, 0)
+    per_kernel = steps * dcfg.num_layers * dcfg.num_blocks
+    print(f"{tag} launches: {json.dumps(launches)}, dense calls by path "
+          f"{json.dumps(layers.DENSE_TRIP)} (a kernel of this path: "
+          f"{per_kernel})", flush=True)
+    _want_only("pt", launches, per_kernel if dev == "cuda" else 0)
+    if dev == "cuda" and layers.DENSE_TRIP != {"kernel": per_kernel,
+                                               "plain": 0}:
+        fail(f"[pt] dense calls must all take the kernel: "
+             f"{layers.DENSE_TRIP}")
     if res["n_sampled"] != batch:
         fail(f"[pt] sampled {res['n_sampled']}, expected {batch}")
     print(f"{tag} triplet_mode=dense, hidden {m.hidden_dim}, "
@@ -1126,8 +1167,7 @@ def phase_option(root, label, ls, pt, dev="cuda", steps=OPTION_STEPS,
                  sample_steps=steps)
     b = _phore_batch(pg, root, batch, nl, dev)
     gen = torch.Generator(device=dev).manual_seed(3)
-    ls.reset_launch_counts()
-    pt.reset_launch_counts()
+    _reset_launches(ls, pt)
     if dev == "cuda":
         torch.cuda.synchronize()
     t0 = time.time()
@@ -1207,8 +1247,7 @@ def phase_chunked(root, ls, pt, dev="cuda", steps=CHUNK_STEPS, chunk=CHUNK,
         sp = Sampler(pg, [GuidanceOpt(**g) for g in CLI_GUIDANCE],
                      sample_steps=steps)
         gen = torch.Generator(device=dev).manual_seed(17)
-        ls.reset_launch_counts()
-        pt.reset_launch_counts()
+        _reset_launches(ls, pt)
         outs.append(sp.sample(b, gen, chunk_steps=c))
         gens.append(gen.get_state())
     launches = _launches(ls, pt)
@@ -1320,8 +1359,7 @@ def _ddp_steps(run, batches, steps, ck_path, dev, ls, pt, batch_cls,
              for b in batches]
     forward_backward_ms(run, local[0])      # warm-up; leaves no gradient
     torch.cuda.synchronize()
-    ls.reset_launch_counts()
-    pt.reset_launch_counts()
+    _reset_launches(ls, pt)
     metrics = []
     for i in range(steps):
         if i == 1:      # the first step sets up the optimizer and the
@@ -1506,8 +1544,7 @@ def phase_shard(root, ls, pt):
         n_eff = -(-pool // 2) * 2
         out = {}
         for k, pipe in pipes.items():
-            ls.reset_launch_counts()
-            pt.reset_launch_counts()
+            _reset_launches(ls, pt)
             torch.cuda.synchronize()
             t0 = time.time()
             _, raw = pipe.sample_pool(ps, pool if k == "sharded" else n_eff,
@@ -1740,8 +1777,7 @@ def phase_filelist(root, ls, pt):
         for k, run in runs.items():
             records[k] = []
             run.train_step = _recording(run.train_step, records[k])
-            ls.reset_launch_counts()
-            pt.reset_launch_counts()
+            _reset_launches(ls, pt)
             run.train(got["zinc_300"][0] if k == "filelist" else samples,
                       [], epochs=FILELIST_EPOCHS)
             if k == "filelist":
@@ -1942,7 +1978,7 @@ def main():
                   flush=True)
         return
 
-    stack, pool = phase_kernels(kc)
+    stack, pool, dense = phase_kernels(kc)
     torch.cuda.empty_cache()
     launches, _ = phase_main(root, "fused", ls, pt)
     torch.cuda.empty_cache()
@@ -1961,7 +1997,7 @@ def main():
     torch.cuda.empty_cache()
     phase_cli(root, ls, pt)
     torch.cuda.empty_cache()
-    phase_pt(root, ls, pt)
+    launches_pt = phase_pt(root, ls, pt)
     torch.cuda.empty_cache()
     launches_cont = phase_option(root, "continuous", ls, pt)
     torch.cuda.empty_cache()
@@ -2037,6 +2073,15 @@ def main():
     pool_row["launches"] = launches_mod["triplet_pool"]
     kernels.append({k: pool_row[k]
                     for k in keys + ("shape", "other_shapes")})
+    # the dense layer's row at the N that [pt] gave it
+    dense_n = f"B=16 N={DENSE_NL[0]}"
+    kernels.append(dict(
+        {k: dense[dense_n][k] for k in keys if k != "launches"},
+        launches=launches_pt["dense_triplet"], shape=dense_n,
+        kernel_ms=dense[dense_n]["kernel_ms"], other_shapes=[
+            {"shape": label, "kernel_ms": r["kernel_ms"],
+             **{k: r[k] for k in shape_keys}}
+            for label, r in dense.items() if label != dense_n]))
     if any(k["launches"] <= 0 for k in kernels):
         fail(f"a kernel was launched no time on its main path: "
              f"{[(k['name'], k['launches']) for k in kernels]}")

@@ -40,6 +40,7 @@ import torch
 from torch import nn
 from torch.profiler import record_function
 
+from ..ops.dense_triplet import dense_triplet
 from ..ops.knn import knn_neighbors
 from ..ops.masked import masked_softmax
 from ..ops.pallas_triplet import (ACTS, pre_activate, triplet_angle,
@@ -423,6 +424,29 @@ class PosUpdateDense(_AttentionSettings):
         return (alpha[..., None] * v).sum(1).mean(2)
 
 
+# dense bond-update calls by path: the kernel of `csrc/dense_triplet.cu`
+# (`BondUpdateTriplet._dense_kernel`) or the plain version (`_dense`).
+# Host-only counts.
+DENSE_TRIP = {"kernel": 0, "plain": 0}
+
+# the settings the dense kernel is built for; a call outside them runs
+# `_dense` (as do CPU tensors, other dtypes and calls under autograd)
+_DENSE_KERNEL_RULES = (
+    ("hidden_dim", lambda s: s.hidden_dim == 128, "128"),
+    ("n_heads", lambda s: s.n_heads == 16, "16"),
+    ("num_ang_funcs", lambda s: s.num_ang_funcs == 3, "3"),
+)
+
+
+def _leaves(tree):
+    """The tensors of a nested parameter dict."""
+    for v in tree.values():
+        if isinstance(v, Mapping):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
 @dataclasses.dataclass(frozen=True)
 class BondUpdateTriplet(_AttentionSettings):
     """Triplet (k -> j -> i) angular attention over the dense ligand grid:
@@ -434,7 +458,9 @@ class BondUpdateTriplet(_AttentionSettings):
     knn_k nearest neighbours of j (`_pool_knn`); otherwise all k, through
     `ops/pallas_triplet.py::triplet_pool` (`use_pallas` selects its
     kernel). mode 'dense': per-triplet k/v features at the full hidden
-    width."""
+    width; a call that `_dense_refusal` lets through runs the CUDA kernel
+    (`_dense_kernel`), every other the plain `_dense` (`DENSE_TRIP`
+    counts both)."""
     include_h_node: bool = True
     num_ang_funcs: int = 3
     mode: str = "factorized"
@@ -484,7 +510,84 @@ class BondUpdateTriplet(_AttentionSettings):
             if self.mode == "factorized":
                 return self._factorized(params, h, h_bond, r_feat, pos,
                                         node_mask, trip_frozen)
+            if self._dense_refusal(params, h, h_bond, pos) is None:
+                DENSE_TRIP["kernel"] += 1
+                return self._dense_kernel(params, h, h_bond, r_feat, pos,
+                                          node_mask)
+            DENSE_TRIP["plain"] += 1
             return self._dense(params, h, h_bond, r_feat, rel, node_mask)
+
+    def _dense_refusal(self, p, h, h_bond, pos):
+        """Why a dense call does not run `_dense_kernel` (None: it does).
+        The kernel takes float32 CUDA features, outside autograd, at the
+        settings `_DENSE_KERNEL_RULES` names."""
+        if h.dtype != torch.float32 or h_bond.dtype != torch.float32:
+            return f"features in {h.dtype}"
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in [h, h_bond, pos, *_leaves(p)]):
+            return "autograd records the call"
+        for name, ok, want in _DENSE_KERNEL_RULES:
+            if not ok(self):
+                return f"{name} {getattr(self, name)!r}, the kernel's {want}"
+        if not h.is_cuda:
+            return "features on the CPU"
+        return None
+
+    def _dense_prologue(self, p, h, h_bond, r_feat):
+        """The terms of the dense layer that do not depend on the triplet,
+        in plain PyTorch: a_kj(k, j) = kj_a + kj_b + n_src[k] + n_dst[j]
+        (bond state, radial, the two atoms' states and the bias, each [..,
+        2H]: the key branch's features, then the value branch's), a_ji(j,
+        i) = ji [B,N,N,2H], and the query q(j, i) [B,N,N,H] before the key
+        output. The tensors may be column slices of wider products."""
+        B, N, H = h.shape
+        rf = r_feat.shape[-1]
+        wk, wv = p["hk_kj"]["kernel"], p["hv_kj"]["kernel"]
+        q0, q0b, qln, q1, q1b = _mlp_parts(p["hq"])
+        # every bond-state term: k -> j of both branches, j -> i of the query
+        bond = h_bond @ torch.cat([wk[:H], wv[:H], q0[:H]], 1)
+        # every radial term: k -> j, then j -> i, of both branches
+        radial = r_feat @ torch.cat([wk[H:H + rf], wv[H:H + rf],
+                                     p["hk_ji"]["kernel"],
+                                     p["hv_ji"]["kernel"]], 1)
+        bias = torch.cat([p["hk_kj"]["bias"], p["hv_kj"]["bias"]])
+        if self.include_h_node:
+            # h(k), h(j) of both branches and h(i) of the query, once an atom
+            nodes = h @ torch.cat([wk[H + rf:2 * H + rf], wv[H + rf:2 * H + rf],
+                                   wk[2 * H + rf:], wv[2 * H + rf:],
+                                   q0[H:]], 1)
+            n_src, n_dst = nodes[..., :2 * H], nodes[..., 2 * H:4 * H] + bias
+            q_pre = bond[..., 2 * H:] + (nodes[..., 4 * H:] + q0b)[:, None]
+        else:
+            n_src = torch.zeros_like(bias).expand(B, N, 2 * H)
+            n_dst = bias.expand(B, N, 2 * H)
+            q_pre = bond[..., 2 * H:] + q0b
+        if qln is not None:
+            q_pre = nn.functional.layer_norm(q_pre, (H,), *qln, eps=_LN_EPS)
+        q = torch.addmm(q1b, self.act(q_pre).reshape(-1, H), q1)
+        return {"kj_a": bond[..., :2 * H], "kj_b": radial[..., :2 * H],
+                "ji": radial[..., 2 * H:], "n_src": n_src, "n_dst": n_dst,
+                "q": q.reshape(B, N, N, H)}
+
+    def _dense_kernel(self, p, h, h_bond, r_feat, pos, node_mask):
+        """`_dense` through the kernel of `csrc/dense_triplet.cu`: the
+        prologue's bond and atom terms, then the kernel."""
+        return self._dense_launch(p, self._dense_prologue(p, h, h_bond,
+                                                          r_feat),
+                                  pos, node_mask)
+
+    def _dense_launch(self, p, t, pos, node_mask):
+        """The kernel on the prologue's terms `t`: it visits the real
+        triplets only and applies the key output to the query and the
+        value output to the pool, once a bond."""
+        ln = lambda name: ((p[name]["scale"], p[name]["bias"]) if self.norm
+                           else None)
+        return dense_triplet(
+            t["kj_a"], t["kj_b"], t["ji"], t["n_src"], t["n_dst"], t["q"],
+            pos.contiguous(), node_mask, p["hk_ang"]["kernel"],
+            p["hv_ang"]["kernel"], ln("hk_ln"), ln("hv_ln"),
+            p["hk_out"]["kernel"], p["hv_out"]["kernel"], p["hv_out"]["bias"],
+            self.act_fn, self.norm)
 
     def _dense(self, p, h, h_bond, r_feat, rel, node_mask):
         B, N, H = h.shape

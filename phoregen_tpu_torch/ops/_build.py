@@ -4,8 +4,9 @@ Each source under `phoregen_tpu_torch/csrc/` becomes one shared library in
 `phoregen_tpu_torch/_build/`, compiled with nvcc for sm_90a at first use and
 keyed by the source's hash, so an edited source rebuilds. `build()` starts
 one nvcc per missing library, all together, and waits for them; `load(name)`
-returns the loaded library. Every C entry takes (pointer array, pointer
-count, dims array, stream) and returns a cudaError_t code.
+returns the loaded library, building that one alone if it is missing.
+Every C entry takes (pointer array, pointer count, dims array, stream) and
+returns a cudaError_t code.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ LIBRARIES = {
                      "ls_stage_trip_pre_bf16", "ls_stage_trip_att_bf16",
                      "ls_stage_node_pre_bf16", "ls_stage_att_pos_bf16")),
     "triplet_pool": ("triplet_pool.cu", ("tp_triplet_pool",)),
+    "dense_triplet": ("dense_triplet.cu", ("dt_dense_triplet",)),
 }
 
 _lock = threading.Lock()
@@ -57,10 +59,11 @@ def library_path(name: str = "layer_stack") -> str:
     return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
 
 
-def build(verbose: bool = False) -> dict:
-    """Compile every library whose current source has none yet, one nvcc
-    each, started together. Returns {name: library path}."""
-    paths = {name: library_path(name) for name in LIBRARIES}
+def build(verbose: bool = False, names=None) -> dict:
+    """Compile every library (of `names`, default all) whose current source
+    has none yet, one nvcc each, started together. Returns {name: library
+    path}."""
+    paths = {name: library_path(name) for name in names or LIBRARIES}
     missing = [n for n, p in paths.items() if not os.path.exists(p)]
     if not missing:
         return paths
@@ -105,9 +108,9 @@ def bind(path: str, name: str):
 
 
 def load(name: str = "layer_stack"):
-    """The loaded kernel library `name` (all libraries are built on the
-    first call)."""
+    """The loaded kernel library `name` (built on the first call if its
+    current source has no library yet)."""
     with _lock:
         if name not in _libs:
-            _libs[name] = bind(build()[name], name)
+            _libs[name] = bind(build(names=[name])[name], name)
     return _libs[name]

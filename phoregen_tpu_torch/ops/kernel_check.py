@@ -19,7 +19,9 @@ table of the hybrid cutoff (NL + K sources a ligand row).
 `stage_calls(case)` gives the kernel and plain calls alone (for a tool
 that times two builds of the kernels against each other).
 `triplet_case()` and `check_triplet_pool()` do the same for the all-k
-triplet pool (`ops/pallas_triplet.py`) at B graphs of N ligand slots.
+triplet pool (`ops/pallas_triplet.py`) at B graphs of N ligand slots, and
+`dense_case()` and `check_dense_triplet()` for the dense triplet bond
+update (`ops/dense_triplet.py`) against the layer's plain `_dense`.
 """
 from __future__ import annotations
 
@@ -36,7 +38,8 @@ from .knn import knn_neighbors
 # on them (495 TFLOP/s of TF32, three products for one)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
-TF32X3_FLOPS_PER_S = 495e12 / 3
+TF32_FLOPS_PER_S = 495e12
+TF32X3_FLOPS_PER_S = TF32_FLOPS_PER_S / 3
 
 KERNELS = (
     ("stage_node",
@@ -68,6 +71,13 @@ SOURCE = "phoregen_tpu_torch/csrc/layer_stack.cu"
 TRIPLET_REPLACES = ("phoregen_tpu/ops/pallas_triplet.py:214 "
                     "(triplet_pool_pallas -> _kernel:144)")
 TRIPLET_SOURCE = "phoregen_tpu_torch/csrc/triplet_pool.cu"
+DENSE_SOURCE = "phoregen_tpu_torch/csrc/dense_triplet.cu"
+DENSE_REPLACES = ("phoregen_tpu/models/layers.py:413 (BondUpdateTriplet, "
+                  "mode 'dense', XLA)")
+# the dense layer's kernel path against `_dense`, largest error over the
+# largest value: float32 sums of a few hundred terms in another order
+# (tests/test_torch_port_dense_upstream.py's TOL)
+DENSE_TOL = 1e-5
 
 # atol = rtol per kernel against its plain version. pre_t gets 5e-4: at
 # nearly collinear triplets (sin^2 of the angle ~1e-6) the reference's
@@ -472,3 +482,120 @@ def check_kernels(c: Dict, reps: int = 5, kernels=KERNELS) -> List[Dict]:
         row["flops_all_slots"] = _work(name, c, every)[1]
         rows.append(row)
     return rows
+
+
+def dense_case(B=16, N=48, seed=0, device="cuda", counts=None, norm=True,
+               include_h_node=True, act_fn="relu") -> Dict:
+    """Inputs of one dense triplet bond update at PhoreGen's published
+    widths (H=128, 16 heads): B graphs of N ligand slots, each with between
+    N/2 and N atoms (or `counts`), the rest padding, from a seed."""
+    from ..models.layers import BondUpdateTriplet
+    g = torch.Generator().manual_seed(seed)
+    H, heads = 128, 16
+    layer = BondUpdateTriplet(hidden_dim=H, n_heads=heads, mode="dense",
+                              norm=norm, include_h_node=include_h_node,
+                              act_fn=act_fn)
+
+    def tree(spec):
+        # kernels over their fan-in, LayerNorm scales near 1, biases small
+        return {k: tree(v) if isinstance(v, dict) else (
+            (torch.randn(v, generator=g) / v[0] ** 0.5 if len(v) > 1
+             else 1.0 + 0.1 * torch.randn(v, generator=g) if k == "scale"
+             else 0.3 * torch.randn(v, generator=g)).to(device))
+            for k, v in spec.items()}
+    p = tree(BondUpdateTriplet.shapes(H, heads, norm, include_h_node,
+                                      mode="dense"))
+    if counts is None:
+        n_lig = torch.randint(N // 2, N + 1, (B,), generator=g)
+        n_lig[0] = N
+    else:
+        n_lig = torch.as_tensor(counts)
+    mask = (torch.arange(N)[None] < n_lig[:, None]).to(device)
+    return dict(layer=layer, p=p, mask=mask,
+                h=torch.randn(B, N, H, generator=g).to(device),
+                h_bond=torch.randn(B, N, N, H, generator=g).to(device),
+                pos=(2.0 * torch.randn(B, N, 3, generator=g)).to(device))
+
+
+# the dense layer's least work, operations a triplet: the angle (dot,
+# cross term, sqrt, atan2, six scaled sines and cosines), a LayerNorm
+# element with its activation, a head's softmax step (max, exp, sum, scale)
+DENSE_ANGLE_OPS, DENSE_LN_ACT_OPS, DENSE_SOFTMAX_OPS = 20, 8, 4
+
+
+def _dense_work(c: Dict):
+    """(bytes, operations) one dense bond update needs on the atoms of
+    `c`'s mask, at the least any implementation needs: real atoms, bonds
+    (j != i) and triplets (k, j, i distinct) only; each term that does not
+    depend on the triplet once an atom (the node terms) or once a bond
+    (bond-state and radial terms, the query MLP, the key output folded
+    into the query, the value output after the pool); each input and
+    output byte and the parameters once. The same count as
+    `portbench/workcount_dense.py::layer_work`, the yardstick of the dense
+    cell's `triplet_roofline.sample`."""
+    from ..models.layers import _leaves
+    layer, mask = c["layer"], c["mask"]
+    H, heads, rbf = layer.hidden_dim, layer.n_heads, 20
+    enc = 1 + 4 * layer.num_ang_funcs
+    n = mask.sum(-1).long().cpu()
+    rows, pairs = int(n.sum()), int((n * (n - 1)).sum())
+    trips = int((n * (n - 1) * (n - 2).clamp(min=0)).sum())
+    ln = DENSE_LN_ACT_OPS if layer.norm else 1
+    # h(k), h(j) of both branches and h(i) of the query, once an atom
+    row_ops = 10 * H * H if layer.include_h_node else 0
+    pair_ops = (4 * ((H + rbf) * H + rbf * H)    # bond state, radial terms
+                + 8 * rbf + 8                    # distance, radial basis
+                + 4 * H * H + ln * H             # the query MLP
+                + 2 * H * H + 2 * H              # key output folded into q
+                + 2 * H * H + H)                 # value output, after pool
+    trip_ops = (DENSE_ANGLE_OPS + 2 * (2 * enc * H + 2 * H + ln * H)
+                + 4 * H * heads + DENSE_SOFTMAX_OPS * heads)
+    params = 4 * sum(t.numel() for t in _leaves(c["p"]))
+    by = 4 * (rows * (H + 3) + 2 * pairs * H) + params
+    return by, rows * row_ops + pairs * pair_ops + trips * trip_ops
+
+
+def dense_calls(c: Dict):
+    """(kernel path, kernel launch alone, plain `_dense`) on the inputs of
+    `c`, each returning the update [B,N,N,H]; the geometry preamble of
+    `BondUpdateTriplet.__call__` and the prologue of the launch run once
+    here."""
+    from .rbf import gaussian_smearing, gaussian_smearing_offsets
+    layer, p, h, hb, pos, mask = (c[k] for k in ("layer", "p", "h",
+                                                 "h_bond", "pos", "mask"))
+    rel = pos[:, :, None, :] - pos[:, None, :, :]
+    dist = torch.sqrt((rel * rel).sum(-1) + 1e-12)
+    r_feat = gaussian_smearing(dist, *gaussian_smearing_offsets(
+        fix_offset=True))
+    t = layer._dense_prologue(p, h, hb, r_feat)
+    return (lambda: layer._dense_kernel(p, h, hb, r_feat, pos, mask),
+            lambda: layer._dense_launch(p, t, pos, mask),
+            lambda: layer._dense(p, h, hb, r_feat, rel, mask))
+
+
+def check_dense_triplet(c: Dict, reps: int = 5) -> Dict:
+    """The dense layer's kernel path against `_dense` on every output slot
+    (largest error over the largest value within DENSE_TOL), then the
+    kernel path, the launch alone and `_dense` timed; the bound is the
+    least work (`_dense_work`) at the HBM and TF32 tensor-core peaks."""
+    path, launch, plain = dense_calls(c)
+    with torch.no_grad():
+        got, alone, ref = path(), launch(), plain()
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        ok = (bool(torch.isfinite(got).all()) and err <= DENSE_TOL * scale
+              and bool(torch.equal(got, alone)))
+        by, fl = _dense_work(c)
+        t_bytes = by / HBM_BYTES_PER_S * 1e3
+        t_ops = fl / TF32_FLOPS_PER_S * 1e3
+        return {"name": "dense_triplet", "route": "cuda",
+                "source": DENSE_SOURCE, "replaces": DENSE_REPLACES, "ok": ok,
+                "max_abs_err": err, "max_rel_err": err / scale,
+                "tol": DENSE_TOL, "ms": _time_ms(path, reps),
+                "kernel_ms": _time_ms(launch, reps),
+                "plain_ms": _time_ms(plain, max(1, reps // 2)),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bound_tc_ms": max(t_bytes, t_ops), "bytes": by,
+                "flops": fl, "library_ms": None}

@@ -5,6 +5,8 @@
         [--kernels stage_att_pos ...]
     python -m phoregen_tpu_torch.tools.compare_kernels --library triplet_pool
         --other path/to/triplet_pool.cu [--nl 80 48] [--batch 16] [--reps 5]
+    python -m phoregen_tpu_torch.tools.compare_kernels --library dense_triplet
+        [--other path/to/dense_triplet.cu] [--nl 80 48] [--batch 16]
 
 Builds `--other` (another version of the library's source, `csrc/
 layer_stack.cu` or `csrc/triplet_pool.cu`, with the same C entries and
@@ -26,7 +28,13 @@ NP=96, NL in `--nl`; `kernel_check.flagship_case`), and on request
 the run with AttributeError). `triplet_pool`: the
 all-k triplet pool at B graphs of N = each of `--nl` slots, 16 heads,
 Wt=32 (`kernel_check.triplet_case`), held by `check_triplet_pool` (5e-4 on
-the unmasked pairs, exact zeros on the masked ones).
+the unmasked pairs, exact zeros on the masked ones). `dense_triplet`: the
+dense triplet bond update at B graphs of N = each of `--nl` slots with N/2
+to N atoms (`kernel_check.dense_case`), held against the layer's plain
+`_dense` by `check_dense_triplet`, timed as the layer's kernel path
+(prologue and kernel) and as the launch alone, beside `_dense` and the
+layer's least time (`kernel_check._dense_work` at the HBM and TF32 peaks);
+without `--other` only this build is timed.
 """
 from __future__ import annotations
 
@@ -191,9 +199,47 @@ def compare_triplet_pool(libs, args):
         torch.cuda.empty_cache()
 
 
+def compare_dense_triplet(libs, args):
+    plan = libs["this"].dt_launch_plan
+    plan.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    for n in args.nl:
+        out = (ctypes.c_int * 4)()
+        if plan((ctypes.c_int * 9)(args.batch, n, 1, 0, 384, 512, 512, 640,
+                                   256), out):
+            raise SystemExit(f"dt_launch_plan refused N={n}")
+        print(f"[this] B={args.batch} N={n}: dynamic shared memory {out[0]} "
+              f"B a block, {out[1]} blocks an SM, {out[2]} threads and "
+              f"{out[3]} target bonds a block")
+    order = ("other", "this", "this", "other") if "other" in libs else (
+        "this", "this")
+    for n in args.nl:
+        case = kc.dense_case(B=args.batch, N=n, device="cuda", seed=0)
+        rows = {"other": [], "this": []}
+        for label in order:
+            _build._libs["dense_triplet"] = libs[label]
+            rows[label].append(kc.check_dense_triplet(case, args.reps))
+        for label in ("other", "this"):
+            if not rows[label]:
+                continue
+            ms = min(r["ms"] for r in rows[label])
+            r0 = rows[label][0]
+            print(f"B={args.batch} N={n} dense_triplet [{label}]: path "
+                  f"{[round(r['ms'], 4) for r in rows[label]]} ms, launch "
+                  f"{[round(r['kernel_ms'], 4) for r in rows[label]]} ms, "
+                  f"plain _dense {r0['plain_ms']:.4f} ms, bound "
+                  f"{r0['bound_ms']:.5f} ms ({r0['bytes'] / 1e6:.1f} MB, "
+                  f"{r0['flops'] / 1e9:.3f} G operations), path / bound "
+                  f"{ms / r0['bound_ms']:.1f}, max abs err "
+                  f"{max(r['max_abs_err'] for r in rows[label]):.2e} (rel "
+                  f"{max(r['max_rel_err'] for r in rows[label]):.2e}), ok "
+                  f"{all(r['ok'] for r in rows[label])}", flush=True)
+        del case
+        torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--other", required=True)
+    ap.add_argument("--other", default=None)
     ap.add_argument("--library", choices=sorted(_build.LIBRARIES),
                     default="layer_stack")
     ap.add_argument("--nl", type=int, nargs="+", default=[80, 48])
@@ -208,18 +254,24 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
+    if args.other is None and args.library != "dense_triplet":
+        raise SystemExit(f"--library {args.library} needs --other")
     libs = {}
     with tempfile.TemporaryDirectory() as tmp:
         for label, src in (("other", args.other),
                            ("this", _build.source_path(args.library))):
+            if src is None:
+                continue
             libs[label], usage = build(src, os.path.join(tmp, f"{label}.so"),
                                        args.library)
             for kern, u in sorted(usage.items()):
                 print(f"[{label}] {kern}: {u}")
     if args.library == "layer_stack":
         compare_layer_stack(libs, args)
-    else:
+    elif args.library == "triplet_pool":
         compare_triplet_pool(libs, args)
+    else:
+        compare_dense_triplet(libs, args)
 
 
 if __name__ == "__main__":
