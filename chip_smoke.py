@@ -1608,9 +1608,9 @@ def phase_shard(root, ls, pt):
 
 def phase_xla2_bf16(root):
     """[xla2 bf16]: flagship_r4's network through `fused_stack: xla2` with
-    `fused_block_dtype: bfloat16` (`ops/layer_stack.layer_stack_xla2_bf16`:
-    bf16 carries, weights and feature products; no kernel) against the
-    float32 plain stages (`xla`) on the card, one forward of a batch of 16
+    `fused_block_dtype: bfloat16` (`ops/layer_stack.run_stack`: the plain
+    stages on bf16 carries and weights; no kernel) against the float32
+    plain stages (`xla`) on the card, one forward of a batch of 16
     at NL=48 on seeded noisy states: each output's relative L2 difference
     on the valid slots within XLA2_BF16_TOL."""
     import torch
@@ -1652,7 +1652,8 @@ def phase_xla2_bf16(root):
         mx.append(float(d.abs().max()))
         rel.append(float(d.norm() / r[m].norm()))
     print(f"[xla2 bf16] flagship forward, B={B}, NL={NL}: xla2 with bf16 "
-          f"blocks vs the float32 plain stages on the card: rel. L2 diff "
+          f"blocks (the plain stages on bf16 carries) vs the float32 plain "
+          f"stages on the card: rel. L2 diff "
           f"node {rel[0]:.3e}, pos {rel[1]:.3e}, edge {rel[2]:.3e} (tol "
           f"{XLA2_BF16_TOL:g}); max abs node {mx[0]:.3e}, pos {mx[1]:.3e}, "
           f"edge {mx[2]:.3e}; forward ms {ms['xla2_bf16']:.3f} vs "

@@ -19,17 +19,17 @@ attention layers. `fused_stack` selects how the stack runs:
   per layer); 'pallas2': B2 and C merged as well (two per layer).
 - 'xla', 'xla2': the same fused stack through its plain PyTorch stages on
   any device (the JAX package's packed-XLA forms of the same math).
-Every 'pallas*' value runs through `ops/layer_stack.make_layer_stack_grad`
+`ops/layer_stack.run_stack` runs every fused value and alone decides
+how (its table `FUSED_STACKS`): 'pallas*' through `make_layer_stack_grad`
 (kernels forward, plain stages recomputed layer by layer backward), so the
-fused stack trains; 'xla'/'xla2' are differentiated by autograd, layer by
-layer with `remat_layers`. The fused stack takes and returns float32 (h
-and the bond grid are cast at its entry and back at its exit).
+fused stack trains; 'xla'/'xla2' differentiated by autograd, layer by
+layer with `remat_layers`. The stack runs on float32 carries (h and the
+bond grid are cast at its entry and back at its exit).
 `fused_block_dtype` 'bfloat16' means, as in the JAX package: on
 'pallas*' the inter-stage blocks pre_t and q_z are stored in bf16 between
 the kernels, all arithmetic float32, and the backward passes straight
-through the rounding; on 'xla2' the h / bond-grid carries, the packed
-weights and the feature products run in bf16
-(`ops/layer_stack.layer_stack_xla2_bf16`); 'xla' ignores it.
+through the rounding; on 'xla2' the h / bond-grid carries and the packed
+weights are bf16 and the plain stages compute in them; 'xla' ignores it.
 
 Mixed precision (`compute_dtype`): the layers follow the dtype of h and of
 the parameters they are given (see models/layers.py); positions and the
@@ -52,12 +52,6 @@ from ..ops.rbf import gaussian_smearing, gaussian_smearing_offsets
 from .layers import (MLP, BondUpdateTriplet, NodeUpdateDense, NodeUpdateKNN,
                      ParamTree, PosUpdateDense, PosUpdateKNN, dense_shapes,
                      dtype_of, gather_nodes)
-
-# fused_stack values that run ops/layer_stack.py: None = through its plain
-# stages, else (merge_node_pre, merge_pos) of the kernel path
-FUSED_STACKS = {"pallas": (False, False), "pallas3": (True, False),
-                "pallas2": (True, True), "xla": None, "xla2": None}
-
 
 def layer_param_shapes(H: int, heads: int, Wt: int, fe: int,
                        L: Optional[int] = None, num_ang: int = 3, *,
@@ -121,7 +115,8 @@ class UniDenoiser(nn.Module):
         super().__init__()
         self.cfg = dcfg
         self.fused_stack = dcfg.fused_stack
-        if self.fused_stack != "none" and self.fused_stack not in FUSED_STACKS:
+        if self.fused_stack != "none" \
+                and self.fused_stack not in ls.FUSED_STACKS:
             raise ValueError(f"unknown fused_stack {self.fused_stack!r}")
         self.block_dtype = dtype_of(dcfg.fused_block_dtype,
                                     "fused_block_dtype")
@@ -274,24 +269,9 @@ class UniDenoiser(nn.Module):
                     NP=NP, NL=NL, K=nbr_idx.shape[-1],
                     K8=min(dcfg.triplet_knn, NL - 1), H=H,
                     heads=dcfg.n_heads, Wt=dcfg.triplet_width)
-                merges = FUSED_STACKS[self.fused_stack]
-                # the stack runs on float32 carries whatever the feature
-                # dtype; its result goes back to it
-                args = (packed, h.float().contiguous(), x.float().contiguous(),
-                        h_bond.float().contiguous(), tables)
-                bdt = self.block_dtype
-                if self.fused_stack == "xla2" and bdt != torch.float32:
-                    out = ls.layer_stack_xla2_bf16(
-                        *args, dims, remat=dcfg.remat_layers)
-                elif merges is None:
-                    out = ls.layer_stack(
-                        *args, dims, use_kernels=False,
-                        remat=dcfg.remat_layers)
-                else:
-                    out = ls.make_layer_stack_grad(
-                        dims, *merges, block_dtype=bdt)(*args)
-                h, x, h_bond = (out[0].to(h.dtype), out[1].to(x.dtype),
-                                out[2].to(h_bond.dtype))
+                h, x, h_bond = ls.run_stack(
+                    self.fused_stack, packed, h, x, h_bond, tables, dims,
+                    self.block_dtype, dcfg.remat_layers)
                 continue
             lig3 = trip = None
             if dcfg.block_knn_freeze:

@@ -26,7 +26,11 @@ in float32 and rounds to nearest even, the consumer widens, all arithmetic
 is float32; the kernels have `_bf16` entries for it and their own launch
 counts. The backward passes straight through the rounding. The JAX
 package's other meaning of the same key, bf16 carries and products on
-'xla2', is `layer_stack_xla2_bf16`.
+'xla2', is the plain stages on carries in bf16: they compute in the dtype
+of h and hb (positions, geometry and softmaxes float32).
+
+`run_stack` is the one entry the denoiser calls: `FUSED_STACKS` maps each
+`fused_stack` value to its driver.
 
 `make_layer_stack_grad` makes the stack trainable: kernels forward,
 backward by recomputing one layer at a time through the plain stages
@@ -290,8 +294,11 @@ def _qmlp(z, s, b, W1, b1):
 def _knn_edge_prefeat(w, x, t, d: StackDims, lo: int, hi: int):
     """First-layer pre-activations (columns [lo, hi) of e_W) of the kNN
     edge MLPs and the relative vectors rel = x[dst] - x[src] (masked
-    sources read as 0, as the TPU's masked one-hot gather does)."""
+    sources read as 0, as the TPU's masked one-hot gather does). The
+    features are geometry (float32) cast to the weights' dtype, which is
+    the carries'."""
     NP = d.NP
+    wdt = w["e_W"].dtype
     mk = t["nbr_mask"][..., None]                             # [B,N,K,1]
     rel = x[:, :, None, :] - _gather_rows(x, t["nbr_idx"]) * mk
     dist = torch.sqrt((rel * rel).sum(-1) + 1e-12)
@@ -306,26 +313,27 @@ def _knn_edge_prefeat(w, x, t, d: StackDims, lo: int, hi: int):
     v3 = -rel
     dire3 = torch.stack([(v1 * v2).sum(-1), (v1 * v3).sum(-1),
                          (v2 * v3).sum(-1)], -1)
-    dire9 = dire3 @ w["dire_W"] + w["dire_b"]
+    dire9 = dire3.to(wdt) @ w["dire_W"] + w["dire_b"]
     et = t["edge_type"]                                       # [B,N,K,4]
     trbf = (et[..., :, None] * rbf[..., None, :]).flatten(-2)  # [B,N,K,80]
-    feat = torch.cat([trbf, et, dire9], -1)                   # [B,N,K,93]
+    feat = torch.cat([trbf, et, dire9], -1).to(wdt)           # [B,N,K,93]
     return feat @ w["e_W"][:, lo:hi] + w["e_b"][lo:hi], rel
 
 
 def stage_node_plain(w, h, x, hb, t, d: StackDims):
-    """Stage A: kNN-edge and bond-grid node attention -> new_h [B,N,H]."""
+    """Stage A: kNN-edge and bond-grid node attention -> new_h [B,N,H],
+    in h's dtype (the softmaxes float32, as their masks are)."""
     B, N, H = h.shape
     NP, NL, K, nh = d.NP, d.NL, d.K, d.heads
     dh = H // nh
     e_pre, _ = _knn_edge_prefeat(w, x, t, d, 0, 2 * H)
     nproj = h @ w["e_Wn_h"]                                   # [B,N,4H]
     pre = (e_pre + _gather_rows(nproj[..., 2 * H:], t["nbr_idx"])
-           * t["nbr_mask"][..., None] + nproj[:, :, None, :2 * H])
+           * t["nbr_mask"][..., None].to(h.dtype) + nproj[:, :, None, :2 * H])
     k = torch.relu(_ln(pre[..., :H], w["e_ln_s"][0], w["e_ln_b"][0]))
     v = torch.relu(_ln(pre[..., H:], w["e_ln_s"][1], w["e_ln_b"][1]))
     k = k @ w["e_k2"][0] + w["e_b2"][0]
-    v = (v @ w["e_k2"][1] + w["e_b2"][1]) * t["e_w"][..., None]
+    v = (v @ w["e_k2"][1] + w["e_b2"][1]) * t["e_w"][..., None].to(h.dtype)
     q = _qmlp(h @ w["q_W0"][0] + w["q_b0"][0], w["q_ln_s"][0],
               w["q_ln_b"][0], w["q_W1"][0], w["q_b1"][0])
     sc = (k.reshape(B, N, K, nh, dh) * q.reshape(B, N, 1, nh, dh)).sum(-1) \
@@ -350,8 +358,14 @@ def stage_node_plain(w, h, x, hb, t, d: StackDims):
     out_b = (al_b[..., None] * v_b.reshape(B, NL, NL, nh, dh)).sum(1
                                                                    ).reshape(
         B, NL, H)
-    out_b = torch.cat([torch.zeros_like(h[:, :NP]), out_b], 1)
-    return h + ((out_e + out_b) @ w["lin_W"] + w["lin_b"])
+    out_b = torch.cat([out_b.new_zeros(B, NP, H), out_b], 1)
+    upd = (out_e + out_b).to(h.dtype) @ w["lin_W"]
+    if h.dtype == torch.float32:
+        return h + (upd + w["lin_b"])
+    # the residual, then the bias: the JAX package's bf16 stack rounds in
+    # that order (`_stage_a`); float32 keeps its own, which the kernels and
+    # the backward's recompute are held to
+    return h + upd + w["lin_b"]
 
 
 def _pair_mask(t):
@@ -363,14 +377,14 @@ def _pair_mask(t):
 
 def stage_triplet_pre_plain(w, h, x, hb, t, d: StackDims,
                             block_dtype=torch.float32):
-    """Stage B1: head-independent triplet features, computed in float32
-    and stored in `block_dtype` (a bf16 block is the float32 one rounded to
-    nearest even, as XLA's convert and the kernel's store round it).
-    Returns (pre_t [B,j,i,K8,Wt], q_z [B,j,i,H])."""
+    """Stage B1: head-independent triplet features, computed in h's dtype
+    and stored in `block_dtype` (a bf16 block of float32 carries is the
+    float32 one rounded to nearest even, as XLA's convert and the kernel's
+    store round it). Returns (pre_t [B,j,i,K8,Wt], q_z [B,j,i,H])."""
     NP, Wt = d.NP, d.Wt
     pos_l, h_l = x[:, NP:], h[:, NP:]
     rel_l = pos_l[:, :, None, :] - pos_l[:, None, :, :]     # [B,x,i]=x-i
-    r_feat = _rbf(torch.sqrt((rel_l * rel_l).sum(-1) + 1e-12))
+    r_feat = _rbf(torch.sqrt((rel_l * rel_l).sum(-1) + 1e-12)).to(h.dtype)
     npj = h_l @ w["t_Wn"]                                    # [B,NL,2Wt]
     a_kj = (hb @ w["t_Whb"] + r_feat @ w["t_Wr"] + w["t_b"]
             + npj[:, :, None, :Wt] + npj[:, None, :, Wt:])   # [B,k,j,Wt]
@@ -390,7 +404,7 @@ def stage_triplet_pre_plain(w, h, x, hb, t, d: StackDims,
     nksq = (rel_ki * rel_ki).sum(-1)
     cross = torch.sqrt(torch.clamp(njsq * nksq - dot * dot,
                                    min=CROSS_SQ_EPS))
-    enc = _angular(torch.atan2(cross, dot), d.num_ang)
+    enc = _angular(torch.atan2(cross, dot), d.num_ang).to(h.dtype)
     pre = a_kj_sel[:, :, None] + a_ji[:, :, :, None] + enc @ w["t_Wang"]
     pre_t = torch.relu(_ln(pre, w["t_ln_s"], w["t_ln_b"]))
     return pre_t.to(block_dtype), q_z.to(block_dtype)
@@ -410,31 +424,35 @@ def trip_valid(t):
 
 def stage_triplet_att_plain(w, hb, pre_t, q_z, t, d: StackDims):
     """Stage B2: per-head softmax over the K8 triplet sources and the pool
-    -> hb + triplet update [B,NL,NL,H]. The blocks pre_t and q_z may be
-    bf16; they are widened to float32 and all arithmetic is float32."""
-    pre_t, q_z = pre_t.float(), q_z.float()
+    -> hb + triplet update [B,NL,NL,H], in hb's dtype: the blocks pre_t
+    and q_z are read in it (bf16 blocks of float32 carries are widened),
+    the softmax and the pool are float32."""
+    pre_t, q_z = pre_t.to(hb.dtype), q_z.to(hb.dtype)
     q = torch.einsum("bjic,hcw->bjihw", q_z, w["tq_W1"]) + w["tq_b1"]
     sc = torch.einsum("bjikw,bjihw->bjikh", pre_t, q) * (
         1.0 / float(np.sqrt(d.Wt)))
     al = _softmax_masked(sc, trip_valid(t)[..., None], 3)
-    pooled = torch.einsum("bjikh,bjikw->bjihw", al, pre_t)
-    return hb + (torch.einsum("bjihw,hwc->bjic", pooled, w["t_out_W"])
+    pooled = torch.einsum("bjikh,bjikw->bjihw", al, pre_t.to(al.dtype))
+    return hb + (torch.einsum("bjihw,hwc->bjic", pooled.to(hb.dtype),
+                              w["t_out_W"])
                  + w["t_out_b"])
 
 
 def stage_pos_plain(w, new_h, x, hb_new, t, d: StackDims):
-    """Stage C: kNN-edge and bond-grid position updates -> x_new [B,N,3]."""
+    """Stage C: kNN-edge and bond-grid position updates -> x_new [B,N,3]
+    (float32; the features in new_h's dtype)."""
     B, N, H = new_h.shape
     NP, NL, K, nh = d.NP, d.NL, d.K, d.heads
     dh = H // nh
     e_pre, rel = _knn_edge_prefeat(w, x, t, d, 2 * H, 4 * H)
     nproj = new_h @ w["e_Wn_nh"]
     pre = (e_pre + _gather_rows(nproj[..., 2 * H:], t["nbr_idx"])
-           * t["nbr_mask"][..., None] + nproj[:, :, None, :2 * H])
+           * t["nbr_mask"][..., None].to(new_h.dtype)
+           + nproj[:, :, None, :2 * H])
     xk = torch.relu(_ln(pre[..., :H], w["e_ln_s"][2], w["e_ln_b"][2]))
     xv = torch.relu(_ln(pre[..., H:], w["e_ln_s"][3], w["e_ln_b"][3]))
     xk = xk @ w["e_xk2"] + w["e_xk2b"]
-    xv = (xv @ w["e_xv2"] + w["e_xv2b"]) * t["e_w"][..., None]
+    xv = (xv @ w["e_xv2"] + w["e_xv2b"]) * t["e_w"][..., None].to(new_h.dtype)
     xq = _qmlp(new_h @ w["q_W0"][2] + w["q_b0"][2], w["q_ln_s"][2],
                w["q_ln_b"][2], w["q_W1"][2], w["q_b1"][2])
     sc = (xk.reshape(B, N, K, nh, dh) * xq.reshape(B, N, 1, nh, dh)).sum(-1) \
@@ -752,7 +770,9 @@ def layer_stack(packed: Dict[str, torch.Tensor], h, x, hb,
     then recomputes each layer in the backward (`torch.utils.checkpoint`)
     instead of keeping its O(NL^2 K8) intermediates. `block_dtype`
     (`fused_block_dtype`) is the element type the inter-stage blocks pre_t
-    and q_z are stored in between B1 and B2; all arithmetic is float32."""
+    and q_z are stored in between B1 and B2; the stages compute in the
+    dtype of h and hb (float32 from every caller but `run_stack`'s 'xla2'
+    in bf16)."""
     L = packed["lin_b"].shape[0]
     keys = sorted(packed)
     for l in range(L):
@@ -770,223 +790,6 @@ def layer_stack(packed: Dict[str, torch.Tensor], h, x, hb,
         else:
             h, x, hb = _layer(w, h, x, hb, tables, dims, use_kernels,
                               merge_node_pre, merge_pos, block_dtype)
-    return h, x, hb
-
-
-# --------------------------------------------------------------------------
-# 'xla2' with fused_block_dtype bfloat16: bf16 carries and products
-# --------------------------------------------------------------------------
-
-def xla2_operands(packed: Dict[str, torch.Tensor]
-                  ) -> Dict[str, torch.Tensor]:
-    """The packed weights with the merged operands of the JAX package's
-    batched driver (`pack_layer_params`'s 'xla2' keys): every product that
-    shares an input in one wide matrix (`h_mega`, `nh_mega`, `hb_mega`,
-    `r_mega`), dire_embedding folded into the edge first layer (`em_W`,
-    `em_b`), the position value heads zero-padded to H beside their keys
-    (`x_k2`, `p_k2m`), and the triplet query and output weights in the
-    head-minor layouts (`tq_W1f`, `tq_b1f`, `t_out_Wf`). Built in float32
-    from `packed` (differentiable). Folding and merging change which
-    products run, so under bf16 they are what the rounding is held to."""
-    w = dict(packed)
-    L, fe, H4 = w["e_W"].shape
-    H = H4 // 4
-    heads = w["e_xv2"].shape[-1]
-    nh, Wt = w["tq_b1"].shape[1:]
-    fb = fe - 9                          # edge-feature rows before dire
-    dire_rows = w["e_W"][:, fb:]
-    w["em_W"] = torch.cat([w["e_W"][:, :fb], torch.einsum(
-        "lde,leh->ldh", w["dire_W"], dire_rows)], 1)
-    w["em_b"] = w["e_b"] + torch.einsum("le,leh->lh", w["dire_b"],
-                                        dire_rows)
-    q_W0 = w["q_W0"]
-    w["h_mega"] = torch.cat([w["e_Wn_h"], q_W0[:, 0], q_W0[:, 1], w["b_Wn"],
-                             w["t_Wn"], w["tq_Wi"]], -1)   # [L,H,11H+2Wt]
-    w["nh_mega"] = torch.cat([w["e_Wn_nh"], q_W0[:, 2], q_W0[:, 3],
-                              w["p_Wn"]], -1)               # [L,H,10H]
-    w["hb_mega"] = torch.cat([w["b_W"], w["t_Whb"], w["tq_Whb"]], -1)
-    w["r_mega"] = torch.cat([w["t_Wr"], w["t_Wji"]], -1)
-    pad = lambda a: torch.nn.functional.pad(a, (0, H - heads))
-    w["x_k2"] = torch.stack([w["e_xk2"], pad(w["e_xv2"])], 1)
-    w["x_b2"] = torch.stack([w["e_xk2b"], pad(w["e_xv2b"])], 1)
-    w["p_k2m"] = torch.stack([w["p_xk2"], pad(w["p_xv2"])], 1)
-    w["p_b2m"] = torch.stack([w["p_xk2b"], pad(w["p_xv2b"])], 1)
-    w["tq_W1f"] = w["tq_W1"].permute(0, 2, 3, 1).reshape(L, H, Wt * nh)
-    w["tq_b1f"] = w["tq_b1"].transpose(1, 2)                # [L,Wt,heads]
-    w["t_out_Wf"] = w["t_out_W"].reshape(L, nh * Wt, H)
-    return w
-
-
-def _kv_stacked(pre, ln_s2, ln_b2, W2, b2):
-    """Paired k/v second layers: pre [..., 2H] (k half first) -> [..., 2,
-    G]."""
-    pre2 = pre.reshape(*pre.shape[:-1], 2, pre.shape[-1] // 2)
-    z = torch.relu(_ln(pre2, ln_s2, ln_b2))
-    return torch.einsum("...th,thg->...tg", z, W2) + b2
-
-
-def _q_stacked(z2, ln_s2, ln_b2, W1_2, b1_2):
-    """Paired query-MLP tails over z2 [..., 2, H] -> [..., 2, H]."""
-    z = torch.relu(_ln(z2, ln_s2, ln_b2))
-    return torch.einsum("...th,thg->...tg", z, W1_2) + b1_2
-
-
-def _layer_xla2_bf16(w, h, x, hb, t, d: StackDims):
-    """One layer of the JAX package's `_layer_math_batched` with its cast
-    points: h, hb and the weights in bf16 (`w` from `xla2_operands`), x
-    and the geometry float32, geometry-derived features cast to bf16 where
-    they meet a weight, softmaxes float32 (their masks are float32),
-    position increments float32. Gathers by index (the JAX package's exact
-    bf16 one-hot products give the same values).
-    Returns (new_h, x_new, hb_new)."""
-    B = h.shape[0]
-    N, NL, NP, K, K8 = d.N, d.NL, d.NP, d.K, d.K8
-    H, heads, Wt = d.H, d.heads, d.Wt
-    dh = H // heads
-    wdt = h.dtype
-    inv_sd = 1.0 / float(np.sqrt(dh))
-    idx, mk = t["nbr_idx"], t["nbr_mask"][..., None]      # [B,N,K(,1)]
-    mk_w = mk.to(wdt)
-    e_w = t["e_w"].to(wdt)[..., None]                      # [B,N,K,1]
-
-    # edge features, all 4H first-layer columns at once
-    rel = x[:, :, None, :] - _gather_rows(x, idx) * mk     # [B,N,K,3]
-    rbf = _rbf(torch.sqrt((rel * rel).sum(-1) + 1e-12))
-    pos_l = x[:, NP:]
-    l3 = _gather_rows(pos_l, t["lig3_idx"]) * t["lig3_mask"][..., None]
-    cnt = torch.clamp(t["lig3_mask"].sum(-1, keepdim=True), min=1.0)
-    comb = torch.cat([t["phore_norm"], l3.sum(2) / cnt - pos_l], 1)
-    v1, v2, v3 = _gather_rows(comb, idx) * mk, comb[:, :, None, :], -rel
-    dire3 = torch.stack([(v1 * v2).sum(-1), (v1 * v3).sum(-1),
-                         (v2 * v3).sum(-1)], -1)
-    et = t["edge_type"]
-    trbf = (et[..., :, None] * rbf[..., None, :]).flatten(-2)
-    feat = torch.cat([trbf, et, dire3], -1).to(wdt)        # [B,N,K,87]
-    e_pre4 = feat @ w["em_W"] + w["em_b"]                  # [B,N,K,4H]
-
-    # stage A: node update (kNN edges + bond grid)
-    hm = h @ w["h_mega"]                                   # [B,N,11H+2Wt]
-    hbm = hb @ w["hb_mega"]                                # [B,s,d,3H+Wt]
-    nproj = hm[..., :4 * H]
-    pre_kv = ((e_pre4[..., :2 * H] + _gather_rows(nproj[..., 2 * H:], idx)
-               * mk_w) + nproj[:, :, None, :2 * H])
-    kv_n = _kv_stacked(pre_kv, w["e_ln_s"][0:2], w["e_ln_b"][0:2],
-                       w["e_k2"], w["e_b2"])               # [B,N,K,2,H]
-    v_n = kv_n[..., 1, :] * e_w
-    q01 = _q_stacked(hm[..., 4 * H:6 * H].reshape(B, N, 2, H)
-                     + w["q_b0"][0:2], w["q_ln_s"][0:2], w["q_ln_b"][0:2],
-                     w["q_W1"][0:2], w["q_b1"][0:2])       # [B,N,2,H]
-    sc = (kv_n[..., 0, :].reshape(B, N, K, heads, dh)
-          * q01[:, :, 0].reshape(B, N, 1, heads, dh)).sum(-1) * inv_sd
-    al = _softmax_masked(sc, mk, 2)                        # float32
-    out_e = (al[..., None] * v_n.reshape(B, N, K, heads, dh)).sum(2
-                                                                  ).reshape(
-        B, N, H)
-    nproj_b = hm[:, NP:, 6 * H:10 * H]
-    pre_b = (hbm[..., :2 * H] + w["b_b"] + nproj_b[:, None, :, :2 * H]
-             + nproj_b[:, :, None, 2 * H:])
-    kv_b = _kv_stacked(pre_b, w["b_ln_s"], w["b_ln_b"], w["b_k2"],
-                       w["b_b2"])                          # [B,s,d,2,H]
-    sc_b = (kv_b[..., 0, :].reshape(B, NL, NL, heads, dh)
-            * q01[:, NP:, 1].reshape(B, 1, NL, heads, dh)).sum(-1) * inv_sd
-    al_b = _softmax_masked(sc_b, _pair_mask(t)[..., None], 1)
-    out_b = (al_b[..., None] * kv_b[..., 1, :].reshape(B, NL, NL, heads, dh)
-             ).sum(1).reshape(B, NL, H)
-    out_b = torch.cat([out_b.new_zeros(B, NP, H), out_b], 1)
-    new_h = h + (out_e + out_b).to(wdt) @ w["lin_W"] + w["lin_b"]
-
-    # stage B: factorized kNN triplet bond update (old h, old hb)
-    rel_l = pos_l[:, :, None, :] - pos_l[:, None, :, :]   # [B,x,i,3]
-    r_feat = _rbf(torch.sqrt((rel_l * rel_l).sum(-1) + 1e-12)).to(wdt)
-    npj = hm[:, NP:, 10 * H:10 * H + 2 * Wt]
-    rproj = r_feat @ w["r_mega"]                           # [B,x,i,2Wt]
-    a_kj = (hbm[..., 2 * H:2 * H + Wt] + rproj[..., :Wt] + w["t_b"]
-            + npj[:, :, None, :Wt] + npj[:, None, :, Wt:])  # [B,k,j,Wt]
-    q_z = torch.relu(_ln(hbm[..., 2 * H + Wt:] + hm[:, None, NP:,
-                                                    10 * H + 2 * Wt:]
-                         + w["tq_b0"], w["tq_ln_s"], w["tq_ln_b"]))
-    tidx = t["trip_idx"].long()                            # [B,j,K8]
-    bi = torch.arange(B, device=x.device)[:, None, None]
-    ji = torch.arange(NL, device=x.device)[None, :, None]
-    a_kj_sel = a_kj[bi, tidx, ji]                          # [B,j,K8,Wt]
-    rel_ki = (_gather_rows(pos_l, tidx)[:, :, None]
-              - pos_l[:, None, :, None])                   # [B,j,i,K8,3]
-    dot = (rel_l[:, :, :, None] * rel_ki).sum(-1)
-    cross = torch.sqrt(torch.clamp(
-        (rel_l * rel_l).sum(-1)[..., None] * (rel_ki * rel_ki).sum(-1)
-        - dot * dot, min=CROSS_SQ_EPS))
-    enc = _angular(torch.atan2(cross, dot), d.num_ang).to(wdt)
-    pre_t = (a_kj_sel[:, :, None] + rproj[..., Wt:][:, :, :, None]
-             + enc @ w["t_Wang"])                          # [B,j,i,K8,Wt]
-    pre_t = torch.relu(_ln(pre_t, w["t_ln_s"], w["t_ln_b"]))
-    q_f = ((q_z @ w["tq_W1f"]).reshape(B, NL, NL, Wt, heads)
-           + w["tq_b1f"])                                  # [B,j,i,w,a]
-    sc_t = torch.einsum("bjikw,bjiwa->bjika", pre_t, q_f) * (
-        1.0 / float(np.sqrt(Wt)))
-    al_t = _softmax_masked(sc_t, trip_valid(t)[..., None], 3)
-    pooled = torch.einsum("bjika,bjikw->bjiaw", al_t, pre_t.float()
-                          ).to(wdt)
-    hb_new = hb + (pooled.reshape(B, NL, NL, heads * Wt) @ w["t_out_Wf"]
-                   + w["t_out_b"])
-
-    # stage C: position update (new h, new hb)
-    nhm = new_h @ w["nh_mega"]                             # [B,N,10H]
-    nproj_x = nhm[..., :4 * H]
-    pre_x = ((e_pre4[..., 2 * H:] + _gather_rows(nproj_x[..., 2 * H:], idx)
-              * mk_w) + nproj_x[:, :, None, :2 * H])
-    kv_x = _kv_stacked(pre_x, w["e_ln_s"][2:4], w["e_ln_b"][2:4], w["x_k2"],
-                       w["x_b2"])
-    q23 = _q_stacked(nhm[..., 4 * H:6 * H].reshape(B, N, 2, H)
-                     + w["q_b0"][2:4], w["q_ln_s"][2:4], w["q_ln_b"][2:4],
-                     w["q_W1"][2:4], w["q_b1"][2:4])
-    sc_x = (kv_x[..., 0, :].reshape(B, N, K, heads, dh)
-            * q23[:, :, 0].reshape(B, N, 1, heads, dh)).sum(-1) * inv_sd
-    al_x = _softmax_masked(sc_x, mk, 2)
-    w_e = (al_x * (kv_x[..., 1, :heads] * e_w)).sum(-1, keepdim=True) / heads
-    dx_edge = (w_e * rel).sum(2)                           # [B,N,3]
-    nproj_p = nhm[:, NP:, 6 * H:]
-    pre_p = (hb_new @ w["p_W"] + w["p_b"] + nproj_p[:, None, :, :2 * H]
-             + nproj_p[:, :, None, 2 * H:])
-    kv_p = _kv_stacked(pre_p, w["p_ln_s"], w["p_ln_b"], w["p_k2m"],
-                       w["p_b2m"])
-    sc_p = (kv_p[..., 0, :].reshape(B, NL, NL, heads, dh)
-            * q23[:, NP:, 1].reshape(B, 1, NL, heads, dh)).sum(-1) * inv_sd
-    al_p = _softmax_masked(sc_p, _pair_mask(t)[..., None], 1)
-    w_p = (al_p * kv_p[..., 1, :heads]).sum(-1, keepdim=True) / heads
-    rel_bond = pos_l[:, None, :, :] - pos_l[:, :, None, :]  # [s,d] = d - s
-    dx = dx_edge + torch.cat([dx_edge.new_zeros(B, NP, 3),
-                              (w_p * rel_bond).sum(1)], 1)
-    lig = torch.cat([t["mask_l"].new_zeros(B, NP), t["mask_l"]], 1)
-    return new_h, x + dx * lig[..., None], hb_new
-
-
-def layer_stack_xla2_bf16(packed: Dict[str, torch.Tensor], h, x, hb,
-                          tables: Dict[str, torch.Tensor], dims: StackDims,
-                          remat: bool = False):
-    """The 'xla2' stack with `fused_block_dtype` bfloat16, the counterpart
-    of `layer_stack_xla2(..., dtype=jnp.bfloat16)`: the h and bond-grid
-    carries, the packed weights (`xla2_operands`) and the feature products
-    in bf16; positions, geometry and softmaxes float32. Differentiable by
-    autograd (gradients reach `packed` through the casts); `remat`
-    recomputes each layer in the backward. Returns (h bf16, x, hb bf16)."""
-    bf = torch.bfloat16
-    merged = {k: v.to(bf) for k, v in xla2_operands(packed).items()}
-    h, hb = h.to(bf), hb.to(bf)
-    keys = sorted(merged)
-    for l in range(merged["lin_b"].shape[0]):
-        w = layer_weights(merged, l)
-        if remat and torch.is_grad_enabled():
-            from torch.utils.checkpoint import checkpoint
-
-            def run(h_, x_, hb_, e_w, pn, *ws):
-                t = dict(tables, e_w=e_w, phore_norm=pn)
-                return _layer_xla2_bf16(dict(zip(keys, ws)), h_, x_, hb_, t,
-                                        dims)
-            h, x, hb = checkpoint(run, h, x, hb, tables["e_w"],
-                                  tables["phore_norm"],
-                                  *[w[k] for k in keys], use_reentrant=False)
-        else:
-            h, x, hb = _layer_xla2_bf16(w, h, x, hb, tables, dims)
     return h, x, hb
 
 
@@ -1213,3 +1016,39 @@ def make_layer_stack_grad(dims: StackDims, merge_node_pre: bool = False,
             hb, tables["e_w"], tables["phore_norm"],
             *[packed[k] for k in keys])
     return f
+
+
+# --------------------------------------------------------------------------
+# the one entry: which driver runs each `fused_stack` value
+# --------------------------------------------------------------------------
+
+# fused_stack value -> (merge_node_pre, merge_pos) of the kernel path, or
+# None: the plain stages
+FUSED_STACKS = {"pallas": (False, False), "pallas3": (True, False),
+                "pallas2": (True, True), "xla": None, "xla2": None}
+
+
+def run_stack(mode: str, packed: Dict[str, torch.Tensor], h, x, hb,
+              tables: Dict[str, torch.Tensor], dims: StackDims,
+              block_dtype=torch.float32, remat: bool = False):
+    """The fused stack of `fused_stack` value `mode` (a key of
+    `FUSED_STACKS`) on float32 carries; h, x and hb come back in the
+    dtypes they came in. 'pallas*' run `make_layer_stack_grad` with
+    `block_dtype` as the inter-stage blocks' type; 'xla' and 'xla2' run the
+    plain stages (`layer_stack(use_kernels=False)`, `remat` recomputing
+    each layer in the backward). 'xla2' with a `block_dtype` other than
+    float32 is the JAX package's `layer_stack_xla2(dtype=)`: the carries h
+    and hb and the packed weights are cast to it once (differentiably), and
+    the stages compute in it; 'xla' ignores `block_dtype`."""
+    merges = FUSED_STACKS[mode]
+    hc, xc, hbc = (a.float().contiguous() for a in (h, x, hb))
+    if merges is not None:
+        out = make_layer_stack_grad(dims, *merges, block_dtype=block_dtype)(
+            packed, hc, xc, hbc, tables)
+    else:
+        if mode == "xla2" and block_dtype != torch.float32:
+            packed = {k: v.to(block_dtype) for k, v in packed.items()}
+            hc, hbc = hc.to(block_dtype), hbc.to(block_dtype)
+        out = layer_stack(packed, hc, xc, hbc, tables, dims,
+                          use_kernels=False, remat=remat)
+    return out[0].to(h.dtype), out[1].to(x.dtype), out[2].to(hb.dtype)

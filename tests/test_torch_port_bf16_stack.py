@@ -8,9 +8,12 @@ stack of tests/test_torch_port_stack_merged.py):
   the stored blocks pre_t and q_z within one bf16 unit in the last place of
   the larger value, plus the float32 stages' own tolerance (1e-4 on pre_t,
   whose JAX angle is a polynomial, 1e-6 on q_z);
-- 'xla2' with bf16 carries against `layer_stack_xla2(..., dtype=bf16)`
-  within 2e-2 x max(|ref|, 1), and closer to it on average than the float32
-  stack is (so a cast left in float32 shows);
+- 'xla2' with bf16 carries (`run_stack('xla2', block_dtype=bf16)`: the
+  plain stages computing in the carries' dtype) against
+  `layer_stack_xla2(..., dtype=bf16)` within 2e-2 x max(|ref|, 1), and
+  closer to it on average than the float32 stack is (so a cast left in
+  float32 shows);
+- `run_stack`'s five modes at float32 bit for bit alike;
 - the straight-through backward: with bf16 blocks the gradients of
   `LayerStackFn` equal those of the float32 plain stack (1e-5);
 - radius and hybrid neighbour tables on the fused stack against
@@ -27,6 +30,7 @@ from phoregen_tpu.ops import knn as jknn
 from phoregen_tpu.ops import layer_stack as jls
 
 from phoregen_tpu_torch.models.phoregen import PhoreGen
+from phoregen_tpu_torch.ops import kernel_check as kc
 from phoregen_tpu_torch.ops import layer_stack as pls
 from phoregen_tpu_torch.ops.kernel_check import bf16_ulp
 
@@ -121,7 +125,11 @@ def test_xla2_bf16_matches_jax_xla2_bf16(setup):
              jnp.asarray(inp["hb"]), s["jt"], s["jd"])
     ref = jls.layer_stack_xla2(*jargs, dtype=jnp.bfloat16)
     ref32 = jls.layer_stack_xla2(*jargs)
-    out = pls.layer_stack_xla2_bf16(s["pp"], *_args(s), s["pt"], s["pd"])
+    # the carries h and hb in bf16, as a bf16 network hands them in (the
+    # JAX stack rounds its float32 ones to bf16 at its entry the same way)
+    h, x, hb = _args(s)
+    out = pls.run_stack("xla2", s["pp"], h.to(BF), x, hb.to(BF), s["pt"],
+                        s["pd"], block_dtype=BF)
     assert [o.dtype for o in out] == [BF, torch.float32, BF]
     for o, r, r32 in zip(out, ref, ref32):
         _close_scaled(o, r, 2e-2)
@@ -136,13 +144,40 @@ def test_xla2_bf16_is_differentiable_and_remats(setup):
     pp = {k: v.clone().requires_grad_(True) for k, v in s["pp"].items()}
     grads = []
     for remat in (False, True):
-        out = pls.layer_stack_xla2_bf16(pp, *_args(s), s["pt"], s["pd"],
-                                        remat=remat)
+        out = pls.run_stack("xla2", pp, *_args(s), s["pt"], s["pd"],
+                            block_dtype=BF, remat=remat)
         loss = sum(o.float().square().sum() for o in out)
         grads.append(torch.autograd.grad(loss, [pp["lin_W"], pp["e_W"]]))
     for a, b in zip(*grads):
         assert a.dtype == torch.float32 and torch.isfinite(a).all()
         assert torch.equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def small_case():
+    """A seeded `flagship_case` at small widths, two layers."""
+    c = kc.flagship_case(B=2, NP=8, NL=12, H=32, heads=4, Wt=8, K=8,
+                         trip_k=4, seed=9, device="cpu")
+    c["packed"] = {k: torch.stack([v, 0.5 * v]) for k, v in c["w"].items()}
+    return c
+
+
+@pytest.mark.parametrize("mode", sorted(pls.FUSED_STACKS))
+def test_run_stack_modes_agree_at_float32(small_case, mode):
+    """Every `fused_stack` value's float32 forward through `run_stack` is
+    the plain stages' bit for bit (on the CPU the kernel wrappers run
+    them); 'xla2' with bf16 returns h and hb in bf16 and x in float32."""
+    c = small_case
+    args = (c["packed"], c["h"], c["x"], c["hb"], c["t"], c["d"])
+    ref = pls.layer_stack(*args, use_kernels=False)
+    out = pls.run_stack(mode, *args)
+    for o, r in zip(out, ref):
+        assert o.dtype == torch.float32 and torch.equal(o, r)
+    if mode == "xla2":
+        out = pls.run_stack(mode, c["packed"], c["h"].to(BF), c["x"],
+                            c["hb"].to(BF), c["t"], c["d"], block_dtype=BF)
+        assert [o.dtype for o in out] == [BF, torch.float32, BF]
+        assert not torch.equal(out[1], ref[1])
 
 
 @pytest.mark.parametrize("fused", ["pallas", "pallas3", "pallas2"])

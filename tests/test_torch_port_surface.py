@@ -134,10 +134,11 @@ BY_DESIGN: Dict[Tuple[str, str], Row] = {
         Renamed("layer_stack", "use_kernels=False runs the plain PyTorch "
                 "stages, the counterpart of the XLA stack"),
     ("ops/layer_stack.py", "layer_stack_xla2"):
-        Renamed("layer_stack", "use_kernels=False is the float32 form; the "
-                "bf16 form is layer_stack_xla2_bf16"),
+        Renamed("layer_stack", "use_kernels=False runs the plain stages, "
+                "which compute in the dtype of the carries h and hb"),
     ("ops/layer_stack.py", "layer_stack_xla2(dtype)"):
-        "dtype=bfloat16 is layer_stack_xla2_bf16, float32 the plain stages",
+        "the plain stages with the carries in the dtype: "
+        "run_stack('xla2', block_dtype=) casts h, hb and the weights to it",
     ("ops/layer_stack.py", "layer_stack_pallas"):
         Renamed("layer_stack", "use_kernels=True launches the CUDA stage "
                 "kernels in place of the Pallas ones"),
