@@ -29,22 +29,26 @@
 //   runs once for each of the two, and not at all for a padded ligand slot
 //   (its pool would add exact zeros; C keeps a padded slot's position).
 //   B2 + C has no room for a second destination.
-// - Stage C folds its queries into its key layers: a score is
+// - Stages A and C fold their queries into their key layers: a score is
 //   (LN(pre_k) @ k2W + k2b) . q over a head's columns = LN(pre_k) @ W_kq +
 //   b_kq with W_kq = k2W's head slices times q's, exact algebra. The key
-//   layer (H x H, used only in that dot) becomes H x heads, and with the
-//   value layer's heads columns one product (mm_fold) replaces the two on
-//   both the kNN edges and the bond grid, in one weight pass: 4.4 M to
-//   about 3.1 M multiply-adds a destination at NL=80. The queries and
-//   W_kq, b_kq of every ligand row come from one grid-wide phase
-//   (pos_query_kernel: the queries as one product over 16 rows, each
-//   thread's k2W slice read once for all of them); a block copies its own
-//   by cp.async (load_fold). Made inside C's blocks, the single-row query
-//   products and two k2W reads a destination, chains of L2 round trips,
-//   took 12% of C's block cycles and its LayerNorms and softmaxes slowed
-//   beside them (PERF.md).
+//   layer (H x H, used only in that dot) becomes H x heads, one product on
+//   a weight in shared memory (mm_fold) for both the kNN edges (the G
+//   destinations' score columns side by side) and the bond grid. Stage C's
+//   value layer is heads wide and rides in the same product, in one weight
+//   pass: 4.4 M to about 3.1 M multiply-adds a destination at NL=80; stage
+//   A's is H wide and stays a streamed `mm` beside it. The queries and
+//   W_kq, b_kq come from one grid-wide phase a stage before its main
+//   kernel (node_pos_query_kernel: the queries as one product over 16
+//   rows, each thread's k2W slice read once for all of them): C's for
+//   every ligand row, A's kNN-edge folds for every row and its bond-grid
+//   folds for every ligand row; a block copies its own by cp.async
+//   (load_fold). Made inside C's blocks, the single-row query products and
+//   two k2W reads a destination, chains of L2 round trips, took 12% of C's
+//   block cycles and its LayerNorms and softmaxes slowed beside them
+//   (PERF.md).
 // - One product routine, `mm`, serves every matrix product of the six
-//   kernels and `rows_gemm` but two: C's folded layer (`mm_fold`, the same
+//   kernels and `rows_gemm` but two: the folded layers (`mm_fold`, the same
 //   tiles on a weight that lies in shared memory) and B1's encoding
 //   product. Products whose width is a multiple of 4 run
 //   on the tensor cores in error-compensated 3xTF32 (`mm_tc`): warp-level
@@ -88,7 +92,7 @@
 //   (then C's first-layer tile) | q_z 41 KB, then 16 pre_t tile buffers
 //   64 KB, then C's folded product's tile and weight | weight ring 17 KB
 //   (between a group's two products it holds the warps' softmax weights) |
-//   scores, values, query: 15 KB; 223,840 bytes, one block an SM.
+//   scores and values: 14 KB; 223,328 bytes, one block an SM.
 //   ls_launch_plan reports it. The
 //   kNN edge attention of the same destination runs first and lies over the
 //   same regions.
@@ -566,7 +570,7 @@ __device__ __noinline__ void mm_tc(const float* A, int lda, int M, WSrc ws,
   }
 }
 
-// The tensor-core product of stage C's folded second layer (mm_fold): the
+// The tensor-core product of a folded key layer (mm_fold): the
 // weight W [up8(Kd)][pitch] lies in shared memory (made by load_fold, rows
 // from Kd on zero, pitch 8 or 24 mod 32 so that a warp's fragment loads
 // fall on 32 banks) and is read in place, no ring and no barrier inside;
@@ -738,10 +742,10 @@ __device__ __noinline__ void mm(const float* A, int lda, int M, WSrc ws,
 }
 
 // out[m*ldo + c] = sum_k A'[m*lda + k] * W[k*pitch + c] for m < M, c < Nc
-// (Nc % 4 == 0), A' = A for c < nsplit and A + aoff from there on: stage
-// C's key and value layers in one product on the folded weight W that
-// load_fold copied into shared memory (see mm_tc_sh). 16 warps; W and A must
-// be complete before the call, and a barrier ends it.
+// (Nc % 4 == 0), A' = A for c < nsplit and A + aoff from there on: the
+// folded key layer (and stage C's value layer) in one product on the
+// weight W that load_fold copied into shared memory (see mm_tc_sh). 16
+// warps; W and A must be complete before the call, and a barrier ends it.
 __device__ __noinline__ void mm_fold(const float* A, int lda, int M,
                                      const float* W, int pitch, int Kd,
                                      int Nc, float* out, int ldo, int nsplit,
@@ -928,21 +932,22 @@ __host__ __device__ inline int edge_chunk(int KE) {
   return nc > 1 ? (KE + nc - 1) / nc : KE;
 }
 
-// Stage C's folded second layer of one attention (see load_fold): one
-// product of nc columns on the LayerNorm'd first-layer tile, score columns
+// The folded second layer of one attention (see load_fold): one product of
+// nc columns on the LayerNorm'd first-layer tile, score columns
 // [g * heads, (g + 1) * heads) for each of its G destinations (the query
-// folded into the key layer) and value columns [voff, voff + heads), voff
-// a multiple of 16 so that no warp's tiles straddle the two inputs. The
-// weight lies in shared memory [up8(H)][pitch] (pitch 8 or 24 mod 32, past
-// nc rounded up to 16), its bias row [up4(nc)] after it.
+// folded into the key layer) and, where the value layer is heads wide
+// (stage C: `values`), value columns [voff, voff + heads), voff a multiple
+// of 16 so that no warp's tiles straddle the two inputs. The weight lies
+// in shared memory [up8(H)][pitch] (pitch 8 or 24 mod 32, past nc rounded
+// up to 16), its bias row [up4(nc)] after it.
 struct Fold {
   int voff, nc, pitch, floats;
 };
 
-__host__ __device__ inline Fold fold_geom(const Dims& d, int G) {
+__host__ __device__ inline Fold fold_geom(const Dims& d, int G, bool values) {
   Fold f;
   f.voff = (G * d.heads + 15) & ~15;
-  f.nc = f.voff + up4(d.heads);
+  f.nc = f.voff + (values ? up4(d.heads) : 0);
   f.pitch = ((f.nc + 15) & ~15) + 8;
   f.floats = ((d.H + 7) & ~7) * f.pitch + up4(f.nc);
   return f;
@@ -955,27 +960,29 @@ __host__ __device__ inline Fold fold_geom(const Dims& d, int G) {
 //         KE edges of the block's G nodes, see edge_chunk)
 //   u1:   first-layer tile [R or KC][2H+PD] | B2's q_h / pooled
 //         [R][hg*Wt+PD] (hg heads a group; 0: no B2)
-//   u2:   second-layer tile (stage A: bond k [R][H+PD], edge k|v
-//         [KC][2H+PD]; stage C (fold): the folded product's tile [R or
-//         KC][nc] and its weight) | B2's q_z [R][H+PD] while a head group's
-//         queries are made, then its per-warp pre_t tiles [K8*Wt]
+//   u2:   the folded product's tile [R or KC][nc] and its weight (stage A
+//         in one pass over the edges: after the edge values [KC][H+PD]) |
+//         B2's q_z [R][H+PD] while a head group's queries are made, then
+//         its per-warp pre_t tiles [K8*Wt]
 // then the weight ring (between B2's two products of a head group it holds
 // the warps' softmax weights [32][4]) and what lives through the whole
-// block. Stage A's bond values [NL][H] lie in `rows` (free once the first
-// layer has read them) when one pass takes all NL sources, else in vall.
-// When the edges take more than one pass, their values [KE][up4(vcols)]
-// are kept in vall until the edge attention's pool has read them (the bond
-// grid's attention comes after it); in one pass they stay in u2. Stage C
-// (fold) keeps the edge values [KE][heads] in vall, then the bond grid's.
+// block. The value layer is vcols wide: H in stage A, heads in stage C.
+// Stage A's bond values [NL][H] lie in `rows` (free once the first layer
+// has read them) when one pass takes all NL sources, else in vall. When
+// the edges take more than one pass, their values [KE][H] are kept in vall
+// until the edge attention's pool has read them (the bond grid's attention
+// comes after it); in one pass they stay in u2. Stage C keeps the edge
+// values [KE][heads] in vall, then the bond grid's.
 struct Lay {
-  int R, KC, vsep, ldv, rows, u1, u2, ring, vall, scb, sc, qt, qv, outv, rel,
-      emask, ew, dist, d3, src, wp, misc, total;
+  int R, KC, vsep, ldv, ef, rows, u1, u2, ring, vall, scb, sc, qt, outv,
+      rel, emask, ew, dist, d3, src, wp, misc, total;
 };
 
 __host__ __device__ inline Lay stage_layout(const Dims& d, int vcols, int R,
                                             bool edge, int hg, int G = 1,
-                                            bool fold = false) {
-  // K: the edge rows of the block's G destination nodes, KC a pass of them
+                                            bool vfold = false) {
+  // K: the edge rows of the block's G destination nodes, KC a pass of them;
+  // vfold: the values ride in the folded product (stage C)
   const int H = d.H, K = edge ? G * d.K : 0, PH = H + PD, PP = 2 * H + PD;
   const int KC = edge_chunk(K);
   const int nw = NT / 32;
@@ -983,15 +990,14 @@ __host__ __device__ inline Lay stage_layout(const Dims& d, int vcols, int R,
   int o = 0;
   L.R = R;
   L.KC = KC;
-  L.vsep = fold || K > KC;
-  L.ldv = fold ? d.heads : L.vsep ? up4(vcols) : PP;
+  L.vsep = vfold || K > KC;
+  L.ldv = vfold ? d.heads : L.vsep ? up4(vcols) : PH;
+  L.ef = L.vsep ? 0 : KC * PH;  // the edge fold's tile within u2
   const int u0 = imax(R * PH, KC * FEP);
   int u1 = edge ? imax(R, KC) * PP : 0, u2 = 0;
-  if (edge && fold) {
-    const Fold fe = fold_geom(d, G), fb = fold_geom(d, 1);
-    u2 = imax(KC * fe.nc + fe.floats, R * fb.nc + fb.floats);
-  } else if (edge) {
-    u2 = imax(R * PH, KC * PP);
+  if (edge) {
+    const Fold fe = fold_geom(d, G, vfold), fb = fold_geom(d, 1, vfold);
+    u2 = imax(L.ef + KC * fe.nc + fe.floats, R * fb.nc + fb.floats);
   }
   if (hg) {
     u1 = imax(u1, R * (hg * d.Wt + PD));
@@ -1008,7 +1014,6 @@ __host__ __device__ inline Lay stage_layout(const Dims& d, int vcols, int R,
   L.sc = o; o += up4(K * d.heads);
   const int hk = up4(imax(G * H, K));
   L.qt = o; o += hk;
-  L.qv = o; o += hk;
   L.outv = o; o += hk;
   L.rel = o; o += up4(3 * K);
   L.emask = o; o += up4(K);
@@ -1022,21 +1027,22 @@ __host__ __device__ inline Lay stage_layout(const Dims& d, int vcols, int R,
   return L;
 }
 
-// v: the edge values [KE][ldv] (in the k|v tile when one pass takes all
-// edges); KC: edge rows a pass.
+// v: the edge values [KE][ldv]; fold: the edge fold's tile, its weight
+// after it; kv: the bond grid's fold tile; KC: edge rows a pass.
 struct EdgeSmem {
-  float *feat, *pre, *kv, *v, *sc, *qt, *qv, *rel, *emask, *ew, *dist, *d3,
-      *ring;
+  float *feat, *pre, *kv, *fold, *v, *sc, *qt, *rel, *emask, *ew, *dist,
+      *d3, *ring;
   int* src;
   int KC, ldv;
 };
 
-__device__ EdgeSmem edge_smem(float* sm, const Lay& L, int H) {
+__device__ EdgeSmem edge_smem(float* sm, const Lay& L) {
   EdgeSmem s;
   s.feat = sm + L.rows; s.pre = sm + L.u1; s.kv = sm + L.u2;
-  s.v = L.vsep ? sm + L.vall : s.kv + H;
+  s.fold = s.kv + L.ef;
+  s.v = L.vsep ? sm + L.vall : s.kv;
   s.KC = L.KC; s.ldv = L.ldv;
-  s.sc = sm + L.sc; s.qt = sm + L.qt; s.qv = sm + L.qv; s.rel = sm + L.rel;
+  s.sc = sm + L.sc; s.qt = sm + L.qt; s.rel = sm + L.rel;
   s.emask = sm + L.emask; s.ew = sm + L.ew; s.dist = sm + L.dist;
   s.d3 = sm + L.d3; s.ring = sm + L.ring;
   s.src = reinterpret_cast<int*>(sm + L.src);
@@ -1048,27 +1054,30 @@ struct EdgeMask {
   __device__ float operator()(int k) const { return m[k]; }
 };
 
-// Stage C's query fold: the scores of an attention are
+// The query fold: the scores of an attention are
 //   (LN(pre_k) @ k2W + k2b) . q / sqrt(dh) summed over a head's dh columns
 //   = LN(pre_k) @ W_kq + b_kq,  W_kq[c][h] = k2W[c][h-slice] . q[h-slice]
 //   / sqrt(dh), b_kq[h] = k2b[h-slice] . q[h-slice] / sqrt(dh),
-// exact algebra (the JAX stage's `xqk @ hm`, `pqk @ hm`). So the key layer,
-// an H x H product whose only use is that dot, becomes an H x heads one,
-// and the value layer's heads columns go beside it: one product of f.nc
-// columns (fold_geom) replaces the two. pos_query_kernel forms W_kq and
-// b_kq once for every ligand destination and both attentions, F[row][a]
-// [H+1][heads] (row H: b_kq). load_fold issues the cp.async copies of the
-// product's weight into wf: the score columns of the G destinations from
-// Fq (the first one's F; destinations 2 (H+1) heads floats apart), the
-// value columns from v2W, the bias row (b_kq | v2b) after the matrix, and
-// zeros in the rows from H to the next multiple of 8. It does not wait: the
-// copies are complete after the thread's next cp_async_wait and a barrier
-// (the next mm's first slice).
+// exact algebra (the JAX stages' `qk @ hm`, `qkb @ hm`, `xqk @ hm`, `pqk
+// @ hm`). So the key layer, an H x H product whose only use is that dot,
+// becomes an H x heads one; in stage C the value layer's heads columns go
+// beside it, one product of f.nc columns (fold_geom) for the two.
+// node_pos_query_kernel forms W_kq and b_kq once for every destination of
+// both attentions, F [H+1][heads] a destination (row H: b_kq). load_fold
+// issues the cp.async copies of the product's weight into wf: the score
+// columns of the G destinations from Fq (the first one's F; stage A's
+// destinations (H+1) heads floats apart, stage C's ([row][attention]) twice
+// that), with VF (stage C) the value columns from v2W, the bias row (b_kq
+// | v2b) after the matrix, and zeros in the rows from H to the next
+// multiple of 8. It does not wait: the copies are complete after
+// the thread's next cp_async_wait and a barrier (the next mm's first
+// slice).
+template <bool VF>
 __device__ void load_fold(int H, int NH, const Fold& f, const float* Fq,
                           int G, const float* __restrict__ v2W,
                           const float* __restrict__ v2b, float* wf) {
   const int tid = threadIdx.x, nt = blockDim.x, Hp = (H + 7) & ~7;
-  const int H1 = H + 1;
+  const int H1 = H + 1, gs = (VF ? 2 : 1) * H1 * NH;
   float* bf = wf + Hp * f.pitch;
   if ((NH & 3) == 0) {
     const int N4 = NH >> 2;
@@ -1076,22 +1085,27 @@ __device__ void load_fold(int H, int NH, const Fold& f, const float* Fq,
       const int g = idx / (H1 * N4), r = idx - g * H1 * N4, c = r / N4;
       const int h = (r - c * N4) * 4;
       cp_async16((c < H ? wf + c * f.pitch : bf) + g * NH + h,
-                 Fq + (size_t)g * 2 * H1 * NH + c * NH + h);
+                 Fq + (size_t)g * gs + c * NH + h);
     }
-    for (int idx = tid; idx < H * N4; idx += nt) {
-      const int c = idx / N4, h = (idx - c * N4) * 4;
-      cp_async16(wf + c * f.pitch + f.voff + h, v2W + c * NH + h);
+    if (VF) {
+      for (int idx = tid; idx < H * N4; idx += nt) {
+        const int c = idx / N4, h = (idx - c * N4) * 4;
+        cp_async16(wf + c * f.pitch + f.voff + h, v2W + c * NH + h);
+      }
     }
   } else {
     for (int idx = tid; idx < G * H1 * NH; idx += nt) {
       const int g = idx / (H1 * NH), r = idx - g * H1 * NH, c = r / NH;
       (c < H ? wf + c * f.pitch : bf)[g * NH + r - c * NH] =
-          Fq[(size_t)g * 2 * H1 * NH + r];
+          Fq[(size_t)g * gs + r];
     }
-    for (int idx = tid; idx < H * NH; idx += nt)
-      wf[(idx / NH) * f.pitch + f.voff + idx % NH] = __ldg(v2W + idx);
+    if (VF) {
+      for (int idx = tid; idx < H * NH; idx += nt)
+        wf[(idx / NH) * f.pitch + f.voff + idx % NH] = __ldg(v2W + idx);
+    }
   }
-  for (int h = tid; h < NH; h += nt) bf[f.voff + h] = __ldg(v2b + h);
+  if (VF)
+    for (int h = tid; h < NH; h += nt) bf[f.voff + h] = __ldg(v2b + h);
   for (int idx = tid; idx < (Hp - H) * f.pitch; idx += nt)
     wf[H * f.pitch + idx] = 0.f;
 }
@@ -1100,25 +1114,23 @@ __device__ void load_fold(int H, int NH, const Fold& f, const float* Fq,
 // n0 + 1, ... of graph b (their K edges each are consecutive rows of the
 // tables and of every tile here, KE = G * K rows in all, so that one pass
 // over the weights serves G nodes): edge features, the fused first layer
-// (columns [lo, lo+2H) of e_W plus the gathered node terms), LN+ReLU, the k/v
-// second layers (v has Nv columns, scaled by e_w), the node queries and the
-// masked per-head softmax over each node's K edges. The tiles take KC edge
-// rows a pass (all KE in one pass up to ECMAX); the node queries come
-// first. Stage C passes Fq (its queries folded into the key layer, see
-// load_fold; Nv = heads): no query here, and the key and value layers are
-// one product on the folded weight of the G destinations, the scores and
-// values copied out of its tile per row's own destination. Leaves alpha in
-// sc[KE][heads] and v in s.v[KE][s.ldv].
+// (columns [lo, lo+2H) of e_W plus the gathered node terms), LN+ReLU, the
+// second layers and the masked per-head softmax over each node's K edges.
+// The queries come folded into the key layer (Fq, gs: see load_fold): the
+// scores are one product on the folded weight of the G destinations, each
+// row's copied out of its tile by its own destination. The value layer
+// has Nv columns, scaled by e_w: with VF (stage C, Nv = heads) they ride in
+// the same product, else (stage A, Nv = H) they take their own `mm`. The
+// tiles take KC edge rows a pass (all KE in one pass up to ECMAX). Leaves
+// alpha in sc[KE][heads] and v in s.v[KE][s.ldv].
+template <bool VF>
 __device__ void edge_attention(
     const Dims& d, const Args& a, const EdgeSmem& s, int b, int n0, int G,
     const float* xb, const float* P, int PW, int lo, int ln_row,
     const float* e_W, const float* e_b, const float* dire_W,
     const float* dire_b, const float* e_ln_s, const float* e_ln_b,
-    const float* k2W, const float* k2b, const float* v2W, const float* v2b,
-    int Nv, int qcol, const float* q_b0, const float* q_ln_s,
-    const float* q_ln_b, const float* q_W1, const float* q_b1,
-    const float* Fq) {
-  const int N = d.NP + d.NL, K = d.K, H = d.H, NH = d.heads, dh = H / NH;
+    const float* v2W, const float* v2b, int Nv, const float* Fq) {
+  const int N = d.NP + d.NL, K = d.K, H = d.H, NH = d.heads;
   const int KE = G * K, PP = 2 * H + PD;
   const int tid = threadIdx.x, nt = blockDim.x;
   const float* Pn = P + ((size_t)b * N + n0) * PW;
@@ -1147,21 +1159,11 @@ __device__ void edge_attention(
     }
     for (int c = 0; c < 3; ++c) s.d3[r * 3 + c] = d3[c];
   }
-  const bool fold = Fq != nullptr;
-  const Fold f = fold_geom(d, G);
-  float* wf = s.kv + s.KC * f.nc;  // the folded weight, after its tile
-  if (fold) {
-    load_fold(H, NH, f, Fq, G, v2W, v2b, wf);
-    __syncthreads();
-  } else {
-    for (int idx = tid; idx < G * H; idx += nt)
-      s.qt[idx] = Pn[(idx / H) * PW + qcol + idx % H] + q_b0[idx % H];
-    __syncthreads();
-    ln_rows(s.qt, H, G, H, q_ln_s, q_ln_b, true);
-    __syncthreads();
-    for (int g = 0; g < G; ++g)
-      vec_mat(s.qt + g * H, q_W1, H, H, H, q_b1, s.qv + g * H, s.ring);
-  }
+  const Fold f = fold_geom(d, G, VF);
+  // the folded weight, after its tile
+  float* wf = s.fold + s.KC * f.nc;
+  load_fold<VF>(H, NH, f, Fq, G, v2W, v2b, wf);
+  __syncthreads();
   for (int c0 = 0; c0 < KE; c0 += s.KC) {
     const int kc = imin(s.KC, KE - c0);
     // features over (edge, rbf) pairs, then the 16 closing columns of a
@@ -1204,32 +1206,22 @@ __device__ void edge_attention(
     ln_rows(s.pre + H, PP, kc, H, e_ln_s + (ln_row + 1) * H,
             e_ln_b + (ln_row + 1) * H, true);
     __syncthreads();
-    if (fold) {
-      mm_fold(s.pre, PP, kc, wf, f.pitch, H, f.nc, s.kv, f.nc, f.voff, H);
-      const float* bf = wf + ((H + 7) & ~7) * f.pitch;
-      for (int idx = tid; idx < kc * NH; idx += nt) {
-        const int k = idx / NH, hh = idx - k * NH, ke = c0 + k;
-        const int col = (ke / K) * NH + hh;
-        const float* t = s.kv + k * f.nc;
-        s.sc[ke * NH + hh] = t[col] + bf[col];
+    mm_fold(s.pre, PP, kc, wf, f.pitch, H, f.nc, s.fold, f.nc, f.voff, H);
+    const float* bf = wf + ((H + 7) & ~7) * f.pitch;
+    for (int idx = tid; idx < kc * NH; idx += nt) {
+      const int k = idx / NH, hh = idx - k * NH, ke = c0 + k;
+      const int col = (ke / K) * NH + hh;
+      const float* t = s.fold + k * f.nc;
+      s.sc[ke * NH + hh] = t[col] + bf[col];
+      if (VF)
         s.v[ke * s.ldv + hh] = (t[f.voff + hh] + bf[f.voff + hh]) * s.ew[ke];
-      }
-    } else {
-      mm(s.pre, PP, kc, wmat(k2W, H), H, H, k2b, s.kv, PP, false, s.ring);
+    }
+    if (!VF)
       mm(s.pre + H, PP, kc, wmat(v2W, Nv), H, Nv, v2b, s.v + c0 * s.ldv,
          s.ldv, false, s.ring);
-      for (int idx = tid; idx < kc * NH; idx += nt) {
-        const int k = idx / NH, hh = idx % NH;
-        const float* qv = s.qv + ((c0 + k) / K) * H;
-        float acc = 0.f;
-        for (int c = 0; c < dh; ++c)
-          acc += s.kv[k * PP + hh * dh + c] * qv[hh * dh + c];
-        s.sc[c0 * NH + idx] = acc / sqrtf((float)dh);
-      }
-    }
     __syncthreads();
   }
-  if (!fold) {
+  if (!VF) {
     for (int idx = tid; idx < KE * Nv; idx += nt) {
       const int k = idx / Nv, c = idx % Nv;
       s.v[k * s.ldv + c] *= s.ew[k];
@@ -1244,6 +1236,9 @@ __device__ void edge_attention(
 // Row source of bond_attention that reads the bond grid from device
 // memory: rows[sr] = hbg[b, s0 + sr, dl, :] (pitch H+PD).
 struct HbColumnRows {
+  // reads device memory into `rows` only: a fold copied before the passes
+  // stays intact
+  static constexpr bool kFoldKept = true;
   const float* hbg;
   __device__ void operator()(const Dims& d, int b, int dl, int s0, int ns,
                              float* rows) const {
@@ -1271,39 +1266,54 @@ struct PairMask {
 // features of sources [s0, s0+ns) towards dl in rows[ns][H+PD] (and ends
 // with a block barrier); then the first layer (columns of W1 [H, 2H]) plus
 // the node terms P[dst][dcol:dcol+2H] and P[NP+s][scol:scol+2H], LN+ReLU,
-// second layers (k: H columns into kv, v: Nv columns into vall[s][ldv],
-// which may be `rows` itself when one pass takes all sources), the query
-// (already in qv) and scores into scb[s][heads]; then the masked softmax
-// over s. Stage C passes Fq (the destination's query folded into the key
-// layer, see load_fold): the key and value layers are one product on it,
-// copied in each pass (`load_rows` may use the region it lies in); the
-// query in qv is then not read.
-template <class Rows>
+// the second layers and scores into scb[s][heads]; then the masked softmax
+// over s. The destination's query comes folded into the key layer (Fq, see
+// load_fold; the copies complete at the first-layer product's first
+// wait), copied once before the passes, or after each pass's rows where
+// the row loader's scratch lies over it (Rows::kFoldKept false: B2's
+// AttRows). The scores are one product on it, and the Nv value columns
+// (into vall[s][ldv], which may be `rows` itself when one pass takes all
+// sources) ride in it with VF (stage C, Nv = heads), else take their own
+// `mm` (stage A, Nv = H).
+template <bool VF, class Rows>
 __device__ void bond_attention(
     const Dims& d, const Args& a, const EdgeSmem& s, int R, int nsrc,
     float* rows, float* vall, int ldv, float* scb, int b, int dl,
     const Rows& load_rows, const float* P, int PW, int dcol, int scol,
-    const float* W1, const float* b1, const float* ln_s, const float* ln_b, const float* k2W,
-    const float* k2b, const float* v2W, const float* v2b, int Nv,
-    const float* Fq) {
-  const int N = d.NP + d.NL, NL = d.NL, H = d.H, NH = d.heads, dh = H / NH;
-  const int PH = H + PD, PP = 2 * H + PD;
+    const float* W1, const float* b1, const float* ln_s, const float* ln_b,
+    const float* v2W, const float* v2b, int Nv, const float* Fq) {
+  const int NL = d.NL;
   const int tid = threadIdx.x, nt = blockDim.x;
-  const float* Pn = P + ((size_t)b * N + d.NP + dl) * PW;
-  const bool fold = Fq != nullptr;
-  const Fold f = fold_geom(d, 1);
-  float* wf = s.kv + R * f.nc;  // the folded weight, after its tile
+  if (Rows::kFoldKept) {
+    const Fold f = fold_geom(d, 1, VF);
+    load_fold<VF>(d.H, d.heads, f, Fq, 1, v2W, v2b, s.kv + R * f.nc);
+  }
   for (int s0 = 0; s0 < nsrc; s0 += R) {
     const int ns = imin(R, nsrc - s0);
     load_rows(d, b, dl, s0, ns, rows);
-    // the fold's copies complete at the first-layer product's first wait
-    if (fold) load_fold(H, NH, f, Fq, 1, v2W, v2b, wf);
+    // After a row loader whose scratch lies over the fold (B2's AttRows),
+    // the pass's sizes and coordinates go through an empty asm, so that
+    // nothing computed from them is hoisted above the loader, where it
+    // would hold registers through B2's loops and their product calls:
+    // hoisted so, att_pos_kernel ran 5-10% slower on an H100.
+    Dims w = d;
+    int bw = b, dlw = dl, PWw = PW, dcw = dcol, scw = scol;
+    if (!Rows::kFoldKept)
+      asm volatile("" : "+r"(w.H), "+r"(w.heads), "+r"(w.NP), "+r"(w.NL),
+                   "+r"(bw), "+r"(dlw), "+r"(PWw), "+r"(dcw), "+r"(scw));
+    const int H = w.H, NH = w.heads, PH = H + PD, PP = 2 * H + PD;
+    const int N = w.NP + w.NL;
+    const float* Pn = P + ((size_t)bw * N + w.NP + dlw) * PWw;
+    const Fold f = fold_geom(w, 1, VF);
+    // the folded weight, after its tile
+    float* wf = s.kv + R * f.nc;
+    if (!Rows::kFoldKept) load_fold<VF>(H, NH, f, Fq, 1, v2W, v2b, wf);
     mm(rows, PH, ns, wmat(W1, 2 * H), H, 2 * H, b1, s.pre, PP, false, s.ring);
     for (int idx = tid; idx < ns * (H >> 1); idx += nt) {
       const int sr = idx / (H >> 1), c = (idx % (H >> 1)) * 4;
-      const float4 dv = ld4(Pn + dcol + c);
+      const float4 dv = ld4(Pn + dcw + c);
       const float4 sv =
-          ld4(P + ((size_t)b * N + d.NP + s0 + sr) * PW + scol + c);
+          ld4(P + ((size_t)bw * N + w.NP + s0 + sr) * PWw + scw + c);
       float* o = s.pre + sr * PP + c;
       const float4 v = ld4(o);
       st4(o, make_float4(v.x + (dv.x + sv.x), v.y + (dv.y + sv.y),
@@ -1313,31 +1323,25 @@ __device__ void bond_attention(
     ln_rows(s.pre, PP, ns, H, ln_s, ln_b, true);
     ln_rows(s.pre + H, PP, ns, H, ln_s + H, ln_b + H, true);
     __syncthreads();
-    if (fold) {
-      mm_fold(s.pre, PP, ns, wf, f.pitch, H, f.nc, s.kv, f.nc, f.voff, H);
-      const float* bf = wf + ((H + 7) & ~7) * f.pitch;
-      for (int idx = tid; idx < ns * NH; idx += nt) {
-        const int sr = idx / NH, hh = idx - sr * NH;
-        const float* t = s.kv + sr * f.nc;
-        scb[(s0 + sr) * NH + hh] = t[hh] + bf[hh];
+    mm_fold(s.pre, PP, ns, wf, f.pitch, H, f.nc, s.kv, f.nc, f.voff, H);
+    const float* bf = wf + ((H + 7) & ~7) * f.pitch;
+    for (int idx = tid; idx < ns * NH; idx += nt) {
+      const int sr = idx / NH, hh = idx - sr * NH;
+      const float* t = s.kv + sr * f.nc;
+      scb[(s0 + sr) * NH + hh] = t[hh] + bf[hh];
+      if (VF)
         vall[(s0 + sr) * ldv + hh] = t[f.voff + hh] + bf[f.voff + hh];
-      }
-    } else {
-      mm(s.pre, PP, ns, wmat(k2W, H), H, H, k2b, s.kv, PH, false, s.ring);
+    }
+    if (!VF)
       mm(s.pre + H, PP, ns, wmat(v2W, Nv), H, Nv, v2b, vall + s0 * ldv, ldv,
          false, s.ring);
-      for (int idx = tid; idx < ns * NH; idx += nt) {
-        const int sr = idx / NH, hh = idx % NH;
-        float acc = 0.f;
-        for (int c = 0; c < dh; ++c)
-          acc += s.kv[sr * PH + hh * dh + c] * s.qv[hh * dh + c];
-        scb[(s0 + sr) * NH + hh] = acc / sqrtf((float)dh);
-      }
-    }
     __syncthreads();
   }
-  const float* ml = FP(T_MASK_L) + (size_t)b * NL;
-  softmax_heads(scb, nsrc, NH, PairMask{ml, ml[dl], dl});
+  int bw = b, dlw = dl, NLw = NL, NHw = d.heads;
+  if (!Rows::kFoldKept)
+    asm volatile("" : "+r"(bw), "+r"(dlw), "+r"(NLw), "+r"(NHw));
+  const float* ml = FP(T_MASK_L) + (size_t)bw * NLw;
+  softmax_heads(scb, nsrc, NHw, PairMask{ml, ml[dlw], dlw});
   __syncthreads();
 }
 
@@ -1351,19 +1355,34 @@ enum {
   NA_COUNT
 };
 
+// Floats of one destination's fold F [H+1][heads].
+__host__ __device__ inline size_t fold_floats(const Dims& d) {
+  return (size_t)(d.H + 1) * d.heads;
+}
+
+// Stage A's scratch NA_P holds the node projections [B*N][PW], then the
+// folded queries of node_pos_query_kernel: the kNN edges' [B*N][H+1][heads]
+// (every node), then the bond grid's [B*NL][H+1][heads] (the ligand rows;
+// none for a padded one).
+__host__ __device__ inline float* node_folds(const Dims& d, const Args& a,
+                                             int PW) {
+  return OUTP(NA_P) + (size_t)d.B * (d.NP + d.NL) * PW;
+}
+
 // Stage A for nodes n0 .. n0 + G - 1 of graph b: the kNN edge attention of
 // all G at once (G * K rows a weight pass), then the bond-grid attention of
-// each ligand node that holds an atom, and the output layer. A padded
-// ligand slot skips its bond grid: every weight of its pool is exactly 0
-// (PairMask), so the pool would add exact zeros to its kNN attention. P
-// holds the node projections h @ nodeA_W in columns [0, 10H) of rows of
-// pitch PW.
+// each ligand node that holds an atom, and the output layer. Both take
+// their queries folded into the key layer (load_fold,
+// node_pos_query_kernel). A padded ligand slot skips its bond grid: every
+// weight of its pool is exactly 0 (PairMask), so the pool would add exact
+// zeros to its kNN attention; it has no bond-grid fold. P holds the node
+// projections h @ nodeA_W in columns [0, 10H) of rows of pitch PW.
 __device__ void node_body(const Dims& d, const Args& a, float* sm, int R,
                           int b, int n0, int G, int PW) {
   const int tid = threadIdx.x;
   const int N = d.NP + d.NL, H = d.H, NH = d.heads, dh = H / NH;
   const Lay L = stage_layout(d, H, R, true, 0, G);
-  const EdgeSmem s = edge_smem(sm, L, d.H);
+  const EdgeSmem s = edge_smem(sm, L);
   const bool one_pass = R >= d.NL;
   float *rows = sm + L.rows, *scb = sm + L.scb;
   float* vall = one_pass ? rows : sm + L.vall;
@@ -1371,13 +1390,15 @@ __device__ void node_body(const Dims& d, const Args& a, float* sm, int R,
   float* outv = sm + L.outv;
   const float* xb = FP(NA_X) + (size_t)b * N * 3;
   const float* P = FP(NA_P);
-  const float* qW1 = FP(NA_Q_W1);
+  // the folds (node_folds) are addressed where they are passed: a pointer
+  // kept across the edge attention costs the products registers
   G = imin(G, N - n0);
-  edge_attention(d, a, s, b, n0, G, xb, P, PW, 0, 0, FP(NA_E_W), FP(NA_E_B),
-                 FP(NA_DIRE_W), FP(NA_DIRE_B), FP(NA_E_LN_S), FP(NA_E_LN_B),
-                 FP(NA_E_K2), FP(NA_E_B2), FP(NA_E_K2) + H * H,
-                 FP(NA_E_B2) + H, H, 4 * H, FP(NA_Q_B0), FP(NA_Q_LN_S),
-                 FP(NA_Q_LN_B), qW1, FP(NA_Q_B1), nullptr);
+  edge_attention<false>(d, a, s, b, n0, G, xb, P, PW, 0, 0, FP(NA_E_W),
+                        FP(NA_E_B), FP(NA_DIRE_W), FP(NA_DIRE_B),
+                        FP(NA_E_LN_S), FP(NA_E_LN_B), FP(NA_E_K2) + H * H,
+                        FP(NA_E_B2) + H, H,
+                        node_folds(d, a, PW) +
+                            ((size_t)b * N + n0) * fold_floats(d));
   for (int g = 0; g < G; ++g)
     pool_cols(s.sc + g * d.K * NH, NH, s.v + g * d.K * s.ldv, s.ldv, d.K, H,
               dh, outv + g * H, false, s.ring);
@@ -1387,20 +1408,16 @@ __device__ void node_body(const Dims& d, const Args& a, float* sm, int R,
     const int n = n0 + g;
     if (n >= d.NP && ml[n - d.NP] != 0.f) {
       const int dl = n - d.NP;
-      const float* Pn = P + ((size_t)b * N + n) * PW;
-      if (tid < H) s.qt[tid] = Pn[5 * H + tid] + FP(NA_Q_B0)[H + tid];
-      __syncthreads();
-      ln_rows(s.qt, H, 1, H, FP(NA_Q_LN_S) + H, FP(NA_Q_LN_B) + H, true);
-      __syncthreads();
-      vec_mat(s.qt, qW1 + H * H, H, H, H, FP(NA_Q_B1) + H, s.qv, s.ring);
       if (nsrc < 0)
         nsrc = valid_sources(ml, d.NL,
                              reinterpret_cast<int*>(sm + L.misc + 7));
-      bond_attention(d, a, s, R, nsrc, rows, vall, ldv, scb, b, dl,
-                     HbColumnRows{FP(NA_HB)}, P, PW, 6 * H, 8 * H, FP(NA_B_W),
-                     FP(NA_B_B), FP(NA_B_LN_S), FP(NA_B_LN_B), FP(NA_B_K2),
-                     FP(NA_B_B2), FP(NA_B_K2) + H * H, FP(NA_B_B2) + H, H,
-                     nullptr);
+      bond_attention<false>(
+          d, a, s, R, nsrc, rows, vall, ldv, scb, b, dl,
+          HbColumnRows{FP(NA_HB)}, P, PW, 6 * H, 8 * H, FP(NA_B_W),
+          FP(NA_B_B), FP(NA_B_LN_S), FP(NA_B_LN_B), FP(NA_B_K2) + H * H,
+          FP(NA_B_B2) + H, H,
+          node_folds(d, a, PW) +
+              ((size_t)d.B * N + (size_t)b * d.NL + dl) * fold_floats(d));
       pool_cols(scb, NH, vall, ldv, nsrc, H, dh, outv + g * H, true, s.ring);
     }
   }
@@ -1431,8 +1448,8 @@ enum {
 };
 
 // Stage C's scratch PA_P holds the node projections [B*N][10H], then the
-// folded queries of pos_query_kernel F [B*NL][2][H+1][heads].
-__device__ __forceinline__ float* pos_folds(const Dims& d, const Args& a) {
+// folded queries of node_pos_query_kernel F [B*NL][2][H+1][heads].
+__host__ __device__ inline float* pos_folds(const Dims& d, const Args& a) {
   return OUTP(PA_P) + (size_t)d.B * (d.NP + d.NL) * 10 * d.H;
 }
 
@@ -1442,7 +1459,7 @@ __device__ __forceinline__ float* pos_folds(const Dims& d, const Args& a) {
 // towards a destination of the first nsrc sources (see bond_attention,
 // valid_sources). The kNN edge attention of all G runs at once (G * K rows
 // a weight pass), then the bond-grid attention of each. Both take their
-// queries folded into the key layer (load_fold, pos_query_kernel).
+// queries folded into the key layer (load_fold, node_pos_query_kernel).
 template <class Rows>
 __device__ void pos_body(const Dims& d, const Args& a, float* sm,
                          const Lay& L, int b, int dl0, int G, int nsrc,
@@ -1451,20 +1468,19 @@ __device__ void pos_body(const Dims& d, const Args& a, float* sm,
   const int lane = tid & 31, warp = tid >> 5;
   const int NP = d.NP, N = NP + d.NL, H = d.H, NH = d.heads, K = d.K;
   const int PW = 10 * H;
-  const EdgeSmem s = edge_smem(sm, L, d.H);
+  const EdgeSmem s = edge_smem(sm, L);
   float *rows = sm + L.rows, *vall = sm + L.vall, *scb = sm + L.scb;
   float *outv = sm + L.outv, *wp = sm + L.wp, *dxe = sm + L.misc;  // [3G]
   const float* xb = FP(PA_X) + (size_t)b * N * 3;
+  // F of destination dl, attention 0 (kNN edges) or 1 (bond grid): see
+  // node_body for why it is addressed where it is passed
   const float* P = FP(PA_P);
-  // F of destination dl, attention 0 (kNN edges) or 1 (bond grid)
-  const size_t fstride = (size_t)(H + 1) * NH;
-  const float* F0 =
-      pos_folds(d, a) + ((size_t)b * d.NL + dl0) * 2 * fstride;
-  edge_attention(d, a, s, b, NP + dl0, G, xb, P, PW, 2 * H, 2, FP(PA_E_W),
-                 FP(PA_E_B), FP(PA_DIRE_W), FP(PA_DIRE_B), FP(PA_E_LN_S),
-                 FP(PA_E_LN_B), FP(PA_E_XK2), FP(PA_E_XK2B), FP(PA_E_XV2),
-                 FP(PA_E_XV2B), NH, 4 * H, nullptr, nullptr, nullptr,
-                 nullptr, nullptr, F0);
+  edge_attention<true>(d, a, s, b, NP + dl0, G, xb, P, PW, 2 * H, 2,
+                       FP(PA_E_W), FP(PA_E_B), FP(PA_DIRE_W), FP(PA_DIRE_B),
+                       FP(PA_E_LN_S), FP(PA_E_LN_B), FP(PA_E_XV2),
+                       FP(PA_E_XV2B), NH,
+                       pos_folds(d, a) +
+                           ((size_t)b * d.NL + dl0) * 2 * fold_floats(d));
   // w_e[k] = mean over heads of alpha * xv; dx_edge = sum_k w_e[k] rel[k]
   for (int k = tid; k < G * K; k += nt) {
     float we = 0.f;
@@ -1482,28 +1498,37 @@ __device__ void pos_body(const Dims& d, const Args& a, float* sm,
     if (lane == 0) dxe[warp] = acc;
   }
   for (int g = 0; g < G; ++g) {
-    const int dl = dl0 + g, n = NP + dl;
-    bond_attention(d, a, s, L.R, nsrc, rows, vall, NH, scb, b, dl, load_rows,
-                   P, PW, 6 * H, 8 * H, FP(PA_P_W), FP(PA_P_B),
-                   FP(PA_P_LN_S), FP(PA_P_LN_B), FP(PA_P_XK2), FP(PA_P_XK2B),
-                   FP(PA_P_XV2), FP(PA_P_XV2B), NH,
-                   F0 + (2 * g + 1) * fstride);
+    const int dl = dl0 + g;
+    bond_attention<true>(d, a, s, L.R, nsrc, rows, vall, NH, scb, b, dl,
+                         load_rows, P, PW, 6 * H, 8 * H, FP(PA_P_W),
+                         FP(PA_P_B), FP(PA_P_LN_S), FP(PA_P_LN_B),
+                         FP(PA_P_XV2), FP(PA_P_XV2B), NH,
+                         pos_folds(d, a) +
+                             (((size_t)b * d.NL + dl) * 2 + 1) *
+                                 fold_floats(d));
+    // after B2's rows, addressed from opaque values as in bond_attention
+    Dims dw = d;
+    int bw = b, dlw = dl;
+    if (!Rows::kFoldKept)
+      asm volatile("" : "+r"(dw.heads), "+r"(dw.NP), "+r"(dw.NL), "+r"(bw),
+                   "+r"(dlw));
+    const int NHw = dw.heads, NPw = dw.NP, Nw = dw.NP + dw.NL;
     for (int sr = tid; sr < nsrc; sr += nt) {
       float w = 0.f;
-      for (int hh = 0; hh < NH; ++hh)
-        w += scb[sr * NH + hh] * vall[sr * NH + hh];
-      wp[sr] = w / NH;
+      for (int hh = 0; hh < NHw; ++hh)
+        w += scb[sr * NHw + hh] * vall[sr * NHw + hh];
+      wp[sr] = w / NHw;
     }
     __syncthreads();
     if (warp < 3) {
-      const float* pl = xb + (size_t)NP * 3;
+      const float* pl = FP(PA_X) + ((size_t)bw * Nw + NPw) * 3;
       float acc = 0.f;
       for (int sr = lane; sr < nsrc; sr += 32)
-        acc += wp[sr] * (pl[dl * 3 + warp] - pl[sr * 3 + warp]);
+        acc += wp[sr] * (pl[dlw * 3 + warp] - pl[sr * 3 + warp]);
       acc = warp_sum(acc);
       if (lane == 0) {
-        const float md = FP(T_MASK_L)[(size_t)b * d.NL + dl];
-        const size_t o = ((size_t)b * N + n) * 3 + warp;
+        const float md = FP(T_MASK_L)[(size_t)bw * dw.NL + dlw];
+        const size_t o = ((size_t)bw * Nw + NPw + dlw) * 3 + warp;
         OUTP(PA_OUT)[o] = FP(PA_X)[o] + (dxe[3 * g + warp] + acc) * md;
       }
     }
@@ -1541,16 +1566,16 @@ pos_kernel(Dims d, Args a, int R, int G) {
   pos_body(d, a, sm, L, b, first, filled, nsrc, HbColumnRows{FP(PA_HB)});
 }
 
-// Stage C's queries and their folds (load_fold), a grid-wide phase between
-// rows_gemm and stage C's main kernel: block (x, a) takes QROWS ligand rows
-// and attention a (0: kNN edges, query slot 2; 1: bond grid, slot 3): q =
-// relu(LN(P[row][(4+a)H..] + q_b0)) @ q_W1 + q_b1 for all of them in one
-// product, then F[row][a][c][h] = k2W[c][h-slice] . q[row][h-slice] /
-// sqrt(dh) and F[row][a][H][h] = k2b[h-slice] . q[row][h-slice] / sqrt(dh)
-// with each thread's dh weights of (c, h) read once for the block's rows.
-// This replaces two single-row products and two reads of k2W a destination
-// in stage C's blocks, where each was a chain of L2 round trips. A padded
-// row (ml 0) gets no fold: stage C reads none of its.
+// Queries and their folds (load_fold), a grid-wide phase between a stage's
+// rows_gemm and its main kernel, for stages A and C: block (x, y) takes
+// QROWS rows of job y, one attention's destinations: q = relu(LN(P[row]
+// [col..col+H) + q_b0)) @ q_W1 + q_b1 for all of them in one product, then
+// F[c][h] = k2W[c][h-slice] . q[h-slice] / sqrt(dh) and F[H][h] =
+// k2b[h-slice] . q[h-slice] / sqrt(dh) with each thread's dh weights of
+// (c, h) read once for the block's rows. This replaces single-row products
+// and reads of k2W a destination in the stages' blocks, where each was a
+// chain of L2 round trips. A row whose mask is 0 gets no fold: its stage
+// reads none of its.
 #define QROWS 16
 template <int DH>
 __device__ void fold_rows(int H, int NH, const float* q, int ldq, int nr,
@@ -1572,7 +1597,7 @@ __device__ void fold_rows(int H, int NH, const float* q, int ldq, int nr,
       }
     }
     for (int r = 0; r < nr; ++r) {
-      if (ml[r] == 0.f) continue;
+      if (ml && ml[r] == 0.f) continue;
       const float* qh = q + r * ldq + h * dh;
       float acc = 0.f;
       if (DH) {
@@ -1586,41 +1611,48 @@ __device__ void fold_rows(int H, int NH, const float* q, int ldq, int nr,
   }
 }
 
-__global__ void __launch_bounds__(NT, 1) pos_query_kernel(Dims d, Args a) {
+// One attention's query phase: its `rows` destinations, row r at row
+// (r / rpb) * bstride + roff + r % rpb of the node projections P (pitch
+// PW), whose columns [col, col + H) are the query's first layer; its query
+// MLP (q_b0 .. q_b1 of one slot) and the key layer it folds into; row r's
+// F at F + r * fs. ml: row r's mask (null: every row gets a fold).
+struct QueryJob {
+  const float *P, *qb0, *ln_s, *ln_b, *W1, *b1, *k2W, *k2b, *ml;
+  float* F;
+  int PW, col, rows, rpb, bstride, roff, fs;
+};
+struct QueryJobs {
+  QueryJob j[2];
+};
+
+__global__ void __launch_bounds__(NT, 1)
+node_pos_query_kernel(Dims d, QueryJobs jobs) {
   extern __shared__ float sm[];  // z [QROWS][H+PD] | q [QROWS][H+PD] | ring
-  const int H = d.H, NH = d.heads, PH = H + PD, PW = 10 * H;
-  const int at = blockIdx.y, r0 = blockIdx.x * QROWS;
-  const int nr = imin(QROWS, d.B * d.NL - r0);
-  const int slot = 2 + at;
+  const QueryJob& j = jobs.j[blockIdx.y];
+  const int H = d.H, NH = d.heads, PH = H + PD;
+  const int r0 = blockIdx.x * QROWS;
+  if (r0 >= j.rows) return;
+  const int nr = imin(QROWS, j.rows - r0);
   float *z = sm, *q = sm + QROWS * PH, *ring = sm + 2 * QROWS * PH;
-  const float* qb0 = FP(PA_Q_B0) + slot * H;
   for (int idx = threadIdx.x; idx < nr * H; idx += blockDim.x) {
     const int r = idx / H, c = idx - r * H, row = r0 + r;
-    const int b = row / d.NL, dl = row - b * d.NL;
-    z[r * PH + c] =
-        FP(PA_P)[((size_t)b * (d.NP + d.NL) + d.NP + dl) * PW + (4 + at) * H +
-                 c] +
-        qb0[c];
+    const size_t src =
+        (size_t)(row / j.rpb) * j.bstride + j.roff + row % j.rpb;
+    z[r * PH + c] = j.P[src * j.PW + j.col + c] + j.qb0[c];
   }
   __syncthreads();
-  ln_rows(z, PH, nr, H, FP(PA_Q_LN_S) + slot * H, FP(PA_Q_LN_B) + slot * H,
-          true);
+  ln_rows(z, PH, nr, H, j.ln_s, j.ln_b, true);
   __syncthreads();
-  mm(z, PH, nr, wmat(FP(PA_Q_W1) + (size_t)slot * H * H, H), H, H,
-     FP(PA_Q_B1) + slot * H, q, PH, false, ring);
-  const float* k2W = FP(at ? PA_P_XK2 : PA_E_XK2);
-  const float* k2b = FP(at ? PA_P_XK2B : PA_E_XK2B);
-  const size_t fstride = (size_t)2 * (H + 1) * NH;
-  float* F =
-      pos_folds(d, a) + (size_t)r0 * fstride + (size_t)at * (H + 1) * NH;
-  const float* ml = FP(T_MASK_L) + r0;  // [B][NL]: ligand row r0 + r
+  mm(z, PH, nr, wmat(j.W1, H), H, H, j.b1, q, PH, false, ring);
+  float* F = j.F + (size_t)r0 * j.fs;
+  const float* ml = j.ml ? j.ml + r0 : nullptr;
   // dh == 8: the flagship's (and every release config's) head width, its
   // weights and queries in 16-byte loads. The one generic loop (dh a
   // runtime bound) made stage C 1.8-2.6% slower on the H100 (PERF.md).
   if (H / NH == 8)
-    fold_rows<8>(H, NH, q, PH, nr, ml, k2W, k2b, F, fstride);
+    fold_rows<8>(H, NH, q, PH, nr, ml, j.k2W, j.k2b, F, j.fs);
   else
-    fold_rows<0>(H, NH, q, PH, nr, ml, k2W, k2b, F, fstride);
+    fold_rows<0>(H, NH, q, PH, nr, ml, j.k2W, j.k2b, F, j.fs);
 }
 
 // --------------------------------------- stage B1: triplet pre-features
@@ -2150,6 +2182,8 @@ trip_att_kernel(Dims d, Args a, int R, int HG) {
 // are idle while the rows are made).
 template <class BT>
 struct AttRows {
+  // B2's tiles lie over the fold: it is copied again after each pass's rows
+  static constexpr bool kFoldKept = false;
   const Args* ta;
   AttSmem s;
   __device__ void operator()(const Dims& d, int b, int dl, int s0, int ns,
@@ -2289,8 +2323,61 @@ static int plan_nodes(const Dims& d, int which) {
   return plan_rows(which, d, 2) == plan_rows(which, d, 1) ? 2 : 1;
 }
 
+// One attention's query job (QueryJob) of MLP slot `slot` (the packed
+// q_b0 .. q_b1 in a.p[q0 .. q0 + 4]), the query's first layer in columns
+// [col, col + H) of the node projections a.p[P] of pitch PW: for every
+// ligand row (lig; a padded one gets no fold) or every row.
+static QueryJob query_job(const Dims& d, const Args& a, int P, int PW,
+                          int q0, int slot, int col, bool lig,
+                          const float* k2W, const float* k2b, float* F,
+                          size_t fs) {
+  const int H = d.H, N = d.NP + d.NL;
+  QueryJob j;
+  j.P = FP(P); j.PW = PW; j.col = col;
+  j.qb0 = FP(q0) + slot * H;
+  j.ln_s = FP(q0 + 1) + slot * H;
+  j.ln_b = FP(q0 + 2) + slot * H;
+  j.W1 = FP(q0 + 3) + (size_t)slot * H * H;
+  j.b1 = FP(q0 + 4) + slot * H;
+  j.k2W = k2W; j.k2b = k2b;
+  j.rows = d.B * (lig ? d.NL : N);
+  j.rpb = lig ? d.NL : j.rows;
+  j.bstride = lig ? N : 0;
+  j.roff = lig ? d.NP : 0;
+  j.ml = lig ? FP(T_MASK_L) : nullptr;
+  j.F = F; j.fs = (int)fs;
+  return j;
+}
+
+static int launch_queries(const Dims& d, const QueryJobs& q,
+                          cudaStream_t st) {
+  const size_t bytes =
+      ((size_t)2 * QROWS * (d.H + PD) + RING_FLOATS) * sizeof(float);
+  cudaFuncSetAttribute(node_pos_query_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)bytes);
+  const int rows = imax(q.j[0].rows, q.j[1].rows);
+  node_pos_query_kernel<<<dim3((rows + QROWS - 1) / QROWS, 2), NT, bytes,
+                          st>>>(d, q);
+  return (int)cudaGetLastError();
+}
+
+// Stage A: its queries and folds (node_pos_query_kernel: the kNN edges'
+// of every row, slot 0 into e_k2[0]; the bond grid's of every ligand row,
+// slot 1 into b_k2[0]), then node_kernel. P (slot NA_P) holds the node
+// projections at pitch PW, made before.
 static int launch_node(const Dims& d, const Args& a, int PW,
                        cudaStream_t st) {
+  const int H = d.H;
+  const size_t fs = fold_floats(d);
+  float* Fe = node_folds(d, a, PW);
+  QueryJobs q;
+  q.j[0] = query_job(d, a, NA_P, PW, NA_Q_B0, 0, 4 * H, false, FP(NA_E_K2),
+                     FP(NA_E_B2), Fe, fs);
+  q.j[1] = query_job(d, a, NA_P, PW, NA_Q_B0, 1, 5 * H, true, FP(NA_B_K2),
+                     FP(NA_B_B2), Fe + (size_t)d.B * (d.NP + d.NL) * fs, fs);
+  int rc = launch_queries(d, q, st);
+  if (rc) return rc;
   const int G = plan_nodes(d), R = plan_rows(PLAN_NODE, d, G);
   if (!R) return (int)cudaErrorInvalidValue;
   const size_t bytes = plan_bytes(PLAN_NODE, d, R, G);
@@ -2316,17 +2403,18 @@ static int launch_trip_pre(const Dims& d, const Args& a, const float* P0,
   return (int)cudaGetLastError();
 }
 
-// Stage C's queries and folds for every ligand row (pos_query_kernel),
+// Stage C's queries and folds for every ligand row (node_pos_query_kernel:
+// the kNN edges' slot 2 into e_xk2, the bond grid's slot 3 into p_xk2),
 // after rows_gemm has made the node projections P.
 static int launch_pos_query(const Dims& d, const Args& a, cudaStream_t st) {
-  const size_t bytes =
-      ((size_t)2 * QROWS * (d.H + PD) + RING_FLOATS) * sizeof(float);
-  cudaFuncSetAttribute(pos_query_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)bytes);
-  pos_query_kernel<<<dim3((d.B * d.NL + QROWS - 1) / QROWS, 2), NT, bytes,
-                      st>>>(d, a);
-  return (int)cudaGetLastError();
+  const size_t fs = fold_floats(d);
+  QueryJobs q;
+  for (int at = 0; at < 2; ++at)
+    q.j[at] = query_job(d, a, PA_P, 10 * d.H, PA_Q_B0, 2 + at, (4 + at) * d.H,
+                        true, FP(at ? PA_P_XK2 : PA_E_XK2),
+                        FP(at ? PA_P_XK2B : PA_E_XK2B),
+                        pos_folds(d, a) + at * fs, 2 * fs);
+  return launch_queries(d, q, st);
 }
 
 // Phore rows of x pass through stage C unchanged (their update is masked to

@@ -18,6 +18,11 @@ and, merged two by two (`layer_stack(merge_node_pre=, merge_pos=)`, the
 The kernels want H and Wt to be multiples of 4 (`_check_dims`). A wrapper
 takes the plain version only for tensors on the CPU; for CUDA tensors it
 launches its kernel or raises. `LAUNCHES` counts kernel launches per stage.
+On the card, stages A and C (and the merged entries that hold them) take
+the queries of their kNN-edge and bond-grid attentions folded into the key
+layers (score = LN(pre_k) @ W_kq + b_kq, exact algebra), formed in one
+grid-wide phase before the stage's main kernel (`node_pos_query_kernel`);
+the plain versions compute the unfolded scores.
 
 `block_dtype` (`fused_block_dtype`) bfloat16 stores the inter-stage blocks
 pre_t and q_z in bf16 between B1 (or A + B1) and B2 (or B2 + C), as
@@ -604,14 +609,27 @@ def _check_shapes(d: StackDims, B: int, t, **named):
                              f"{want[name]} for {d}")
 
 
+def _node_scratch(d: StackDims, B: int, PW: int, device):
+    """Stage A's scratch: the node projections [B * N, PW], then its
+    queries folded into the key layers (`node_pos_query_kernel`): the kNN
+    edges' [B * N, H + 1, heads] (every node), then the bond grid's
+    [B * NL, H + 1, heads] (the ligand rows; a padded one gets none and
+    the kernel reads none)."""
+    fs = (d.H + 1) * d.heads
+    return torch.empty(B * d.N * PW + B * (d.N + d.NL) * fs, device=device)
+
+
 def stage_node(w, h, x, hb, t, d: StackDims):
-    """Stage A; CUDA kernel for CUDA tensors, plain version on the CPU."""
+    """Stage A; CUDA kernel for CUDA tensors, plain version on the CPU.
+    On the card the queries of both attentions come folded into their key
+    layers from one grid-wide phase before the main kernel
+    (`node_pos_query_kernel`, as stage C's)."""
     if not h.is_cuda:
         return stage_node_plain(w, h, x, hb, t, d)
     B = h.shape[0]
     _check_shapes(d, B, t, h=h, x=x, hb=hb)
     out = torch.empty_like(h)
-    P = torch.empty(B * d.N, 10 * d.H, device=h.device, dtype=torch.float32)
+    P = _node_scratch(d, B, 10 * d.H, h.device)
     named = ([("h", h), ("x", x), ("hb", hb), ("out", out), ("P", P)]
              + [(k, t[k]) for k in _TABLE_ARGS] + [(k, w[k]) for k in _NODE_W])
     _launch("ls_stage_node", named, d, B)
@@ -658,7 +676,7 @@ def stage_triplet_att(w, hb, pre_t, q_z, t, d: StackDims):
 def _pos_scratch(d: StackDims, B: int, device):
     """Stage C's scratch: the node projections [B * N, 10 H], then the
     queries folded into the key layers [B * NL, 2, H + 1, heads] (one per
-    ligand row and attention)."""
+    ligand row and attention; `node_pos_query_kernel`)."""
     return torch.empty(B * d.N * 10 * d.H
                        + B * d.NL * 2 * (d.H + 1) * d.heads, device=device)
 
@@ -681,9 +699,10 @@ def stage_pos(w, new_h, x, hb_new, t, d: StackDims):
 
 def stage_node_pre(w, h, x, hb, t, d: StackDims, block_dtype=torch.float32):
     """Merged stage A + B1; one C entry for CUDA tensors (one node
-    projection phase for both roles, then B1's grid and A's grid, each with
-    its own shared memory), plain version on the CPU. The blocks are
-    stored in `block_dtype`. Returns (new_h, pre_t, q_z)."""
+    projection phase for both roles, then B1's grid, A's folded queries
+    and A's grid, each with its own shared memory), plain version on the
+    CPU. The blocks are stored in `block_dtype`. Returns (new_h, pre_t,
+    q_z)."""
     if not h.is_cuda:
         return stage_node_pre_plain(w, h, x, hb, t, d, block_dtype)
     B = h.shape[0]
@@ -692,7 +711,7 @@ def stage_node_pre(w, h, x, hb, t, d: StackDims, block_dtype=torch.float32):
     pre_t = torch.empty(B, d.NL, d.NL, d.K8, d.Wt, device=h.device,
                         dtype=block_dtype)
     q_z = torch.empty(B, d.NL, d.NL, d.H, device=h.device, dtype=block_dtype)
-    P = torch.empty(B * d.N, 11 * d.H + 2 * d.Wt, device=h.device)
+    P = _node_scratch(d, B, 11 * d.H + 2 * d.Wt, h.device)
     named = ([("h", h), ("x", x), ("hb", hb), ("new_h", new_h), ("P", P)]
              + [(k, t[k]) for k in _TABLE_ARGS]
              + [("nodeAB_W", w["nodeAB_W"])]

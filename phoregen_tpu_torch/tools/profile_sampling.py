@@ -44,7 +44,8 @@ STAGE_NAMES = (("node_pre_kernel", "stage_node_pre (A+B1)"),
                ("trip_att_kernel", "stage_triplet_att (B2)"),
                ("pos_kernel", "stage_pos (C)"),
                ("rows_gemm", "node projections (A, B1, C)"),
-               ("pos_query_kernel", "folded queries (C, B2+C)"),
+               ("node_pos_query_kernel",
+                "folded queries (A, A+B1, C, B2+C)"),
                ("triplet_pool_kernel", "triplet_pool (all-k)"))
 
 

@@ -134,6 +134,44 @@ def test_node_kernel_skips_padded_destinations(cuda, shape):
     torch.testing.assert_close(merged, ref, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["flagship_nl48", "ragged", "empty_graph"])
+def test_node_kernel_reads_no_fold_of_padded_rows(cuda, shape, monkeypatch):
+    """Stage A's scratch (`_node_scratch`: the node projections, then the
+    kNN-edge folds of every node and the bond-grid folds of every ligand
+    row) filled with NaN before each launch: the outputs of stage_node and
+    of the merged A + B1 stay finite and bit-equal to runs on unfilled
+    scratch, and the bond-grid folds of the padded ligand rows are still
+    NaN afterwards (the query phase forms none, node_kernel reads none)."""
+    case = kc.flagship_case(device=cuda, seed=3, **SHAPES[shape])
+    w, t, d, h, x, hb = (case[k] for k in ("w", "t", "d", "h", "x", "hb"))
+    ml = t["mask_l"]
+    assert (ml == 0).any()
+    before = ls.stage_node(w, h, x, hb, t, d)
+    before_pre = ls.stage_node_pre(w, h, x, hb, t, d)
+    made, scratch = [], ls._node_scratch
+
+    def nan_scratch(d_, B, PW, device):
+        P = scratch(d_, B, PW, device).fill_(float("nan"))
+        made.append((P, PW))
+        return P
+
+    monkeypatch.setattr(ls, "_node_scratch", nan_scratch)
+    after = ls.stage_node(w, h, x, hb, t, d)
+    after_pre = ls.stage_node_pre(w, h, x, hb, t, d)
+    torch.cuda.synchronize()
+    assert len(made) == 2
+    assert torch.isfinite(after).all() and torch.isfinite(after_pre[0]).all()
+    assert torch.equal(after, before)
+    for a, b in zip(after_pre, before_pre):
+        assert torch.equal(a, b)
+    B, fs = h.shape[0], (d.H + 1) * d.heads
+    for P, PW in made:
+        Fb = P[B * d.N * (PW + fs):].view(B, d.NL, fs)
+        assert torch.isnan(Fb[ml == 0]).all()
+        assert not torch.isnan(Fb[ml != 0]).any()
+
+
 def _plan(d, B=2):
     """`ls_launch_plan` of the library for dims `d`: {kernel: (rows a pass,
     bytes a block, destinations a block, blocks an SM)}."""

@@ -1,20 +1,22 @@
-"""Stage C's query fold, on the CPU: the scores of its two attentions (the
-kNN edges and the bond grid) taken as LN(pre_k) @ W_kq + b_kq, with
+"""The query fold of stages A and C, on the CPU: the scores of each stage's
+two attentions (the kNN edges and the bond grid) taken as LN(pre_k) @ W_kq
++ b_kq, with
 
     W_kq[:, h] = k2W[:, h-slice] @ q[h-slice] / sqrt(dh)
     b_kq[h]    = k2b[h-slice] . q[h-slice] / sqrt(dh)
 
 formed once a destination, as `csrc/layer_stack.cu` forms them
-(`pos_query_kernel`, then `load_fold`), equal the unfolded
-((LN(pre_k) @ k2W + k2b) * q) summed over each head's dh features /
-sqrt(dh), and equal the scores of the JAX
-package's `_stage_pos` (phoregen_tpu/ops/layer_stack.py:629: `xqk @ hm`,
-`pqk @ hm`). The JAX scores are rebuilt from `_stage_pos`'s own
-intermediates, step by step with the JAX package's helpers, and the
-rebuild is held to `_stage_pos`'s output, so they are the scores it
-computes. Everything here is float32 (numpy for the fold); the kernel's
-products of the fold run on the card (tests/test_torch_port_cuda.py,
-chip_smoke.py).
+(`node_pos_query_kernel`, then `load_fold`), equal the unfolded ((LN(pre_k)
+@ k2W + k2b) * q) summed over each head's dh features / sqrt(dh), and
+equal the scores of the JAX package's stages: `_stage_node`
+(phoregen_tpu/ops/layer_stack.py:449: `qk @ hm`, `qkb @ hm`; branches
+`node_edge`, `node_bond`) and `_stage_pos` (layer_stack.py:629: `xqk @
+hm`, `pqk @ hm`; branches `edge`, `bond`). The JAX scores are rebuilt from
+the stage's own intermediates, step by step with the JAX package's
+helpers, and the rebuild is held to the stage's output, so they are the
+scores it computes. Everything here is float32 (numpy for the fold); the
+kernel's products of the fold run on the card
+(tests/test_torch_port_cuda.py, chip_smoke.py).
 
 Tolerance: 1e-6 absolute and relative. The fold reassociates a sum of H
 products and the query's scale; on these seeded inputs the three forms
@@ -115,6 +117,76 @@ def jax_pos_scores(w, new_h, x, hb_new, t, d):
                 out=f(out))
 
 
+def jax_node_scores(w, h, x, hb, t, d):
+    """`_stage_node` (layer_stack.py:449) step by step for one graph: its
+    intermediates (LN'd key inputs, queries, scores of both branches) and
+    its output, from the same JAX helpers in the same order."""
+    N, NL, NP, K, H, heads = d.N, d.NL, d.NP, d.K, d.H, d.heads
+    dh = H // heads
+    hm = w["head_mask"]
+    e_pre2, _ = jls._knn_edge_prefeat(w, x, t, d, 0, 2 * H)
+    nproj_h = h @ w["e_Wn_h"]
+    j_h = t["nbr_onehot"] @ nproj_h[:, 2 * H:]
+    pre_kv = ((e_pre2 + j_h).reshape(N, K, 2 * H)
+              + jnp.expand_dims(nproj_h[:, :2 * H], 1)).reshape(N * K,
+                                                               2 * H)
+    k_ln = jax.nn.relu(jls._ln(pre_kv[:, :H], w["e_ln_s"][0],
+                               w["e_ln_b"][0]))
+    v_n = jax.nn.relu(jls._ln(pre_kv[:, H:], w["e_ln_s"][1], w["e_ln_b"][1]))
+    k_n = k_ln @ w["e_k2"][0] + w["e_b2"][0]
+    v_n = (v_n @ w["e_k2"][1] + w["e_b2"][1]) * t["e_w"]
+    q_n = jls._qmlp(h, w["q_W0"][0], w["q_b0"][0], w["q_ln_s"][0],
+                    w["q_ln_b"][0], w["q_W1"][0], w["q_b1"][0])
+    qk = (k_n.reshape(N, K, H) * q_n[:, None, :]).reshape(N * K, H)
+    sc_e = (qk @ hm / float(np.sqrt(dh))).reshape(N, K, heads)
+    alpha = jls._softmax0_unrolled(sc_e.transpose(1, 0, 2),
+                                   t["nbr_mask"].transpose(1, 0, 2))
+    alpha_h = alpha.transpose(1, 0, 2).reshape(N * K, heads) @ hm.T
+    out_e = jls._reduce0((alpha_h * v_n).reshape(N, K, H).transpose(1, 0, 2),
+                         jnp.add)
+
+    h_l = h[NP:]
+    b_pre = hb.reshape(NL * NL, H) @ w["b_W"] + w["b_b"]
+    nproj_b = h_l @ w["b_Wn"]
+    pre_b = (b_pre.reshape(NL, NL, 2 * H)
+             + jnp.expand_dims(nproj_b[:, :2 * H], 0)
+             + jnp.expand_dims(nproj_b[:, 2 * H:], 1)).reshape(NL * NL,
+                                                             2 * H)
+    kb_ln = jax.nn.relu(jls._ln(pre_b[:, :H], w["b_ln_s"][0],
+                                w["b_ln_b"][0]))
+    v_b = jax.nn.relu(jls._ln(pre_b[:, H:], w["b_ln_s"][1], w["b_ln_b"][1]))
+    k_b = kb_ln @ w["b_k2"][0] + w["b_b2"][0]
+    v_b = v_b @ w["b_k2"][1] + w["b_b2"][1]
+    q_b = jls._qmlp(h_l, w["q_W0"][1], w["q_b0"][1], w["q_ln_s"][1],
+                    w["q_ln_b"][1], w["q_W1"][1], w["q_b1"][1])
+    qkb = (k_b.reshape(NL, NL, H) * q_b[None, :, :]).reshape(NL * NL, H)
+    sc_b = (qkb @ hm / float(np.sqrt(dh))).reshape(NL, NL, heads)
+    al_b = jls._softmax0_unrolled(sc_b, t["pair_mask"])
+    al_b_h = al_b.reshape(NL * NL, heads) @ hm.T
+    out_b_l = jls._reduce0((al_b_h * v_b).reshape(NL, NL, H), jnp.add)
+    out_b = jnp.concatenate([jnp.zeros((NP, H), h.dtype), out_b_l], 0)
+    out = h + (out_e + out_b) @ w["lin_W"] + w["lin_b"]
+    f = lambda a: np.asarray(a, np.float32)
+    return dict(node_edge=(f(k_ln).reshape(N, K, H), f(q_n), f(sc_e)),
+                node_bond=(f(kb_ln).reshape(NL, NL, H).transpose(1, 0, 2),
+                           f(q_b), f(sc_b).transpose(1, 0, 2)),
+                out=f(out))
+
+
+# branch -> the key layer (k2W, k2b) its query folds into, the rebuild of
+# the JAX stage's scores and the stage itself
+BRANCHES = {
+    "edge": (lambda w: (w["e_xk2"], w["e_xk2b"]), jax_pos_scores,
+             jls._stage_pos),
+    "bond": (lambda w: (w["p_xk2"], w["p_xk2b"]), jax_pos_scores,
+             jls._stage_pos),
+    "node_edge": (lambda w: (w["e_k2"][0], w["e_b2"][0]), jax_node_scores,
+                  jls._stage_node),
+    "node_bond": (lambda w: (w["b_k2"][0], w["b_b2"][0]), jax_node_scores,
+                  jls._stage_node),
+}
+
+
 def fold_query(k2W, k2b, q, heads):
     """W_kq [M, H, heads] and b_kq [M, heads] of M queries q [M, H] (the
     1/sqrt(dh) of the scores taken in), float32."""
@@ -145,24 +217,26 @@ def unfolded_scores(k_ln, q, k2W, k2b, heads):
             / np.float32(np.sqrt(dh))).astype(np.float32)
 
 
-@pytest.mark.parametrize("branch", ["edge", "bond"])
+@pytest.mark.parametrize("branch", ["edge", "bond", "node_edge",
+                                    "node_bond"])
 def test_folded_scores_match_unfolded_and_jax(case, branch):
+    """Stage C's branches (`edge`, `bond`) and stage A's (`node_edge`,
+    `node_bond`); the node stage takes the case's new_h and hb_new as its
+    h and hb."""
     w, t, d = case["w"], case["t"], case["d"]
-    k2 = {"edge": ("e_xk2", "e_xk2b"), "bond": ("p_xk2", "p_xk2b")}[branch]
-    k2W, k2b = (np.asarray(w[k], np.float32) for k in k2)
+    key, scores, stage = BRANCHES[branch]
+    k2W, k2b = (np.asarray(a, np.float32) for a in key(w))
     worst = {}
     for b in range(C.B):
         tb = {k: v[b] for k, v in t.items()}
-        js = jax_pos_scores(w, jnp.asarray(case["new_h"][b]),
-                            jnp.asarray(case["x"][b]),
-                            jnp.asarray(case["hb_new"][b]), tb, d)
-        # the rebuild is _stage_pos itself
-        ref = np.asarray(jls._stage_pos(
-            w, jnp.asarray(case["new_h"][b]), jnp.asarray(case["x"][b]),
-            jnp.asarray(case["hb_new"][b]), tb, d))
+        args = (w, jnp.asarray(case["new_h"][b]), jnp.asarray(case["x"][b]),
+                jnp.asarray(case["hb_new"][b]), tb, d)
+        js = scores(*args)
+        # the rebuild is the stage itself
+        ref = np.asarray(stage(*args))
         np.testing.assert_allclose(js["out"], ref, atol=1e-6, rtol=1e-6)
         k_ln, q, sc_jax = js[branch]
-        if branch == "bond":          # destinations: the ligand rows
+        if branch.endswith("bond"):   # destinations: the ligand rows
             q = q[: d.NL]
         fold = folded_scores(k_ln, q, k2W, k2b, d.heads)
         plain = unfolded_scores(k_ln, q, k2W, k2b, d.heads)
@@ -173,24 +247,26 @@ def test_folded_scores_match_unfolded_and_jax(case, branch):
             worst[name] = max(worst.get(name, 0.0),
                               float(np.abs(fold - a).max()))
     print(f"{case['name']} {branch}: folded vs unfolded "
-          f"{worst['unfolded']:.2e}, vs JAX _stage_pos {worst['jax']:.2e} "
-          f"(tolerance {TOL:g})")
+          f"{worst['unfolded']:.2e}, vs JAX {stage.__name__} "
+          f"{worst['jax']:.2e} (tolerance {TOL:g})")
 
 
 def test_fold_is_exact_algebra(case):
     """In float64 the fold and the unfolded scores agree to rounding: the
-    fold changes no result, only where the sums are taken."""
+    fold changes no result, only where the sums are taken. On the key
+    layers of stage C's kNN edges and of both of stage A's attentions."""
     w, d = case["w"], case["d"]
     rng = np.random.default_rng(11)
     k_ln = np.maximum(rng.normal(size=(3, 5, d.H)), 0.0)
     q = rng.normal(size=(3, d.H))
-    k2W = np.asarray(w["e_xk2"], np.float64)
-    k2b = np.asarray(w["e_xk2b"], np.float64)
     dh = d.H // d.heads
     qs = (q / np.sqrt(dh)).reshape(3, d.heads, dh)
-    W = np.einsum("che,mhe->mch", k2W.reshape(d.H, d.heads, dh), qs)
-    b = np.einsum("he,mhe->mh", k2b.reshape(d.heads, dh), qs)
-    fold = np.einsum("mrc,mch->mrh", k_ln, W) + b[:, None]
-    plain = ((k_ln @ k2W + k2b) * q[:, None]).reshape(
-        3, 5, d.heads, dh).sum(-1) / np.sqrt(dh)
-    np.testing.assert_allclose(fold, plain, atol=1e-12, rtol=1e-12)
+    for branch in ("edge", "node_edge", "node_bond"):
+        k2W, k2b = (np.asarray(a, np.float64) for a in BRANCHES[branch][0](w))
+        W = np.einsum("che,mhe->mch", k2W.reshape(d.H, d.heads, dh), qs)
+        b = np.einsum("he,mhe->mh", k2b.reshape(d.heads, dh), qs)
+        fold = np.einsum("mrc,mch->mrh", k_ln, W) + b[:, None]
+        plain = ((k_ln @ k2W + k2b) * q[:, None]).reshape(
+            3, 5, d.heads, dh).sum(-1) / np.sqrt(dh)
+        np.testing.assert_allclose(fold, plain, atol=1e-12, rtol=1e-12,
+                                   err_msg=branch)
